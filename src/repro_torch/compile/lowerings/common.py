@@ -1,0 +1,76 @@
+"""Helpers shared by the classifier lowerings."""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import fixedpoint as fxp
+from repro_torch.core.fixedpoint import STATS_DTYPE, FxpFormat, FxpStats
+
+__all__ = ["zero_stats", "q", "qx_with_stats", "nbytes", "elem_bytes",
+           "resolve_formats", "as_input", "argmax_first"]
+
+
+def zero_stats(device: torch.device) -> FxpStats:
+    z = torch.zeros((), dtype=STATS_DTYPE, device=device)
+    return FxpStats(z, z, z)
+
+
+def q(x: np.ndarray, fmt: FxpFormat, device: torch.device) -> torch.Tensor:
+    """Quantize static parameters on the host and place them on ``device``."""
+    return fxp.quantize(torch.from_numpy(np.asarray(x, np.float32)),
+                        fmt).to(device)
+
+
+def qx_with_stats(x: torch.Tensor,
+                  fmt: FxpFormat) -> Tuple[torch.Tensor, FxpStats]:
+    return fxp.quantize_with_stats(x, fmt)
+
+
+def as_input(x: Any, device: torch.device) -> torch.Tensor:
+    """A predict input as a float32 tensor on ``device`` (numpy arrays are
+    copied over; tensors already there are used as they are)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    arr = np.ascontiguousarray(x, np.float32)
+    return torch.from_numpy(arr).to(device)
+
+
+def argmax_first(h: torch.Tensor) -> torch.Tensor:
+    """Row-wise argmax taking the first maximum, as ``jnp.argmax`` does —
+    saturated logits at ``qmax`` tie often — as int32."""
+    n = h.shape[-1]
+    idx = torch.arange(n, device=h.device, dtype=torch.int32)
+    best = h.max(dim=-1, keepdim=True).values
+    return torch.where(h == best, idx, n).min(dim=-1).values.to(torch.int32)
+
+
+def nbytes(*arrays) -> int:
+    return int(sum(fxp.to_numpy(a).nbytes for a in arrays))
+
+
+def elem_bytes(fmt: FxpFormat | None) -> int:
+    return 4 if fmt is None else fmt.total_bits // 8
+
+
+def resolve_formats(target, plan) -> Optional[Callable[[str], FxpFormat]]:
+    """Per-tensor format lookup ``F(path) -> FxpFormat``: through the
+    QuantPlan for calibrated targets, the Target's single format for fixed
+    ones, None for float targets."""
+    if target.is_calibrated:
+        if plan is None:
+            raise ValueError(
+                f"Target '{target.number_format}' needs a QuantPlan; compile "
+                f"through repro_torch.compile with a calibration batch")
+        if plan.total_bits != target.container_bits:
+            raise ValueError(
+                f"QuantPlan container width {plan.total_bits} does not match "
+                f"Target '{target.number_format}'")
+        return plan.fmt
+    fixed = target.fmt
+    if fixed is None:
+        return None
+    return lambda path: fixed

@@ -1,0 +1,148 @@
+"""Fused fixed-point layer ``act(qadd(requantize(A @ B), bias))`` in one launch.
+
+Replaces the Pallas kernel ``repro/kernels/fxp_layer.py::fxp_layer_pallas``.
+Two versions of the same function live here:
+
+* :func:`fxp_layer_cuda` launches the hand-written Hopper kernel
+  (``csrc/fxp_layer.cu``): one block per 32x32 output tile, the TPU's
+  sequential K grid axis turned into a loop over shared-memory tiles, an
+  int32 accumulator that wraps at 32 bits, and the shared integer epilogue
+  (``csrc/fxp_common.cuh``).  It counts its launches in
+  ``fxp_layer_cuda.launches``.
+* :func:`fxp_layer_plain` computes the same thing in PyTorch ops — an exact
+  integer product wrapped to int32 (:func:`repro_torch.core.fixedpoint.imatmul`)
+  and the epilogue from :mod:`repro_torch.core` — on any device.  It is the
+  yardstick of correctness, not of speed.
+
+What bounds the kernel on the H100, and what the design does about it, is in
+the source's header comment.  :func:`epilogue_params` packs one layer's
+epilogue constants for both CUDA kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import fixedpoint as fxp
+from repro_torch.core.activations import get_qsigmoid, pwl4_consts
+from repro_torch.core.fixedpoint import FxpFormat
+
+from . import build
+
+__all__ = ["fxp_layer_plain", "fxp_layer_cuda", "epilogue_params",
+           "epilogue_plain",
+           "LAYER_ACTIVATIONS", "REPLACES"]
+
+# "none" = linear output layer (logits); the rest are Qn.m sigmoid variants.
+LAYER_ACTIVATIONS = ("none", "exact", "rational", "pwl2", "pwl4")
+REPLACES = "src/repro/kernels/fxp_layer.py:78"  # fxp_layer_pallas
+
+# Must match fxp::Act and fxp::Epilogue in csrc/fxp_common.cuh.
+_ACT_CODES = {"none": 0, "exact": 1, "rational": 2, "pwl2": 3, "pwl4": 4}
+EPILOGUE_FIELDS = 21
+
+
+@functools.lru_cache(maxsize=256)
+def epilogue_params(shift: int, fmt: FxpFormat, activation: str) -> np.ndarray:
+    """One layer's epilogue as the int64 row the CUDA kernels read
+    (field order of ``fxp::Epilogue``); cached and read-only, since every
+    launch of a compiled model asks for the same rows."""
+    if activation not in _ACT_CODES:
+        raise KeyError(f"activation must be one of {LAYER_ACTIVATIONS}")
+    if not 0 <= shift <= 31:
+        # The accumulator is int32: shifts past its width are degenerate.
+        raise ValueError(f"shift must be in [0, 31] for an int32 "
+                         f"accumulator, got {shift}")
+    log2e_q, (c0, c1, c2, c3) = fxp.exp_poly_consts(fmt)
+    p = pwl4_consts(fmt)
+    row = [shift, _ACT_CODES[activation], fmt.frac_bits, fmt.total_bits,
+           2 * fmt.total_bits, fmt.int_bits, fmt.qmin, fmt.qmax, fxp.one_q(fmt),
+           log2e_q, c0, c1, c2, c3, p["one"], p["half"], p["t5"], p["t2375"],
+           p["t1"], p["c84375"], p["c625"]]
+    assert len(row) == EPILOGUE_FIELDS
+    out = np.asarray(row, np.int64)
+    out.flags.writeable = False
+    return out
+
+
+def fxp_layer_plain(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor,
+                    fmt: FxpFormat, activation: str = "none",
+                    shift: Optional[int] = None) -> torch.Tensor:
+    """The kernel's function in PyTorch ops: int32 accumulation with wrap,
+    then requantize, saturating bias add and activation, in ``fmt``."""
+    if activation not in LAYER_ACTIVATIONS:
+        raise KeyError(f"activation must be one of {LAYER_ACTIVATIONS}")
+    shift = fmt.frac_bits if shift is None else shift
+    acc = fxp.imatmul(a, b, torch.int32)
+    return epilogue_plain(acc, bias[None, :], fmt, activation, shift)
+
+
+def epilogue_plain(acc: torch.Tensor, bias: torch.Tensor, fmt: FxpFormat,
+                   activation: str, shift: int) -> torch.Tensor:
+    """The kernels' epilogue on an int32 accumulator: requantize by
+    ``shift``, saturating bias add, activation, in ``fmt``'s container."""
+    h = fxp.requantize(acc, shift, fmt)
+    h = fxp.qadd(h, bias, fmt)
+    if activation != "none":
+        h = get_qsigmoid(activation)(h, fmt)
+    return h.to(fmt.dtype)
+
+
+def _check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
+                device: torch.device) -> torch.Tensor:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    return t.contiguous()
+
+
+def _lib():
+    lib = build.load("fxp_layer")
+    fn = lib.fxp_layer_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def fxp_layer_cuda(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor,
+                   fmt: FxpFormat, activation: str = "none",
+                   shift: Optional[int] = None) -> torch.Tensor:
+    """Launch the CUDA kernel: a (M, K), b (K, N), bias (N,) in
+    ``fmt.dtype`` on one CUDA device -> (M, N) in ``fmt.dtype``."""
+    if a.device.type != "cuda":
+        raise ValueError(f"fxp_layer_cuda needs CUDA tensors, got {a.device}")
+    shift = fmt.frac_bits if shift is None else shift
+    epi = epilogue_params(shift, fmt, activation)
+    dev = a.device
+    a = _check_cuda("a", a, fmt.dtype, dev)
+    b = _check_cuda("b", b, fmt.dtype, dev)
+    bias = _check_cuda("bias", bias, fmt.dtype, dev)
+    (m, k), (k2, n) = a.shape, b.shape
+    if k != k2 or bias.shape != (n,):
+        raise ValueError(f"shape mismatch: a {tuple(a.shape)}, b "
+                         f"{tuple(b.shape)}, bias {tuple(bias.shape)}")
+    out = torch.empty((m, n), dtype=fmt.dtype, device=dev)
+    if m == 0 or n == 0:
+        return out
+    if k == 0:
+        raise ValueError("fxp_layer needs K >= 1")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = _lib()(a.data_ptr(), b.data_ptr(), bias.data_ptr(),
+                     out.data_ptr(), m, k, n, fmt.total_bits, epi.ctypes.data,
+                     stream)
+    if err != 0:
+        raise RuntimeError(f"fxp_layer kernel launch failed: CUDA error {err}")
+    fxp_layer_cuda.launches += 1
+    return out
+
+
+fxp_layer_cuda.launches = 0
