@@ -8,9 +8,10 @@
     art.memory_report()                 # flash/SRAM footprint model
 
 Stages: ``extract_params -> calibrate -> quantize -> lower -> specialize``,
-dispatched through the lowering registry (``logistic``, ``mlp`` in this
-slice).  ``compile(..., device="cpu")`` runs the kernels' plain PyTorch
-versions on the host.
+dispatched through the lowering registry by model kind: ``tree``,
+``logistic``, ``mlp``, ``svm-linear``, ``svm-poly`` and ``svm-rbf``.
+``compile(..., device="cpu")`` runs the kernels' plain PyTorch versions on
+the host.
 """
 
 from .api import compile, compile_from_params, resolve_device

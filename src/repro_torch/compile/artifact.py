@@ -25,7 +25,7 @@ __all__ = ["CompiledArtifact"]
 class CompiledArtifact:
     """Frozen inference artifact: parameters + specialized predict program."""
 
-    kind: str  # 'logistic' | 'mlp'
+    kind: str  # a registered lowering kind ('tree', 'mlp', 'svm-rbf', ...)
     target: Target
     params: Optional[Dict[str, Any]]  # extracted (float) parameters
     _predict: Callable[..., Tuple[torch.Tensor, FxpStats]] = dataclasses.field(repr=False)

@@ -1,7 +1,7 @@
-"""Lowering for linear decision functions: logistic regression,
-``argmax(x @ W + b)``.  The counterpart of
-:mod:`repro.compile.lowerings.linear`; linear SVMs delegate here once the SVM
-lowering is ported.
+"""Lowering for linear decision functions: logistic regression and linear
+SVMs, ``argmax(x @ W + b)``.  The counterpart of
+:mod:`repro.compile.lowerings.linear`; ``svm-linear`` delegates here from
+:mod:`.svm`.
 
 Fixed-point targets run the decision function as one fused layer op
 (activation ``none``): ``cuda`` through the ``fxp_layer`` kernel (its plain

@@ -20,6 +20,7 @@ from typing import Dict, Optional
 
 from repro_torch.core.activations import SIGMOID_NAMES
 from repro_torch.core.fixedpoint import FXP8, FXP16, FXP32, FxpFormat
+from repro_torch.core.trees import TREE_LAYOUTS
 
 __all__ = ["Target", "NUMBER_FORMATS", "CALIBRATED_FORMATS", "BACKENDS",
            "BATCH_POLICIES", "TREE_LAYOUTS"]
@@ -41,7 +42,6 @@ CALIBRATED_FORMATS: Dict[str, int] = {
 
 BACKENDS = ("ref", "cuda")
 BATCH_POLICIES = ("dynamic", "fixed")
-TREE_LAYOUTS = ("iterative", "ifelse", "oblivious")
 
 
 @dataclasses.dataclass(frozen=True)

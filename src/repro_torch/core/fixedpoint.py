@@ -43,6 +43,7 @@ __all__ = [
     "qmatmul_with_stats",
     "requantize",
     "rshift_round_saturate",
+    "qsq_norm",
     "quantize_with_stats",
     "qexp",
     "qsigmoid",
@@ -248,6 +249,17 @@ def requantize(acc: torch.Tensor, shift: int, fmt: FxpFormat) -> torch.Tensor:
 def rshift_round_saturate(acc: torch.Tensor, fmt: FxpFormat) -> torch.Tensor:
     """``saturate(round_shift(acc, m))`` — the single-format epilogue."""
     return requantize(acc, fmt.frac_bits, fmt)
+
+
+def qsq_norm(q: torch.Tensor, fmt: FxpFormat) -> torch.Tensor:
+    """Row sums of squares ``sum_k q_k^2`` in one rounded shift by ``m``,
+    saturated: the rbf kernel's squared norms.
+
+    Each square fits ``fmt.wide_dtype``, but the reference sums them in
+    int64 at every width (``jnp.sum`` promotes), so the sum here is int64
+    too and wraps modulo 2^64 as that sum does."""
+    wide = q.to(torch.int64)
+    return rshift_round_saturate((wide * wide).sum(-1), fmt)
 
 
 def qmul(a: torch.Tensor, b: torch.Tensor, fmt: FxpFormat) -> torch.Tensor:

@@ -7,6 +7,12 @@ between them by device and :mod:`.ref` holds the int64 oracles.
 
 * fxp_layer      — fused Qn.m layer: int32 matmul + requantize + bias +
                    sigmoid epilogue (replaces ``fxp_layer_pallas``)
-* fxp_model      — whole-MLP megakernel, one launch per forward pass
-                   (replaces ``fxp_mlp_model_pallas``)
+* fxp_qmatmul    — Qn.m matmul with round-shift-saturate, the kernel
+                   SVM's per-layer first stage (replaces
+                   ``fxp_qmatmul_pallas``)
+* fxp_model      — whole-MLP and whole-kernel-SVM megakernels, one launch
+                   per forward pass (replace ``fxp_mlp_model_pallas`` and
+                   ``fxp_svm_model_pallas``)
+* tree_ensemble  — decision-tree inference, one warp per row (replaces
+                   ``tree_ensemble_pallas``)
 """

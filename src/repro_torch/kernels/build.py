@@ -26,9 +26,10 @@ from typing import Dict, Iterable
 
 __all__ = ["SOURCES", "build_all", "load", "nvcc_path", "BUILD_LOG"]
 
-SOURCES = ("fxp_layer", "fxp_mlp_model")
+SOURCES = ("fxp_layer", "fxp_mlp_model", "fxp_qmatmul", "fxp_svm_model",
+           "tree_ensemble")
 _CSRC = Path(__file__).resolve().with_name("csrc")
-_HEADERS = ("fxp_common.cuh",)
+_HEADERS = ("fxp_common.cuh", "fxp_tile.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC")
 # Report registers, shared memory and spills per kernel; does not change

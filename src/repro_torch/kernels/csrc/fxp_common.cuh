@@ -186,6 +186,43 @@ FXP_DEVICE int32_t qsig_rational(int32_t x, const Epilogue& e) {
   return sat(e.half + rshr((int64_t)ratio, 1), e.qmin, e.qmax);
 }
 
+// Elementwise Qn.m ops on container values in the epilogue's format (m,
+// qmin, qmax, one_q): every operand fits the container, so each product and
+// sum is exact in 64 bits, as it is in the reference's wide dtype.
+FXP_DEVICE int32_t qadd(int32_t a, int32_t b, const Epilogue& e) {
+  return sat((int64_t)a + (int64_t)b, e.qmin, e.qmax);
+}
+
+FXP_DEVICE int32_t qsub(int32_t a, int32_t b, const Epilogue& e) {
+  return sat((int64_t)a - (int64_t)b, e.qmin, e.qmax);
+}
+
+FXP_DEVICE int32_t qneg(int32_t a, const Epilogue& e) {
+  return sat(-(int64_t)a, e.qmin, e.qmax);
+}
+
+FXP_DEVICE int32_t qmul(int32_t a, int32_t b, const Epilogue& e) {
+  return sat(rshr((int64_t)a * (int64_t)b, e.m), e.qmin, e.qmax);
+}
+
+// x**p by square-and-multiply from 1.0 (one_q), as core/fixedpoint.qpow_int
+FXP_DEVICE int32_t qpow_int(int32_t x, int p, const Epilogue& e) {
+  int32_t out = e.one_q, base = x;
+  while (p) {
+    if (p & 1) out = qmul(out, base, e);
+    base = qmul(base, base, e);
+    p >>= 1;
+  }
+  return out;
+}
+
+// A sum of squares taken in int64 at every width (the reference's jnp.sum
+// promotes), wrapped mod 2^64 by uint64_t arithmetic, then one rounded shift
+// by m and saturation: core/fixedpoint.qsq_norm.
+FXP_DEVICE int32_t sumsq_shift(uint64_t acc, const Epilogue& e) {
+  return requant(u2s(acc), e.m, e.qmin, e.qmax);
+}
+
 // The whole layer epilogue on one int32 accumulator (already wrapped at 32
 // bits): requantize, saturating bias add, activation.  Returns a value in
 // the output container's range.

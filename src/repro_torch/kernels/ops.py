@@ -1,6 +1,6 @@
 """Public wrappers around the fixed-point kernels, and their routing.
 
-The counterpart of :mod:`repro.kernels.ops` for this slice's two kernels.
+The counterpart of :mod:`repro.kernels.ops` for the five ported kernels.
 Each wrapper routes by ``impl`` and by where its tensors lie:
 
 * ``impl="ref"`` — the int64-accumulating oracle of :mod:`.ref`;
@@ -11,7 +11,8 @@ Each wrapper routes by ``impl`` and by where its tensors lie:
 The CUDA kernels mask ragged edges themselves, so no wrapper pads.
 ``count_dispatches()`` counts wrapper calls (one per logical kernel
 dispatch, whichever version ran); each CUDA launcher also counts its own
-launches (``fxp_layer_cuda.launches``, ``fxp_mlp_model_cuda.launches``).
+launches (``fxp_layer_cuda.launches``, ``fxp_svm_model_cuda.launches``,
+...).
 """
 
 from __future__ import annotations
@@ -22,12 +23,17 @@ from typing import List, Optional
 import torch
 
 from repro_torch.core.fixedpoint import FxpFormat
+from repro_torch.core.trees import TreeArrays
 
 from . import ref as ref_ops
 from .fxp_layer import fxp_layer_cuda, fxp_layer_plain
-from .fxp_model import LayerSchedule, fxp_mlp_model_cuda, fxp_mlp_model_plain
+from .fxp_model import (LayerSchedule, fxp_mlp_model_cuda, fxp_mlp_model_plain,
+                        fxp_svm_model_cuda, fxp_svm_model_plain)
+from .fxp_qmatmul import fxp_qmatmul_cuda, fxp_qmatmul_plain
+from .tree_ensemble import tree_ensemble_cuda, tree_ensemble_plain
 
-__all__ = ["fxp_layer", "fxp_mlp_model", "count_dispatches", "IMPLS"]
+__all__ = ["fxp_qmatmul", "fxp_layer", "fxp_mlp_model", "fxp_svm_model",
+           "tree_predict", "count_dispatches", "IMPLS"]
 
 IMPLS = ("cuda", "ref")
 
@@ -72,6 +78,19 @@ def _route(impl: str, t: torch.Tensor) -> str:
     raise ValueError(f"no kernel for tensors on {t.device}")
 
 
+def fxp_qmatmul(a: torch.Tensor, b: torch.Tensor, fmt: FxpFormat,
+                impl: str = "cuda") -> torch.Tensor:
+    """Qn.m matmul ``rshift_round_saturate(a @ b)`` in one dispatch.
+    a (M, K), b (K, N) in ``fmt.dtype`` -> (M, N)."""
+    _tick()
+    route = _route(impl, a)
+    if route == "ref":
+        return ref_ops.fxp_qmatmul_ref(a, b, fmt)
+    if route == "cuda":
+        return fxp_qmatmul_cuda(a, b, fmt)
+    return fxp_qmatmul_plain(a, b, fmt)
+
+
 def fxp_layer(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
               fmt: FxpFormat, activation: str = "none",
               shift: Optional[int] = None, impl: str = "cuda") -> torch.Tensor:
@@ -101,3 +120,37 @@ def fxp_mlp_model(x: torch.Tensor, weights, biases, schedule: LayerSchedule,
     if route == "cuda":
         return fxp_mlp_model_cuda(x, weights, biases, schedule)
     return fxp_mlp_model_plain(x, weights, biases, schedule)
+
+
+def fxp_svm_model(qx: torch.Tensor, sv: torch.Tensor, dual: torch.Tensor,
+                  icept: torch.Tensor, kind: str, fmt: FxpFormat,
+                  out_fmt: FxpFormat, qgamma: int, qcoef0: int, degree: int,
+                  dec_shift: int, impl: str = "cuda") -> torch.Tensor:
+    """The whole kernel-SVM decision function in one dispatch: x . sv^T,
+    the poly/rbf algebra and the decision stage ``k . dual + intercept``.
+    ``sv`` is the un-transposed (S, F) matrix; ``qgamma``/``qcoef0`` the
+    quantized integer constants.  Callers check
+    :func:`repro_torch.kernels.fxp_model.svm_fits_smem` first (the lowering
+    does, and falls back to :func:`fxp_qmatmul` + :func:`fxp_layer`)."""
+    _tick()
+    args = (qx, sv, dual, icept, kind, fmt, out_fmt, qgamma, qcoef0, degree,
+            dec_shift)
+    route = _route(impl, qx)
+    if route == "ref":
+        return ref_ops.fxp_svm_model_ref(*args)
+    if route == "cuda":
+        return fxp_svm_model_cuda(*args)
+    return fxp_svm_model_plain(*args)
+
+
+def tree_predict(tree: TreeArrays, x: torch.Tensor,
+                 impl: str = "cuda") -> torch.Tensor:
+    """Decision-tree inference in one dispatch.  x (B, F) float32 -> (B,)
+    int32 class ids."""
+    _tick()
+    route = _route(impl, x)
+    if route == "ref":
+        return ref_ops.tree_ensemble_ref(tree, x)
+    if route == "cuda":
+        return tree_ensemble_cuda(tree, x)
+    return tree_ensemble_plain(tree, x)

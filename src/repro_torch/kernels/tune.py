@@ -1,10 +1,11 @@
 """Block sizes of the hand-written kernels, and the shape-bucketing helpers.
 
-The counterpart of :mod:`repro.kernels.tune`.  In this slice the CUDA
-kernels run with fixed block sizes, ``constexpr`` in their sources; the JSON
+The counterpart of :mod:`repro.kernels.tune`.  The CUDA kernels run with
+fixed block sizes, ``constexpr`` in their sources; the JSON
 disk cache and the timed sweeps of the TPU autotuner are not ported yet.
-``MODEL_BLOCK_M`` must match ``kBM`` in ``csrc/fxp_mlp_model.cu``: the
-megakernel's fit predicate sizes its shared memory from it.
+``MODEL_BLOCK_M`` must match ``kBM`` in ``csrc/fxp_mlp_model.cu`` and
+``csrc/fxp_tile.cuh``, and ``TILE`` the tile of ``csrc/fxp_tile.cuh``: the
+megakernels' fit predicates size their shared memory from them.
 """
 
 from __future__ import annotations
@@ -12,10 +13,13 @@ from __future__ import annotations
 import torch
 
 __all__ = ["pow2ceil", "batch_bucket", "device_key", "MODEL_BLOCK_M",
-           "SMEM_PER_BLOCK"]
+           "TILE", "SMEM_PER_BLOCK"]
 
-# fxp_mlp_model: batch rows per block (every layer of those rows in one block).
+# fxp_mlp_model, fxp_svm_model: batch rows per block (the whole model for
+# those rows in one block).
 MODEL_BLOCK_M = 32
+# The shared tile loop's square tile (kBM = kBN = kBK in csrc/fxp_tile.cuh).
+TILE = 32
 # Shared memory one Hopper block may use (227 KB, opt-in above 48 KB).
 SMEM_PER_BLOCK = 232_448
 
