@@ -9,9 +9,9 @@ Phases, each of which raises on failure:
 1. Device: the card's name, count and ``nvidia-smi`` name/power limit.
    Exits non-zero without a CUDA device.
 2. Build every CUDA kernel of the main paths from ``src/repro_torch/kernels/
-   csrc`` (five sources, one ``nvcc`` each, in parallel) and print the build
-   time and ``ptxas`` resource lines.  Then the data: D6 ("har") and D5
-   ("pendigits") from their seeds, and the D6 tree trained by the port's
+   csrc`` (eight sources, one ``nvcc`` each, in parallel) and print the
+   build time and ``ptxas`` resource lines.  Then the data: D6 ("har") and
+   D5 ("pendigits") from their seeds, and the D6 tree trained by the port's
    CART (``max_depth=12``).
 3. Each kernel against its plain PyTorch version on the card, bit for bit,
    at the main paths' shapes, every container width, values at qmin/qmax,
@@ -23,7 +23,15 @@ Phases, each of which raises on failure:
      and the D5 shapes (S=300, F=8, C=10), nonzero random q(gamma) and
      q(coef0), degrees 1-3;
    * ``tree_ensemble``: the trained D6 tree on float rows with NaN and
-     +-inf values, and on fxp16/fxp32 rows.
+     +-inf values, and on fxp16/fxp32 rows;
+   * ``fxp_mlp_fleet``: E in {2, 8} stacked 561->64->6 MLPs, one schedule
+     for all and one per model, ragged and full batches, and full-range
+     values whose int32 sums wrap;
+   * ``fxp_svm_fleet``: poly and rbf, E = 2 (D6 shapes) and E = 4 (D5
+     shapes, 3298 rows), each model its own formats, q(gamma) and q(coef0);
+   * ``pwl_activation``: the four variants on random values and on +-0,
+     +-inf, NaN, subnormals and the segment edges 1.0, 2.375 and 5.0, on
+     the (3089, 64) hidden layer, ragged shapes and an unaligned tensor.
 4. The main paths, each with every launch count set to 0 just before it
    and read just after it:
    A. a seeded 561->64->6 MLP and a 561x6 logistic model on D6, compiled
@@ -42,11 +50,29 @@ Phases, each of which raises on failure:
       kernel-SVM predict (the megakernel route), one fxp_layer launch per
       quantized svm-linear predict; the forced per-layer SVM route gives the
       same labels with one fxp_qmatmul and one fxp_layer launch.
-   In both, labels equal the plain versions' on the card; the rows where
-   ``ref`` and ``cuda`` differ are printed as information.
+   C. the flt D6 MLP with a pwl2, pwl4 or rational sigmoid on ``cuda``:
+      one pwl_activation launch per predict, labels equal to the plain
+      route's (the same model on ``ref``) on every row whose float64 top-2
+      gap is at least 1e-4.
+   D. the serving plane: one ``InferenceService`` on the card hosting 8 D6
+      MLPs (auto16, each calibrated on its own 2000 train rows), 2 D6
+      logistic models (fxp16), 4 D5 rbf SVMs (fxp32) and the D6 tree
+      (fxp16).  ``enable_fleet()`` must form exactly three fleets; 6 client
+      threads send 360 requests of 1-64 rows, and every response must equal
+      its member's own ``predict``.  Each fleet stacks at least once, none
+      falls back, fxp_mlp_fleet and fxp_svm_fleet launch, and the tree is
+      served by its own worker.
+   In A, B and D, labels equal the plain versions' on the card (in D, each
+   member's own predict); in A and B the rows where ``ref`` and ``cuda``
+   differ are printed as information.
 5. Timing with CUDA events after warm-up: each kernel and its plain version
-   at batches 1, 64, 3089 and 65536, beside the bound, and ``predict`` end
-   to end.
+   at batches 1, 64, 3089 and 65536 (the new kernels at 3089 or 3298 and
+   65536, beside eight fxp_mlp_model launches), beside the bound;
+   ``predict`` end to end and by stage (pageable and pinned rows); the
+   host time of ``FleetStack.predict_device`` beside the time until the
+   card is done (equal times would mean a hidden synchronization); and the
+   first serving record: 8 D6 MLP endpoints, 8 client threads each sending
+   500 one-row requests one at a time, fleet off and on.
 
 The lines before the last are a JSON ``{"kernels": [...]}`` record and the
 ``nvidia-smi`` name/power-limit line; the last line is
@@ -60,6 +86,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 import types
 
@@ -195,11 +222,26 @@ def non_finite_rows(x, tree):
     return x
 
 
+def pwl_edges():
+    """Values the PWL kernel must treat as the reference does: +-0, +-inf,
+    NaN, subnormals and the smallest normal, the segment edges 1.0, 2.375
+    and 5.0 with their float32 neighbours, and the float32 extremes."""
+    f32 = np.finfo(np.float32)
+    vals = [0.0, np.inf, np.nan, 1e-45, 1e-39, float(f32.tiny),
+            float(f32.max)]
+    for v in np.asarray([1.0, 2.375, 5.0], np.float32):
+        vals += [v, np.nextafter(v, np.float32(0)),
+                 np.nextafter(v, np.float32(9))]
+    vals = np.asarray(vals, np.float32)
+    return np.concatenate([vals, -vals])
+
+
 class KernelCheck:
     """Phase 3: every comparison of a kernel with its plain version."""
 
     NAMES = ("fxp_layer", "fxp_mlp_model", "fxp_qmatmul", "fxp_svm_model",
-             "tree_ensemble")
+             "tree_ensemble", "pwl_activation", "fxp_mlp_fleet",
+             "fxp_svm_fleet")
 
     def __init__(self, torch, K):
         self.torch, self.K = torch, K
@@ -222,8 +264,102 @@ class KernelCheck:
             raise AssertionError(f"{name} {what}: {bad} elements differ from "
                                  f"the plain version (max abs err {err})")
 
+    def _compare_bits(self, name, got, want, what):
+        """Float results: the same float32 bits everywhere (the card's NaN
+        is canonical in both); max_abs_err over the finite entries."""
+        torch = self.torch
+        torch.cuda.synchronize()
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"{name} {what}: {got.dtype}{tuple(got.shape)}"
+                                 f" vs plain {want.dtype}{tuple(want.shape)}")
+        both = torch.isfinite(got) & torch.isfinite(want)
+        err = float((got[both].double() - want[both].double()).abs().max()) \
+            if bool(both.any()) else 0.0
+        self.max_abs_err[name] = max(self.max_abs_err[name], err)
+        self.cases[name] += 1
+        bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        if bad:
+            raise AssertionError(f"{name} {what}: {bad} elements differ from "
+                                 f"the plain version in their bits (max abs "
+                                 f"err {err})")
+
     def _cuda(self, *arrays):
         return [self.torch.from_numpy(a).cuda() for a in arrays]
+
+    def pwl_case(self, rng, shape, variant, offset=0):
+        K = self.K
+        n = int(np.prod(shape))
+        flat = (rng.randn(n + offset) * 4).astype(np.float32)
+        edges = pwl_edges()
+        flat[offset:offset + min(n, edges.size)] = edges[:n]
+        x, = self._cuda(flat)
+        x = x[offset:].view(shape)  # offset 1: an unaligned tensor
+        got = K.pwl.pwl_activation_cuda(x, variant)
+        want = K.pwl.pwl_activation_plain(x, variant)
+        self._compare_bits("pwl_activation", got, want,
+                           f"{variant} {shape} offset {offset}")
+
+    def mlp_fleet_case(self, rng, bits, e, m, hetero, regime):
+        K = self.K
+        dims = (561, 64, 6)
+        acts = K.layer.LAYER_ACTIVATIONS
+        scheds = []
+        for i in range(e):
+            j = i if hetero else 0
+            if regime == "mid":
+                shifts = (_mid_shift(bits, 561) - j % 2,
+                          _mid_shift(bits, 64) + j % 3)
+                fracs = (bits - 6 - j % 2, bits - 6)
+            else:  # full-range values: int32 sums wrap
+                shifts, fracs = (bits - 1 - j % 2, 0), (bits - 1, j % 2)
+            act = acts[1 + (j + bits) % (len(acts) - 1)]
+            scheds.append(((shifts[0], K.fxp.FxpFormat(bits, fracs[0]), act),
+                           (shifts[1], K.fxp.FxpFormat(bits, fracs[1]),
+                            "none")))
+        scheds = tuple(scheds)
+        x, = self._cuda(_ints(rng, (e, m, dims[0]), bits, regime))
+        ws = self._cuda(*[_ints(rng, (e, i, o), bits, regime)
+                          for i, o in zip(dims, dims[1:])])
+        bs = self._cuda(*[_ints(rng, (e, o), bits, "full") for o in dims[1:]])
+        got = K.model.fxp_mlp_fleet_cuda(x, ws, bs, scheds)
+        want = K.model.fxp_mlp_fleet_plain(x, ws, bs, scheds)
+        self._compare("fxp_mlp_fleet", got, want,
+                      f"w{bits} E={e} {m}x{dims} "
+                      f"{'per-model' if hetero else 'uniform'} schedules "
+                      f"{regime}")
+
+    def _svm_params(self, rng, bits, regime):
+        """(fmt, out_fmt, q(gamma), q(coef0), degree, dec_shift): random,
+        nonzero q(gamma)."""
+        frac = bits - 6 if regime == "mid" else bits - 1 - rng.randint(0, 4)
+        fmt = self.K.fxp.FxpFormat(bits, frac)
+        out_fmt = self.K.fxp.FxpFormat(bits, rng.randint(0, bits))
+        if regime == "mid":  # kernel values inside the format, not saturated
+            qgamma = int(rng.randint(1, 2 ** max(1, frac // 2)))
+            qcoef0 = int(rng.randint(-(2 ** frac), 2 ** frac))
+        else:
+            qgamma = int(rng.randint(1, 2 ** (bits - 1)))
+            qcoef0 = int(rng.randint(-(2 ** (bits - 1)), 2 ** (bits - 1)))
+        degree, dec_shift = 1 + rng.randint(0, 3), rng.randint(0, min(bits, 31))
+        return fmt, out_fmt, qgamma, qcoef0, degree, dec_shift
+
+    def svm_fleet_case(self, rng, bits, e, m, f, s, c, kind, regime):
+        K = self.K
+        params = []
+        for _ in range(e):  # each model its own formats and constants
+            p = self._svm_params(rng, bits, regime)
+            params.append((K.fxp.FxpFormat(bits, p[0].frac_bits),) + p[1:])
+        params = tuple(params)
+        x, sv, dual, icept = self._cuda(
+            _ints(rng, (e, m, f), bits, regime),
+            _ints(rng, (e, s, f), bits, regime),
+            _ints(rng, (e, s, c), bits, "mid"),
+            _ints(rng, (e, c), bits, "full"))
+        got = K.model.fxp_svm_fleet_cuda(x, sv, dual, icept, kind, params)
+        want = K.model.fxp_svm_fleet_plain(x, sv, dual, icept, kind, params)
+        self._compare("fxp_svm_fleet", got, want,
+                      f"w{bits} {kind} E={e} {m}x{f} S={s} C={c} q(gamma) "
+                      f"{[p[2] for p in params]} {regime}")
 
     def layer_case(self, rng, bits, m, k, n, act, shift, frac, regime):
         K = self.K
@@ -262,19 +398,11 @@ class KernelCheck:
 
     def svm_case(self, rng, bits, m, f, s, c, kind, regime):
         K, torch = self.K, self.torch
-        frac = bits - 6 if regime == "mid" else bits - 1 - rng.randint(0, 4)
-        fmt = K.fxp.FxpFormat(bits, frac)
-        out_fmt = K.fxp.FxpFormat(bits, rng.randint(0, bits))
         x, sv, dual, icept = self._cuda(
             _ints(rng, (m, f), bits, regime), _ints(rng, (s, f), bits, regime),
             _ints(rng, (s, c), bits, "mid"), _ints(rng, (c,), bits, "full"))
-        if regime == "mid":  # kernel values inside the format, not saturated
-            qgamma = int(rng.randint(1, 2 ** max(1, frac // 2)))
-            qcoef0 = int(rng.randint(-(2 ** frac), 2 ** frac))
-        else:
-            qgamma = int(rng.randint(1, 2 ** (bits - 1)))
-            qcoef0 = int(rng.randint(-(2 ** (bits - 1)), 2 ** (bits - 1)))
-        degree, dec_shift = 1 + rng.randint(0, 3), rng.randint(0, min(bits, 31))
+        fmt, out_fmt, qgamma, qcoef0, degree, dec_shift = self._svm_params(
+            rng, bits, regime)
         args = (x, sv, dual, icept, kind, fmt, out_fmt, qgamma, qcoef0, degree,
                 dec_shift)
         got = K.model.fxp_svm_model_cuda(*args)
@@ -293,6 +421,9 @@ class KernelCheck:
         self._compare("tree_ensemble", got, want, what)
 
     def run(self, tree, x_rows):
+        """Every case at the main paths' shapes, the new kernels' among
+        them: the fleet kernels at E in {2, 8} and the PWL kernel on the
+        (3089, 64) hidden layer."""
         rng = np.random.RandomState(0)
         acts = self.K.layer.LAYER_ACTIVATIONS
         shapes = ((561, 64), (64, 6), (561, 6))
@@ -341,8 +472,26 @@ class KernelCheck:
                     for m in BATCHES:
                         self.svm_case(rng, bits, m, f, N_PROTOTYPES, c, kind,
                                       "mid")
+            # the fleet kernels: E in {2, 8}, uniform and per-model
+            # schedules, ragged and full batches, int32-wrapping sums
+            for e in (2, 8):
+                for hetero in (False, True):
+                    for m in (7, 3089):
+                        self.mlp_fleet_case(rng, bits, e, m, hetero, "mid")
+            self.mlp_fleet_case(rng, bits, 2, 64, True, "edge")
+            for kind in ("poly", "rbf"):
+                self.svm_fleet_case(rng, bits, 2, 7, 561, N_PROTOTYPES, 6,
+                                    kind, "mid")
+                self.svm_fleet_case(rng, bits, 4, 3298, 8, N_PROTOTYPES, 10,
+                                    kind, "mid")
+                self.svm_fleet_case(rng, bits, 2, 33, 8, N_PROTOTYPES, 10,
+                                    kind, "edge")
         if not self.wrapped:
             raise AssertionError("no SVM case wrapped the int32 dot")
+        for variant in self.K.pwl.PWL_VARIANTS:
+            for shape in ((3089, 64), (7, 13), (5, 3, 2)):
+                self.pwl_case(rng, shape, variant)
+            self.pwl_case(rng, (4097,), variant, offset=1)
         # the tree on float rows with non-finite values, and quantized rows
         torch, fxp = self.torch, self.K.fxp
         rows = np.resize(x_rows, (max(BATCHES), x_rows.shape[1]))
@@ -478,7 +627,8 @@ def main_path_mlp(torch, K, ds):
         if not np.array_equal(per.predict(x_test), mlp_labels[tag]):
             raise AssertionError(f"mlp {tag}: per-layer labels differ")
         expect_launches(K, before, {"fxp_layer": 2}, f"mlp {tag} per-layer")
-    # flt: float32 matmuls (TF32 off), labels against float64 numpy
+    # flt: full float32 matmuls (PyTorch's default; the float predicts
+    # refuse TF32), labels against float64 numpy
     for kind, m in (("mlp", mlp), ("logistic", logistic)):
         art = K.tc.compile(m, K.tc.Target(number_format="flt", backend="cuda"))
         check_flt(art.predict(x_test), _float64_logits(m, x_test),
@@ -614,6 +764,187 @@ def main_path_tree_svm(torch, K, d6, d5, tree_model):
     return arts, launches
 
 
+def _np_pwl(variant, h):
+    """The float PWL sigmoids in float64 numpy (the flt yardstick)."""
+    if variant == "pwl2":
+        return np.clip(0.25 * h + 0.5, 0.0, 1.0)
+    if variant == "rational":
+        return 0.5 + 0.5 * h / (1.0 + np.abs(h))
+    ax = np.abs(h)
+    y = np.where(ax >= 5.0, 1.0, np.where(
+        ax >= 2.375, 0.03125 * ax + 0.84375,
+        np.where(ax >= 1.0, 0.125 * ax + 0.625, 0.25 * ax + 0.5)))
+    return np.where(h >= 0, y, 1.0 - y)
+
+
+def main_path_flt_pwl(torch, K, ds):
+    """Main path C: the flt D6 MLP with a pwl2/pwl4/rational sigmoid on
+    cuda, one pwl_activation launch per predict, against the plain route
+    (the same model on the ``ref`` backend: float sigmoids in PyTorch ops)."""
+    mlp = K.models.init_mlp([561, 64, 6], seed=0)
+    x_test = ds.x_test
+    reset_launches(K)
+    t0 = time.perf_counter()
+    for sig in ("pwl2", "pwl4", "rational"):
+        art = K.tc.compile(mlp, K.tc.Target(sigmoid=sig, backend="cuda"))
+        labels = check_artifact(torch, K, art, mlp, x_test, ds.n_classes,
+                                {"pwl_activation": 1}, f"mlp flt {sig}")
+        plain = K.tc.compile(mlp, K.tc.Target(sigmoid=sig, backend="ref"))
+        before = launch_counts(K)
+        plain_labels = plain.predict(x_test)
+        expect_launches(K, before, {}, f"mlp flt {sig} plain route")
+        h = np.asarray(x_test, np.float64)
+        for i, (w, b) in enumerate(zip(mlp.weights, mlp.biases)):
+            h = h @ w + b
+            if i < len(mlp.weights) - 1:
+                h = _np_pwl(sig, h)
+        top2 = np.sort(h, axis=1)[:, -2:]
+        decided = (top2[:, 1] - top2[:, 0]) >= 1e-4
+        if not np.array_equal(labels[decided], plain_labels[decided]):
+            raise AssertionError(f"mlp flt {sig}: labels differ from the "
+                                 f"plain route on decided rows")
+        log(f"  mlp      flt {sig:8s} labels "
+            f"{np.bincount(labels, minlength=ds.n_classes)}: equal to the "
+            f"plain route on all {len(labels)} rows "
+            f"{np.array_equal(labels, plain_labels)} (required on the "
+            f"{int(decided.sum())} rows with float64 top-2 gap >= 1e-4); "
+            f"equal to float64 on "
+            f"{int((labels == h.argmax(1))[decided].sum())} of them")
+    launches = launch_counts(K)
+    log(f"phase 4C: flt PWL path in {time.perf_counter() - t0:.1f} s; "
+        f"kernel launches {launches}")
+    if launches["pwl_activation"] == 0:
+        raise AssertionError("main path C never launched pwl_activation")
+    return launches
+
+
+def serving_models(K, d6, d5):
+    """The endpoints of main path D: 8 D6 MLPs (auto16, each calibrated on
+    its own 2000-row slice of the train rows, so the schedules differ), 2
+    D6 logistic models (fxp16), 4 D5 rbf SVMs (fxp32, prototypes and duals
+    of their own), and the D6 tree is added by the caller."""
+    out = {}
+    for s in range(8):
+        cal = d6.x_train[650 * s:650 * s + N_FIT_ROWS]
+        out[f"mlp{s}"] = (K.models.init_mlp([561, 64, 6], seed=s),
+                          dict(number_format="auto16"), cal, d6)
+    for s in range(2):
+        rng = np.random.RandomState(20 + s)
+        model = K.models.LogisticModel(
+            coef=(rng.randn(561, 6) * np.sqrt(2.0 / 567)).astype(np.float32),
+            intercept=np.zeros(6, np.float32))
+        out[f"logistic{s}"] = (model, dict(number_format="fxp16"), None, d6)
+    x64 = d5.x_train.astype(np.float64)
+    gamma = 1.0 / (x64.shape[1] * max(x64.var(), 1e-12))
+    for s in range(4):
+        sv = K.pick_prototypes(x64, d5.y_train, d5.n_classes, N_PROTOTYPES,
+                               seed=s)
+        rows = slice(1000 * s, 1000 * s + N_FIT_ROWS)
+        onehot = np.eye(d5.n_classes)[d5.y_train[rows]]
+        feats = kernel_features("rbf", x64[rows], sv, gamma, 1.0, 2)
+        sol = np.linalg.lstsq(np.c_[feats, np.ones(len(feats))], onehot,
+                              rcond=None)[0]
+        out[f"rbf{s}"] = (K.models.SVMModel(
+            "rbf", support_vectors=sv, dual_coef=sol[:-1], intercept=sol[-1],
+            gamma=gamma, coef0=1.0, degree=2), dict(number_format="fxp32"),
+            None, d5)
+    return out
+
+
+def main_path_serving(torch, K, d6, d5, tree_model):
+    """Main path D: one InferenceService on the card serving 8 D6 MLPs, 2
+    D6 logistic models, 4 D5 rbf SVMs and the D6 tree; enable_fleet forms
+    three fleets, client threads submit 1-64-row requests, and every
+    response must equal its member's own predict."""
+    S = K.serve
+    models = serving_models(K, d6, d5)
+    models["tree"] = (tree_model, dict(number_format="fxp16"), None, d6)
+    policy = S.BatchingPolicy(max_batch=64, max_wait_ms=2.0)
+    t0 = time.perf_counter()
+    svc = S.InferenceService()
+    try:
+        for name, (model, kw, cal, _) in models.items():
+            svc.register(name, model, K.tc.Target(backend="cuda", **kw),
+                         calibration=cal, policy=policy)
+        plans = {tuple(svc.endpoint(f"mlp{s}").artifact.extras["emit_spec"]
+                       ["shifts"]) for s in range(8)}
+        arts = {n: svc.endpoint(n).artifact for n in models}
+        golden = {n: arts[n].predict(ds.x_test)
+                  for n, (_, _, _, ds) in models.items()}
+        t_setup = time.perf_counter() - t0
+        # each member's own predict, held against its frozen program run
+        # through the plain versions on the card (as paths A and B do)
+        for n, (model, _, _, ds) in models.items():
+            plain = plain_labels(torch, K, arts[n], model, ds.x_test)
+            if not np.array_equal(golden[n], plain):
+                raise AssertionError(
+                    f"{n}: {int((golden[n] != plain).sum())} labels of its "
+                    f"own predict differ from the plain versions")
+        reset_launches(K)
+        t0 = time.perf_counter()
+        formed = svc.enable_fleet()
+        fleets = sorted(sorted(m) for m in formed.values())
+        want = [[f"logistic{s}" for s in range(2)],
+                [f"mlp{s}" for s in range(8)], [f"rbf{s}" for s in range(4)]]
+        if fleets != want:
+            raise AssertionError(f"enable_fleet formed {fleets}")
+        errors, counts = [], []
+
+        def client(seed):
+            rng = np.random.RandomState(seed)
+            names, futs = sorted(models), []
+            for _ in range(60):
+                n = names[rng.randint(len(names))]
+                ds = models[n][3]
+                k = int(rng.randint(1, 65))
+                lo = int(rng.randint(0, len(ds.x_test) - k))
+                futs.append((n, lo, k, svc.submit(n, ds.x_test[lo:lo + k])))
+            for n, lo, k, f in futs:
+                got = f.result(timeout=300)
+                if not np.array_equal(got, golden[n][lo:lo + k]):
+                    errors.append((n, lo, k))
+            counts.append(len(futs))
+
+        threads = [threading.Thread(target=client, args=(s,))
+                   for s in range(6)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("a serving client did not finish")
+        if errors or sum(counts) != 360:
+            raise AssertionError(f"{len(errors)} responses differ from their "
+                                 f"member's own predict: {errors[:5]}")
+        stats = svc.stats()
+    finally:
+        svc.close()
+    launches = launch_counts(K)
+    for fleet in stats["_fleets"]:
+        if fleet["stacked_dispatches"] < 1 or fleet["stack_fallbacks"] != 0:
+            raise AssertionError(f"fleet {fleet}")
+    tree = stats["tree"]
+    if tree["batches"] < 1 or tree["coalesced_batches"] != 0:
+        raise AssertionError(f"tree not served solo: {tree}")
+    for name in ("fxp_mlp_fleet", "fxp_svm_fleet", "tree_ensemble"):
+        if launches[name] == 0:
+            raise AssertionError(f"main path D never launched {name}")
+    log(f"phase 4D: serving path: {len(models)} endpoints registered in "
+        f"{t_setup:.1f} s ({len(plans)} distinct MLP schedules), each "
+        f"member's own predict equal to the plain versions; 360 requests "
+        f"of 1-64 rows from 6 threads in {time.perf_counter() - t0:.1f} s, "
+        f"every response equal to its member's own predict; kernel "
+        f"launches {launches}")
+    for fleet in stats["_fleets"]:
+        log(f"  fleet {fleet['members']}: rounds {fleet['rounds']}, stacked "
+            f"{fleet['stacked_dispatches']}, solo batches "
+            f"{fleet['solo_batches']}, fallbacks {fleet['stack_fallbacks']}, "
+            f"staging allocs {fleet['staging_allocs']}")
+    log(f"  tree served solo: {tree['batches']} batches, "
+        f"{tree['requests']} requests")
+    return launches, arts
+
+
 # --------------------------------------------------------------------------
 # phase 5: timing
 # --------------------------------------------------------------------------
@@ -647,8 +978,8 @@ class Timer:
             f"{'host_ms':>9s} {'plain_ms':>9s} {'bound_ms':>9s} bound_by")
 
     def time(self, name, tag, m, kern, plain, nbytes, ops, peak, record,
-             source, replaces):
-        iters = 200 if m <= 3089 else 20
+             source, replaces, shape=None):
+        iters = 200 if m <= 3298 else 20
         ms, host_ms = cuda_ms(self.torch, kern, iters)
         plain_ms, _ = cuda_ms(self.torch, plain, max(3, iters // 20))
         bound_ms, bound_by = self.dev.bound(nbytes, ops, peak)
@@ -664,7 +995,8 @@ class Timer:
                 "max_abs_err": self.check.max_abs_err[name],
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": None,
-                "shape": f"{tag} D6 test split, batch {m}"}
+                "shape": shape or f"{tag} D6 test split, batch {m}"}
+        return ms
 
 
 def time_mlp(torch, K, T, arts, x_big, n_test):
@@ -800,15 +1132,20 @@ def time_predict(art, x_big, what):
             f"{m / ms * 1e3:12.0f} rows/s")
 
 
-def predict_breakdown(torch, K, art, x_big, batches):
+def predict_breakdown(torch, K, art, x_big, batches, pinned=False):
     """Where one megakernel predict spends its time: each stage of
-    ``predict`` run alone between synchronizations, host clock, median."""
+    ``predict`` run alone between synchronizations, host clock, median.
+    ``pinned`` hands the rows over as the serving plane's staging buffer
+    does (a pinned host tensor, copied without blocking); otherwise as a
+    pageable numpy array."""
     spec = art.extras["emit_spec"]
     ws = [torch.from_numpy(w).cuda() for w in spec["ws"]]
     bs = [torch.from_numpy(b).cuda() for b in spec["bs"]]
     sched = tuple(zip(spec["shifts"], spec["out_fmts"], spec["acts"]))
     for m in batches:
         xb = np.ascontiguousarray(x_big[:m])
+        if pinned:
+            xb = torch.from_numpy(xb).pin_memory()
         state = {}
         stages = (
             ("copy rows to card", lambda: state.update(
@@ -831,17 +1168,181 @@ def predict_breakdown(torch, K, art, x_big, batches):
                 times[name].append((time.perf_counter() - t0) * 1e3)
         parts = ", ".join(f"{name} {float(np.median(t)):.3f}"
                           for name, t in times.items())
-        log(f"  predict stages, mlp fxp16, batch {m} (ms): {parts}")
+        log(f"  predict stages, mlp {art.target.number_format}, batch {m}, "
+            f"{'pinned' if pinned else 'pageable'} rows (ms): {parts}")
 
 
-def timing(torch, K, dev, d6, check, arts_a, arts_b, tree_model, launches):
+def _stacked(torch, arrays):
+    return torch.stack([torch.from_numpy(a) for a in arrays]).cuda()
+
+
+def time_slice(torch, K, T, arts_d, d6, d5):
+    """The new kernels at the main paths' shapes: pwl_activation on the D6
+    MLP's (rows, 64) hidden layer, fxp_mlp_fleet over the 8 D6 MLPs of
+    path D, fxp_svm_fleet over its 4 D5 rbf SVMs, at 3089/3298 rows and
+    65536; eight fxp_mlp_model launches beside the one fleet launch."""
+    mlp = K.models.init_mlp([561, 64, 6], seed=0)
+    w0 = torch.from_numpy(mlp.weights[0]).cuda()
+    b0 = torch.from_numpy(mlp.biases[0]).cuda()
+    for m in (len(d6.x_test), max(TIMED_BATCHES)):
+        x = torch.from_numpy(np.resize(d6.x_test, (m, 561))).cuda()
+        h = x @ w0 + b0
+        for v in ("pwl4", "rational"):
+            kern = lambda: K.pwl.pwl_activation_cuda(h, v)
+            plain = lambda: K.pwl.pwl_activation_plain(h, v)
+            out = kern()
+            T.time("pwl_activation", v, m, kern, plain, _nbytes(h, out),
+                   8 * h.numel(), FP32_OPS_PER_S,
+                   v == "pwl4" and m == len(d6.x_test), "pwl_activation.cu",
+                   K.pwl.REPLACES,
+                   shape=f"{v} on the D6 MLP's ({m}, 64) hidden layer")
+    specs = [arts_d[f"mlp{s}"].extras["emit_spec"] for s in range(8)]
+    ws = [_stacked(torch, [sp["ws"][i] for sp in specs]) for i in range(2)]
+    bs = [_stacked(torch, [sp["bs"][i] for sp in specs]) for i in range(2)]
+    scheds = tuple(tuple(zip(sp["shifts"], sp["out_fmts"], sp["acts"]))
+                   for sp in specs)
+    bits = specs[0]["in_fmt"].total_bits
+    for m in (len(d6.x_test), max(TIMED_BATCHES)):
+        xf = torch.from_numpy(np.resize(d6.x_test, (m, 561))).cuda()
+        qx = torch.stack([K.fxp.quantize(xf, sp["in_fmt"]) for sp in specs])
+        kern = lambda: K.model.fxp_mlp_fleet_cuda(qx, ws, bs, scheds)
+        plain = lambda: K.model.fxp_mlp_fleet_plain(qx, ws, bs, scheds)
+        out = kern()
+        macs = 8 * m * sum(w.shape[1] * w.shape[2] for w in ws)
+        ms = T.time("fxp_mlp_fleet", "auto16 E=8", m, kern, plain,
+                    _nbytes(qx, *ws, *bs, out), 2 * macs,
+                    T.dev.int_peak(bits), m == len(d6.x_test),
+                    "fxp_mlp_fleet.cu", K.model.MLP_FLEET_REPLACES,
+                    shape=f"8 D6 MLPs (auto16, per-model schedules) x {m} "
+                          f"rows")
+        solo = lambda: [K.model.fxp_mlp_model_cuda(
+            qx[e], [w[e] for w in ws], [b[e] for b in bs], scheds[e])
+            for e in range(8)]
+        solo_ms, solo_host = cuda_ms(torch, solo, 50 if m <= 3298 else 5)
+        log(f"  8 x fxp_mlp_model at {m} rows: {solo_ms:.4f} ms device "
+            f"({solo_host:.4f} ms host) against one fxp_mlp_fleet launch "
+            f"{ms:.4f} ms")
+    specs = [arts_d[f"rbf{s}"].extras["emit_spec"] for s in range(4)]
+    sv, dual, icept = (_stacked(torch, [sp[k] for sp in specs])
+                       for k in ("sv", "dual", "b"))
+    params = tuple((sp["fmt"], sp["out_fmt"], sp["qgamma"], sp["qcoef0"],
+                    sp["degree"], sp["dec_shift"]) for sp in specs)
+    (s_, f_), c_ = sv.shape[1:], dual.shape[2]
+    for m in (len(d5.x_test), max(TIMED_BATCHES)):
+        xf = torch.from_numpy(np.resize(d5.x_test, (m, f_))).cuda()
+        qx = K.fxp.quantize(xf, specs[0]["fmt"]).expand(4, m, f_).contiguous()
+        kern = lambda: K.model.fxp_svm_fleet_cuda(qx, sv, dual, icept, "rbf",
+                                                  params)
+        plain = lambda: K.model.fxp_svm_fleet_plain(qx, sv, dual, icept,
+                                                    "rbf", params)
+        out = kern()
+        T.time("fxp_svm_fleet", "fxp32 E=4", m, kern, plain,
+               _nbytes(qx, sv, dual, icept, out),
+               2 * 4 * m * (f_ * s_ + s_ * c_), T.dev.int_peak(32),
+               m == len(d5.x_test), "fxp_svm_fleet.cu",
+               K.model.SVM_FLEET_REPLACES,
+               shape=f"4 D5 rbf SVMs (fxp32, S={s_}) x {m} rows")
+
+
+def time_predict_device(torch, K, arts_d, d6):
+    """Host time of FleetStack.predict_device beside the device time of
+    the work it enqueues: a hidden synchronization would make the two
+    equal."""
+    stack = K.tc.stack_fleet([arts_d[f"mlp{s}"] for s in range(8)])
+    for m in (64, 4096):
+        buf = torch.from_numpy(np.ascontiguousarray(np.broadcast_to(
+            np.resize(d6.x_test, (m, 561)), (8, m, 561)))).pin_memory()
+        stack.predict_device(buf).cpu()
+        host, total = [], []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = stack.predict_device(buf)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            host.append((t1 - t0) * 1e3)
+            total.append((t2 - t0) * 1e3)
+        del out
+        log(f"  FleetStack.predict_device, 8 D6 MLPs x {m} rows (pinned "
+            f"{buf.numel() * 4 / 1e6:.1f} MB): host {np.median(host):.3f} "
+            f"ms, until the card is done {np.median(total):.3f} ms")
+
+
+def serving_record(torch, K, arts_d, rows):
+    """The first serving record: 8 D6 MLP endpoints, 8 client threads each
+    sending its endpoint 500 one-row requests, one in flight at a time,
+    BatchingPolicy(max_batch=64, max_wait_ms=2.0), fleet off and on."""
+    S = K.serve
+    x = np.resize(rows, (500, 561))
+    names = [f"mlp{s}" for s in range(8)]
+    for fleet in (False, True):
+        svc = S.InferenceService()
+        try:
+            for n in names:
+                svc.register(n, artifact=arts_d[n],
+                             policy=S.BatchingPolicy(max_batch=64,
+                                                     max_wait_ms=2.0))
+            if fleet and len(svc.enable_fleet()) != 1:
+                raise AssertionError("the 8 MLPs did not form one fleet")
+            for n in names:  # warm every bucket (and the stack) first
+                svc.submit(n, x[:1]).result(timeout=300)
+            lat = [[] for _ in names]
+
+            def client(i):
+                for r in range(500):
+                    t0 = time.perf_counter()
+                    svc.submit(names[i], x[r:r + 1]).result(timeout=300)
+                    lat[i].append(time.perf_counter() - t0)
+
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(8)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+            wall = time.perf_counter() - t0
+            if any(t.is_alive() for t in threads):
+                raise AssertionError("a serving client did not finish")
+            stats = svc.stats()
+        finally:
+            svc.close()
+        ms = np.concatenate(lat) * 1e3
+        if fleet:
+            co = stats["_fleets"][0]
+            extra = (f"fleet rounds {co['rounds']}, stack fallbacks "
+                     f"{co['stack_fallbacks']}, coalescer assembly_s "
+                     f"{co['assembly_s']:.4f}, device_s {co['device_s']:.4f}")
+            if co["stack_fallbacks"] != 0:
+                raise AssertionError(f"serving record: {co}")
+        else:
+            extra = ("endpoints' assembly_s "
+                     f"{sum(stats[n]['assembly_s'] for n in names):.4f}, "
+                     f"device_s {sum(stats[n]['device_s'] for n in names):.4f}"
+                     f", staging allocs "
+                     f"{[stats[n]['n_staging_allocs'] for n in names]}")
+        log(f"  serving 8 MLP endpoints, fleet {'on ' if fleet else 'off'}: "
+            f"{len(ms) / wall:.0f} requests/s, p50 "
+            f"{np.percentile(ms, 50):.3f} ms, p99 {np.percentile(ms, 99):.3f}"
+            f" ms over {len(ms)} requests in {wall:.2f} s; {extra}")
+
+
+def timing(torch, K, dev, d6, d5, check, arts_a, arts_b, arts_d, tree_model,
+           launches):
     x_big = np.resize(d6.x_test, (max(TIMED_BATCHES), d6.x_test.shape[1]))
     n_test = len(d6.x_test)
     T = Timer(torch, dev, check, launches)
     time_mlp(torch, K, T, arts_a, x_big, n_test)
     time_tree_svm(torch, K, T, arts_b, tree_model, x_big, n_test)
+    time_slice(torch, K, T, arts_d, d6, d5)
+    time_predict_device(torch, K, arts_d, d6)
     predict_breakdown(torch, K, arts_a[("mlp", "fxp16")], x_big,
                       (n_test, max(TIMED_BATCHES)))
+    for pinned in (False, True):
+        predict_breakdown(torch, K, arts_d["mlp0"], x_big, (64, 4096),
+                          pinned=pinned)
+    serving_record(torch, K, arts_d, d6.x_test)
     log("  predict end to end (host clock around predict -> numpy labels)")
     for tag in TAGS:
         for kind in ("mlp", "logistic"):
@@ -865,24 +1366,25 @@ def main() -> int:
     from repro_torch.core import fixedpoint as fxp
     from repro_torch.core import trees
     from repro_torch.data import load_dataset
+    from repro_torch import serve
     from repro_torch.kernels import (build, fxp_layer, fxp_model, fxp_qmatmul,
-                                     tree_ensemble)
+                                     pwl_activation, tree_ensemble)
     from repro_torch.models.svm import _pick_prototypes
 
     K = types.SimpleNamespace(
         tc=tc, models=models, common=common, fxp=fxp, trees=trees,
         layer=fxp_layer, model=fxp_model, qm=fxp_qmatmul, te=tree_ensemble,
-        pick_prototypes=_pick_prototypes,
+        pwl=pwl_activation, serve=serve, pick_prototypes=_pick_prototypes,
         launchers={"fxp_layer": fxp_layer.fxp_layer_cuda,
                    "fxp_mlp_model": fxp_model.fxp_mlp_model_cuda,
                    "fxp_qmatmul": fxp_qmatmul.fxp_qmatmul_cuda,
                    "fxp_svm_model": fxp_model.fxp_svm_model_cuda,
-                   "tree_ensemble": tree_ensemble.tree_ensemble_cuda})
+                   "tree_ensemble": tree_ensemble.tree_ensemble_cuda,
+                   "pwl_activation": pwl_activation.pwl_activation_cuda,
+                   "fxp_mlp_fleet": fxp_model.fxp_mlp_fleet_cuda,
+                   "fxp_svm_fleet": fxp_model.fxp_svm_fleet_cuda})
 
     t_start = time.perf_counter()
-    # float targets: full float32 matmuls, as the reference computes them
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = Device(torch)
 
     t0 = time.perf_counter()
@@ -911,11 +1413,15 @@ def main() -> int:
 
     arts_a, launches_a = main_path_mlp(torch, K, d6)
     arts_b, launches_b = main_path_tree_svm(torch, K, d6, d5, tree_model)
-    launches = {n: (launches_a[n] + launches_b[n],
-                    {"A": launches_a[n], "B": launches_b[n]})
+    launches_c = main_path_flt_pwl(torch, K, d6)
+    launches_d, arts_d = main_path_serving(torch, K, d6, d5, tree_model)
+    by_path = {"A": launches_a, "B": launches_b, "C": launches_c,
+               "D": launches_d}
+    launches = {n: (sum(p[n] for p in by_path.values()),
+                    {k: p[n] for k, p in by_path.items()})
                 for n in KernelCheck.NAMES}
-    kernels = timing(torch, K, dev, d6, check, arts_a, arts_b, tree_model,
-                     launches)
+    kernels = timing(torch, K, dev, d6, d5, check, arts_a, arts_b, arts_d,
+                     tree_model, launches)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(dev.smi_line)

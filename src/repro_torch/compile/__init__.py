@@ -11,12 +11,15 @@ Stages: ``extract_params -> calibrate -> quantize -> lower -> specialize``,
 dispatched through the lowering registry by model kind: ``tree``,
 ``logistic``, ``mlp``, ``svm-linear``, ``svm-poly`` and ``svm-rbf``.
 ``compile(..., device="cpu")`` runs the kernels' plain PyTorch versions on
-the host.
+the host.  :func:`fleet_signature` and :func:`stack_fleet` fuse compatible
+artifacts into one stacked program (:class:`FleetStack`) for the serving
+plane's fleet megabatching.
 """
 
 from .api import compile, compile_from_params, resolve_device
 from .artifact import CompiledArtifact
 from .fingerprint import fingerprint_params
+from .fleet import FleetStack, fleet_signature, stack_fleet
 from .registry import (Lowered, Lowering, get_lowering, lowering_kinds,
                        model_kind, register_lowering)
 from .target import BACKENDS, CALIBRATED_FORMATS, NUMBER_FORMATS, Target
@@ -32,6 +35,9 @@ __all__ = [
     "CALIBRATED_FORMATS",
     "BACKENDS",
     "fingerprint_params",
+    "FleetStack",
+    "fleet_signature",
+    "stack_fleet",
     "Lowering",
     "Lowered",
     "register_lowering",

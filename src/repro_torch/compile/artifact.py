@@ -3,7 +3,9 @@
 The counterpart of :mod:`repro.compile.artifact`, in memory only: archives
 (``save``/``load``) arrive with their own slice.  A :class:`CompiledArtifact`
 holds the extracted parameters, the specialized predict program and the
-memory model of one compile.
+memory model of one compile, and what the serving plane reads off it
+(``max_supported_batch``, ``pretune``, and ``mesh``/``replicas`` of a
+single-device artifact).
 """
 
 from __future__ import annotations
@@ -39,6 +41,12 @@ class CompiledArtifact:
     # fixed and float targets.
     quant_plan: Optional[Any] = dataclasses.field(default=None, repr=False)
 
+    # A single-device artifact: mesh specialization (data-parallel replicas
+    # over several cards) arrives with the multi-GPU slice.  The serving
+    # plane reads both, as it does the reference's.
+    mesh = None
+    replicas = 1
+
     @property
     def plan_key(self) -> Optional[Tuple]:
         """Hashable QuantPlan descriptor (None = no calibrated plan)."""
@@ -58,6 +66,42 @@ class CompiledArtifact:
         # budget override, which is ambient state beyond the Target.
         return (self.fingerprint, self.target, self.plan_key,
                 self.kernel_strategy, str(self.device))
+
+    @property
+    def max_supported_batch(self) -> Optional[int]:
+        """Largest batch one predict call accepts (None = unbounded): the
+        micro-batching scheduler clamps its bucket ladder to it, so a
+        ``batch_policy='fixed'`` artifact is never fed a batch it would
+        reject."""
+        if self.target.batch_policy == "fixed":
+            return self.target.batch_size
+        return None
+
+    def pretune(self, example, batches: Optional[Tuple[int, ...]] = None
+                ) -> "CompiledArtifact":
+        """Warm the artifact for the serving bucket ladder, ahead of traffic.
+
+        The port has no block-size tuner sweep yet (the kernels' block sizes
+        are fixed in their sources), so this runs one ``predict`` on zero
+        rows shaped like ``example`` at each batch size in ``batches``
+        (default: the power-of-two ladder up to ``max_supported_batch``, or
+        64).  The first call builds and loads the artifact's CUDA kernels,
+        so the first live request pays neither the build nor a cold
+        allocation.  Returns self.
+        """
+        row = np.asarray(example)
+        if row.ndim > 1:
+            row = row[0]
+        if batches is None:
+            top = self.max_supported_batch or 64
+            ladder, b = [], 1
+            while b < top:
+                ladder.append(b)
+                b *= 2
+            batches = tuple(ladder) + (top,)
+        for b in batches:
+            self.predict(np.zeros((int(b),) + row.shape, row.dtype))
+        return self
 
     def predict(self, x) -> np.ndarray:
         """int32 class labels on the host."""

@@ -11,7 +11,8 @@ from repro_torch.core import fixedpoint as fxp
 from repro_torch.core.fixedpoint import STATS_DTYPE, FxpFormat, FxpStats
 
 __all__ = ["zero_stats", "q", "qx_with_stats", "nbytes", "elem_bytes",
-           "resolve_formats", "as_input", "argmax_first"]
+           "resolve_formats", "as_input", "argmax_first",
+           "require_full_float32"]
 
 
 def zero_stats(device: torch.device) -> FxpStats:
@@ -32,11 +33,41 @@ def qx_with_stats(x: torch.Tensor,
 
 def as_input(x: Any, device: torch.device) -> torch.Tensor:
     """A predict input as a float32 tensor on ``device`` (numpy arrays are
-    copied over; tensors already there are used as they are)."""
+    copied over; tensors already there are used as they are).  A tensor in
+    pinned host memory (the serving plane's staging buffers) is copied to
+    the card without blocking, ordered on the current stream; the caller
+    keeps the buffer unchanged until the predict's result has been read."""
     if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.float32)
+        pinned = (device.type == "cuda" and x.device.type == "cpu"
+                  and x.is_pinned())
+        return x.to(device=device, dtype=torch.float32, non_blocking=pinned)
     arr = np.ascontiguousarray(x, np.float32)
     return torch.from_numpy(arr).to(device)
+
+
+def require_full_float32(device: torch.device) -> None:
+    """Refuse to run a float target's products below full float32.
+
+    The float targets' matmuls must be full float32, as the reference
+    computes them.  That is PyTorch's default; a process that turned TF32
+    (or bf16) on for float32 matmuls would change their labels.  The float
+    predicts call this on every run and raise; they change no setting."""
+    if device.type == "cuda":
+        backend = torch.backends.cuda.matmul
+    else:
+        backend = getattr(torch.backends.mkldnn, "matmul", None)
+    precision = getattr(backend, "fp32_precision", None)
+    if precision is None:  # a PyTorch without the fp32_precision settings
+        reduced = (device.type == "cuda"
+                   and torch.backends.cuda.matmul.allow_tf32)
+    else:
+        reduced = precision not in ("ieee", "none")
+    if reduced:
+        raise RuntimeError(
+            f"float32 matmuls on {device.type} run at reduced precision "
+            f"({precision or 'tf32'}); a float target needs full float32: "
+            f"set torch.backends.{'cuda' if device.type == 'cuda' else 'mkldnn'}"
+            f".matmul.fp32_precision = 'ieee'")
 
 
 def argmax_first(h: torch.Tensor) -> torch.Tensor:

@@ -23,7 +23,8 @@ from repro_torch.quant import Calibration, amax
 from ..registry import Lowered, Lowering, register_lowering
 from ..target import Target
 from .common import (argmax_first, as_input, elem_bytes, nbytes, q,
-                     qx_with_stats, resolve_formats, zero_stats)
+                     qx_with_stats, require_full_float32, resolve_formats,
+                     zero_stats)
 
 
 def calibrate_linear(coef: np.ndarray, intercept: np.ndarray,
@@ -50,6 +51,7 @@ def lower_linear(coef: np.ndarray, intercept: np.ndarray, target: Target,
         b = torch.from_numpy(np.asarray(intercept, np.float32)).to(device)
 
         def predict(x):
+            require_full_float32(device)
             logits = as_input(x, device) @ w + b
             return torch.argmax(logits, -1).to(torch.int32), zero_stats(device)
 

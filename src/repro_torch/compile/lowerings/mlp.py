@@ -2,10 +2,11 @@
 
 The counterpart of :mod:`repro.compile.lowerings.mlp`.  Backend routing:
 
-* float targets — plain PyTorch float32 matmuls (the reference leaves them
-  to XLA).  On ``cuda`` a non-exact sigmoid needs the ``pwl_activation``
-  kernel, which is not ported yet: that combination raises
-  ``NotImplementedError`` rather than running a substitute.
+* float targets — float32 matmuls through ``torch.matmul`` with TF32 off
+  (the reference leaves them to XLA, outside any kernel); on ``cuda`` a
+  ``pwl2``/``pwl4``/``rational`` sigmoid is the ``pwl_activation`` kernel
+  (``ops.pwl_activation``), as on the reference's ``pallas``; otherwise the
+  float sigmoid in PyTorch ops.
 * fixed-point targets on ``cuda`` — the whole forward pass is one
   ``fxp_mlp_model`` megakernel launch when the activations fit one block's
   shared memory (:func:`repro_torch.kernels.fxp_model.mlp_fits_smem`),
@@ -33,9 +34,11 @@ from repro_torch.quant import Calibration, activation_range, amax
 from ..registry import Lowered, Lowering, register_lowering
 from ..target import Target
 from .common import (argmax_first, as_input, elem_bytes, nbytes, q,
-                     qx_with_stats, resolve_formats, zero_stats)
+                     qx_with_stats, require_full_float32, resolve_formats,
+                     zero_stats)
 
-_UNPORTED_FLOAT_SIGMOIDS = ("pwl2", "pwl4", "rational")
+# Float sigmoids the cuda backend runs through the pwl_activation kernel.
+PWL_SIGMOIDS = ("pwl2", "pwl4", "rational")
 
 
 @register_lowering("mlp")
@@ -80,20 +83,20 @@ class MLPLowering(Lowering):
         extras: Dict[str, Any] = {}
 
         if F is None:
-            if (target.backend == "cuda"
-                    and target.sigmoid in _UNPORTED_FLOAT_SIGMOIDS):
-                raise NotImplementedError(
-                    f"flt MLP with sigmoid '{target.sigmoid}' on the cuda "
-                    f"backend needs the pwl_activation kernel "
-                    f"(repro/kernels/pwl_activation.py), which is not ported "
-                    f"yet; use sigmoid='exact' or backend='ref'")
             ws = [torch.from_numpy(np.asarray(w, np.float32)).to(device)
                   for w in weights]
             bs = [torch.from_numpy(np.asarray(b, np.float32)).to(device)
                   for b in biases]
-            sig = get_sigmoid(target.sigmoid)
+            if target.backend == "cuda" and target.sigmoid in PWL_SIGMOIDS:
+                from repro_torch.kernels import ops
+
+                variant = target.sigmoid
+                sig = lambda h: ops.pwl_activation(h, variant)  # noqa: E731
+            else:
+                sig = get_sigmoid(target.sigmoid)
 
             def predict(x):
+                require_full_float32(device)
                 h = as_input(x, device)
                 for i, (w, b) in enumerate(zip(ws, bs)):
                     h = h @ w + b

@@ -40,7 +40,8 @@ from repro_torch.quant import Calibration, amax
 from ..registry import Lowered, Lowering, register_lowering
 from ..target import Target
 from .common import (argmax_first, as_input, elem_bytes, nbytes, q,
-                     qx_with_stats, resolve_formats, zero_stats)
+                     qx_with_stats, require_full_float32, resolve_formats,
+                     zero_stats)
 from .linear import calibrate_linear, lower_linear
 
 
@@ -143,6 +144,7 @@ def _lower_float_kernel_svm(kernel: str, sv: np.ndarray, dual: np.ndarray,
     g, c0 = float(np.float32(gamma)), float(np.float32(coef0))
 
     def predict(x):
+        require_full_float32(device)
         x = as_input(x, device)
         if kernel == "poly":
             k = (g * (x @ svt.T) + c0) ** degree

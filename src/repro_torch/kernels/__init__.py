@@ -15,4 +15,9 @@ between them by device and :mod:`.ref` holds the int64 oracles.
                    ``fxp_svm_model_pallas``)
 * tree_ensemble  — decision-tree inference, one warp per row (replaces
                    ``tree_ensemble_pallas``)
+* fxp_model (fleet half) — E stacked MLPs or kernel SVMs in one launch,
+                   one block per (batch block, model) (replace
+                   ``fxp_mlp_fleet_pallas`` and ``fxp_svm_fleet_pallas``)
+* pwl_activation — the float PWL sigmoid family, elementwise (replaces
+                   ``pwl_activation_pallas``)
 """

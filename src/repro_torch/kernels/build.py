@@ -27,9 +27,10 @@ from typing import Dict, Iterable
 __all__ = ["SOURCES", "build_all", "load", "nvcc_path", "BUILD_LOG"]
 
 SOURCES = ("fxp_layer", "fxp_mlp_model", "fxp_qmatmul", "fxp_svm_model",
-           "tree_ensemble")
+           "tree_ensemble", "pwl_activation", "fxp_mlp_fleet", "fxp_svm_fleet")
 _CSRC = Path(__file__).resolve().with_name("csrc")
-_HEADERS = ("fxp_common.cuh", "fxp_tile.cuh")
+_HEADERS = ("fxp_common.cuh", "fxp_tile.cuh", "fxp_mlp_body.cuh",
+            "fxp_svm_body.cuh", "pwl.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC")
 # Report registers, shared memory and spills per kernel; does not change

@@ -19,10 +19,12 @@
 #if defined(__CUDACC__)
 #include <cuda_runtime.h>
 #define FXP_DEVICE __device__ __forceinline__
+#define FXP_HOST_DEVICE __host__ __device__ __forceinline__
 #else
 // A host build of the epilogue alone: the CPU tests compile this header with
 // the system C++ compiler and hold it against the plain PyTorch epilogue.
 #define FXP_DEVICE inline
+#define FXP_HOST_DEVICE inline
 #endif
 
 namespace fxp {
@@ -41,7 +43,9 @@ struct Epilogue {
 };
 constexpr int kEpilogueFields = 21;
 
-inline Epilogue epilogue_from(const long long* p) {
+// On the host for launch parameters; on the device for the fleet kernels,
+// which read each model's rows from a table in device memory.
+FXP_HOST_DEVICE Epilogue epilogue_from(const long long* p) {
   Epilogue e;
   e.shift = (int)p[0];  e.act = (int)p[1];  e.m = (int)p[2];
   e.tb = (int)p[3];     e.wb = (int)p[4];   e.ib = (int)p[5];

@@ -5,34 +5,26 @@
 // TPU kernel grids over batch blocks with every layer's weights resident in
 // VMEM.  A Hopper block has 227 KB of shared memory, not megabytes, so here
 // the activations, not the weights, live in shared memory: each block owns
-// kBM batch rows, stages them once, and ping-pongs them between two
-// shared-memory buffers in the container type while it runs every layer.
-// Weights are read from global memory; they are KB-scale and stay resident
-// in L1/L2 across the blocks.  Per layer and per output, the int32
-// accumulator wraps at 32 bits (uint32_t arithmetic) and the shared epilogue
-// (fxp_common.cuh) requantizes, adds the bias, applies the activation and
-// narrows to the container.  The per-layer schedule travels by value as a
-// struct array in the kernel parameters.  Rows past the ragged batch edge
-// compute on zeros and are never stored.
+// kBM batch rows and runs every layer on them (fxp_mlp_body.cuh, shared with
+// the fleet kernel).  The per-layer schedule travels by value as a struct
+// array in the kernel parameters.
 //
 // Bound on the H100: integer multiply-adds on the CUDA cores for the 16- and
 // 32-bit containers (no integer tensor-core path for them).  Each thread
 // computes kTM rows of one output column so one weight load feeds kTM
 // multiply-adds; the activations are shared-memory broadcasts.  Simple and
 // exact first: no tensor cores for 8-bit, no cp.async staging.
-#include "fxp_common.cuh"
+#include "fxp_mlp_body.cuh"
 
 namespace {
 
-constexpr int kMaxLayers = 8;
-constexpr int kBM = 32, kTM = 4, kThreads = 256;
+constexpr int kMaxLayers = fxp::kMlpMaxLayers;
+constexpr int kBM = fxp::kMlpBM, kThreads = fxp::kMlpThreads;
 
 struct MlpParams {
   const void* w[kMaxLayers];  // (K_l, K_{l+1}) row-major
   const void* b[kMaxLayers];  // (K_{l+1},)
-  int dims[kMaxLayers + 1];
-  int n_layers;
-  int stride;  // row stride of the shared-memory buffers: the widest layer
+  fxp::MlpShape shape;
   fxp::Epilogue epi[kMaxLayers];
 };
 
@@ -40,60 +32,19 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 fxp_mlp_model_kernel(const T* __restrict__ x, T* __restrict__ out, int M,
                      const MlpParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* hin = reinterpret_cast<T*>(smem);
-  T* hout = hin + kBM * p.stride;
-  const int row0 = blockIdx.x * kBM;
-  const int rows = min(kBM, M - row0);
-
-  const int k0 = p.dims[0];
-  for (int i = threadIdx.x; i < kBM * k0; i += kThreads) {
-    const int r = i / k0, c = i - r * k0;
-    hin[r * p.stride + c] = (r < rows) ? x[(size_t)(row0 + r) * k0 + c] : T(0);
-  }
-  __syncthreads();
-
-  for (int l = 0; l < p.n_layers; ++l) {
-    const int K = p.dims[l], N = p.dims[l + 1];
-    const T* __restrict__ W = static_cast<const T*>(p.w[l]);
-    const T* __restrict__ B = static_cast<const T*>(p.b[l]);
-    const fxp::Epilogue& e = p.epi[l];
-    const bool last = l == p.n_layers - 1;
-    for (int item = threadIdx.x; item < (kBM / kTM) * N; item += kThreads) {
-      const int g = item / N, n = item - g * N;
-      const T* h = hin + g * kTM * p.stride;
-      uint32_t acc[kTM];
-#pragma unroll
-      for (int t = 0; t < kTM; ++t) acc[t] = 0u;
-      for (int k = 0; k < K; ++k) {
-        const uint32_t w = (uint32_t)(int32_t)W[(size_t)k * N + n];
-#pragma unroll
-        for (int t = 0; t < kTM; ++t)
-          acc[t] += (uint32_t)(int32_t)h[t * p.stride + k] * w;  // mod 2^32
-      }
-      const int32_t bias = (int32_t)B[n];
-#pragma unroll
-      for (int t = 0; t < kTM; ++t) {
-        const int r = g * kTM + t;
-        const T v = (T)fxp::layer_epilogue(acc[t], bias, e);
-        if (!last) {
-          hout[r * p.stride + n] = v;
-        } else if (r < rows) {
-          out[(size_t)(row0 + r) * N + n] = v;
-        }
-      }
-    }
-    __syncthreads();  // layer l+1 reads every column layer l wrote
-    T* tmp = hin;
-    hin = hout;
-    hout = tmp;
-  }
+  fxp::mlp_block<T>(
+      x, out, M, blockIdx.x * kBM, p.shape,
+      [&](int l) {
+        return fxp::MlpLayer<T>{static_cast<const T*>(p.w[l]),
+                                static_cast<const T*>(p.b[l])};
+      },
+      [&](int l) { return p.epi[l]; });
 }
 
 template <typename T>
 int launch(const void* x, void* out, int M, const MlpParams& p,
            cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)kBM * p.stride * sizeof(T);
+  const size_t smem = fxp::mlp_smem_bytes<T>(p.shape);
   auto kernel = fxp_mlp_model_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -117,16 +68,9 @@ extern "C" int fxp_mlp_model_launch(const void* x, void* out, int M,
                                     const void* const* bs,
                                     const long long* epis, int bits,
                                     void* stream) {
-  if (M <= 0 || n_layers < 1 || n_layers > kMaxLayers)
-    return (int)cudaErrorInvalidValue;
   MlpParams p;
-  p.n_layers = n_layers;
-  p.stride = 0;
-  for (int l = 0; l <= n_layers; ++l) {
-    if (dims[l] <= 0) return (int)cudaErrorInvalidValue;
-    p.dims[l] = dims[l];
-    p.stride = dims[l] > p.stride ? dims[l] : p.stride;
-  }
+  if (M <= 0 || !fxp::mlp_shape_from(dims, n_layers, &p.shape))
+    return (int)cudaErrorInvalidValue;
   for (int l = 0; l < n_layers; ++l) {
     p.w[l] = ws[l];
     p.b[l] = bs[l];
@@ -140,4 +84,3 @@ extern "C" int fxp_mlp_model_launch(const void* x, void* out, int M,
     default: return (int)cudaErrorInvalidValue;
   }
 }
-

@@ -1,9 +1,10 @@
 """Whole fixed-point models in one launch: the MLP and kernel-SVM megakernels.
 
 Replaces the Pallas kernels of ``repro/kernels/fxp_model.py``:
-``fxp_mlp_model_pallas`` (body ``_mlp_kernel``) and ``fxp_svm_model_pallas``
-(body ``_svm_kernel`` via ``_svm_forward``); the fleet kernels come with
-their slice.
+``fxp_mlp_model_pallas`` (body ``_mlp_kernel``), ``fxp_svm_model_pallas``
+(body ``_svm_kernel`` via ``_svm_forward``), and their fleet forms
+``fxp_mlp_fleet_pallas`` and ``fxp_svm_fleet_pallas``, which run E stacked
+models in one launch.
 
 * :func:`fxp_mlp_model_cuda` launches ``csrc/fxp_mlp_model.cu``: one block
   per ``MODEL_BLOCK_M`` batch rows, the activations ping-ponging between two
@@ -15,8 +16,16 @@ their slice.
   in shared memory (x . sv^T through the shared tile loop, then the poly or
   rbf algebra), then runs the decision stage ``k . dual`` with the shared
   epilogue.  It counts its launches in ``fxp_svm_model_cuda.launches``.
-* :func:`fxp_mlp_model_plain` and :func:`fxp_svm_model_plain` are the same
-  functions in PyTorch ops.
+* :func:`fxp_mlp_fleet_cuda` and :func:`fxp_svm_fleet_cuda` launch
+  ``csrc/fxp_mlp_fleet.cu`` and ``csrc/fxp_svm_fleet.cu``: a grid of
+  (batch blocks, E models) whose blocks run exactly the single-model bodies
+  (``csrc/fxp_mlp_body.cuh``, ``csrc/fxp_svm_body.cuh``) on their model's
+  slices, so slot e equals model e's own launch bit for bit.  Each model's
+  schedule or SVM parameters are a row of a small int64 table in device
+  memory (:func:`mlp_fleet_table`, :func:`svm_fleet_table`, built once per
+  fleet and device and cached), so per-model schedules cost nothing.
+* :func:`fxp_mlp_model_plain`, :func:`fxp_svm_model_plain` and the fleet
+  ``*_plain`` functions are the same functions in PyTorch ops.
 
 :func:`mlp_fits_smem` and :func:`svm_fits_smem` are the routing predicates
 that replace ``mlp_fits_vmem`` and ``svm_fits_vmem``: each counts what its
@@ -24,6 +33,9 @@ kernel keeps in shared memory (the MLP's two activation buffers; the SVM's
 kernel-value tile, squared norms and operand tiles) against one block's
 227 KB.  ``REPRO_MEGAKERNEL_VMEM`` overrides the budget under the reference
 package's name; ``0`` forces the per-layer route in both packages.
+:func:`mlp_fleet_fits_smem` and :func:`svm_fleet_fits_smem` replace the
+fleet predicates: one block runs one model, so a fleet fits whenever one of
+its models does, whatever E.
 """
 
 from __future__ import annotations
@@ -49,7 +61,11 @@ __all__ = ["fxp_mlp_model_plain", "fxp_mlp_model_cuda", "LayerSchedule",
            "LAYER_ACTIVATIONS", "MAX_LAYERS", "smem_budget", "mlp_smem_bytes",
            "mlp_fits_smem", "REPLACES", "SVM_KERNELS", "fxp_svm_model_plain",
            "fxp_svm_model_cuda", "svm_smem_bytes", "svm_fits_smem",
-           "SVM_REPLACES"]
+           "SVM_REPLACES", "FleetSchedules", "SvmFleetParams", "MAX_MODELS",
+           "mlp_fleet_fits_smem", "mlp_fleet_table", "fxp_mlp_fleet_plain",
+           "fxp_mlp_fleet_cuda", "MLP_FLEET_REPLACES", "svm_fleet_fits_smem",
+           "svm_fleet_table", "fxp_svm_fleet_plain", "fxp_svm_fleet_cuda",
+           "SVM_FLEET_REPLACES"]
 
 # One entry per layer: (requantization shift, output format, activation).
 LayerSchedule = Tuple[Tuple[int, FxpFormat, str], ...]
@@ -275,3 +291,256 @@ def fxp_svm_model_cuda(qx: torch.Tensor, sv: torch.Tensor, dual: torch.Tensor,
 
 
 fxp_svm_model_cuda.launches = 0
+
+
+# --------------------------------------------------------------------------
+# fleet kernels: E stacked models, one launch
+# --------------------------------------------------------------------------
+# Model e's static layer plan at index e.
+FleetSchedules = Tuple[LayerSchedule, ...]
+# Model e's (fmt, out_fmt, qgamma, qcoef0, degree, dec_shift) at index e.
+SvmFleetParams = Tuple[Tuple[FxpFormat, FxpFormat, int, int, int, int], ...]
+
+MAX_MODELS = 65535  # kMaxModels in csrc/fxp_{mlp,svm}_fleet.cu (gridDim.y)
+MLP_FLEET_REPLACES = "src/repro/kernels/fxp_model.py:448"  # fxp_mlp_fleet_pallas
+SVM_FLEET_REPLACES = "src/repro/kernels/fxp_model.py:563"  # fxp_svm_fleet_pallas
+
+
+def mlp_fleet_fits_smem(n_models: int, widths: Sequence[int], bits: int,
+                        bm: int = MODEL_BLOCK_M) -> bool:
+    """Whether the fleet kernel takes ``n_models`` stacked MLPs of
+    ``widths``: one block runs one model, so its shared memory is the single
+    model's (:func:`mlp_fits_smem`) whatever ``n_models`` is, up to the
+    grid's model axis."""
+    return 1 <= int(n_models) <= MAX_MODELS and mlp_fits_smem(widths, bits, bm)
+
+
+def svm_fleet_fits_smem(n_models: int, n_sv: int,
+                        bm: int = MODEL_BLOCK_M) -> bool:
+    """Whether the fleet kernel takes ``n_models`` stacked kernel SVMs of
+    ``n_sv`` support vectors (one block runs one model:
+    :func:`svm_fits_smem`)."""
+    return 1 <= int(n_models) <= MAX_MODELS and svm_fits_smem(n_sv, bm)
+
+
+def _check_fleet_schedules(weights, biases, schedules) -> int:
+    """Validate per-model schedules; returns the shared container width."""
+    if not schedules:
+        raise ValueError("a fleet needs at least one model")
+    n = len(schedules[0])
+    if not (len(weights) == len(biases) == n >= 1):
+        raise ValueError("weights/biases/schedules must align, >= 1 layer")
+    bits = schedules[0][0][1].total_bits
+    for sched in schedules:
+        if len(sched) != n:
+            raise ValueError("stacked models must share the layer count")
+        _check_schedule(weights, biases, sched)
+        if any(fmt.total_bits != bits for _, fmt, _ in sched):
+            raise ValueError("stacked models must share the container")
+    return bits
+
+
+def fxp_mlp_fleet_plain(x: torch.Tensor, weights, biases,
+                        schedules: FleetSchedules) -> torch.Tensor:
+    """The fleet kernel's function in PyTorch ops: slot e is
+    :func:`fxp_mlp_model_plain` of model e on ``x[e]``.  x (E, M, K0),
+    weights[i] (E, K_i, K_{i+1}), biases[i] (E, K_{i+1}) -> (E, M, C)."""
+    _check_fleet_schedules(weights, biases, schedules)
+    if x.shape[0] != len(schedules):
+        raise ValueError(f"{len(schedules)} schedules for {x.shape[0]} "
+                         f"stacked models")
+    return torch.stack([
+        fxp_mlp_model_plain(x[e], [w[e] for w in weights],
+                            [b[e] for b in biases], sched)
+        for e, sched in enumerate(schedules)])
+
+
+def _device_table(rows: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(rows, np.int64)).to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def _mlp_fleet_table(schedules: FleetSchedules, device: str) -> torch.Tensor:
+    return _device_table(np.stack([_schedule_params(s) for s in schedules]),
+                         torch.device(device))
+
+
+def mlp_fleet_table(schedules: FleetSchedules,
+                    device: torch.device) -> torch.Tensor:
+    """The (E, L, kEpilogueFields) int64 epilogue table of a fleet on
+    ``device``: model e's schedule at row e.  Built once per (schedules,
+    device) and cached, so a launch copies nothing to the card (the copy
+    that builds it synchronizes; :func:`repro_torch.compile.stack_fleet`
+    builds it ahead of traffic)."""
+    return _mlp_fleet_table(tuple(tuple(s) for s in schedules), str(device))
+
+
+def _mlp_fleet_lib():
+    fn = build.load("fxp_mlp_fleet").fxp_mlp_fleet_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def fxp_mlp_fleet_cuda(x: torch.Tensor, weights, biases,
+                       schedules: FleetSchedules) -> torch.Tensor:
+    """Launch the CUDA fleet kernel.  x (E, M, K0); weights[i] (E, K_i,
+    K_{i+1}); biases[i] (E, K_{i+1}); every tensor on one CUDA device in the
+    fleet's one container width; ``schedules[e]`` is model e's plan.
+    Returns (E, M, K_L).  Does not synchronize."""
+    if x.device.type != "cuda":
+        raise ValueError(f"fxp_mlp_fleet_cuda needs CUDA tensors, got "
+                         f"{x.device}")
+    schedules = tuple(schedules)
+    bits = _check_fleet_schedules(weights, biases, schedules)
+    n = len(schedules[0])
+    if n > MAX_LAYERS:
+        raise ValueError(f"the megakernel runs at most {MAX_LAYERS} layers")
+    dtype, dev = schedules[0][0][1].dtype, x.device
+    x = _check_cuda("x", x, dtype, dev)
+    weights = [_check_cuda(f"weights[{i}]", w, dtype, dev)
+               for i, w in enumerate(weights)]
+    biases = [_check_cuda(f"biases[{i}]", b, dtype, dev)
+              for i, b in enumerate(biases)]
+    e, m = int(x.shape[0]), int(x.shape[1])
+    if e != len(schedules):
+        raise ValueError(f"{len(schedules)} schedules for {e} stacked models")
+    dims = [int(x.shape[2])]
+    for i, (w, b) in enumerate(zip(weights, biases)):
+        if w.shape[:2] != (e, dims[-1]) or b.shape != (e, w.shape[2]):
+            raise ValueError(f"layer {i}: weight {tuple(w.shape)} / bias "
+                             f"{tuple(b.shape)} do not follow ({e}, "
+                             f"{dims[-1]}, .)")
+        dims.append(int(w.shape[2]))
+    if mlp_smem_bytes(dims, bits) > SMEM_PER_BLOCK or e > MAX_MODELS:
+        raise ValueError(f"a fleet of {e} models of widths {dims} does not "
+                         f"fit the kernel")
+    out = torch.empty((e, m, dims[-1]), dtype=dtype, device=dev)
+    if m == 0:
+        return out
+    table = mlp_fleet_table(schedules, dev)
+    c_dims = (ctypes.c_int * (n + 1))(*dims)
+    c_ws = (ctypes.c_void_p * n)(*[w.data_ptr() for w in weights])
+    c_bs = (ctypes.c_void_p * n)(*[b.data_ptr() for b in biases])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = _mlp_fleet_lib()(x.data_ptr(), out.data_ptr(), m, e, n, c_dims,
+                               c_ws, c_bs, table.data_ptr(), bits, stream)
+    if err != 0:
+        raise RuntimeError(f"fxp_mlp_fleet kernel launch failed: CUDA error "
+                           f"{err}")
+    fxp_mlp_fleet_cuda.launches += 1
+    return out
+
+
+fxp_mlp_fleet_cuda.launches = 0
+
+
+def _check_svm_fleet(kind: str, params) -> int:
+    """Validate per-model SVM params; returns the shared container width."""
+    if kind not in SVM_KERNELS:
+        raise KeyError(f"kind must be one of {SVM_KERNELS}, got {kind!r}")
+    if not params:
+        raise ValueError("a fleet needs at least one model")
+    bits = params[0][0].total_bits
+    for fmt, out_fmt, _, _, degree, _ in params:
+        _check_svm(kind, degree)
+        if fmt.total_bits != bits or out_fmt.total_bits != bits:
+            raise ValueError("stacked models must share the container")
+    return bits
+
+
+def fxp_svm_fleet_plain(qx: torch.Tensor, sv: torch.Tensor,
+                        dual: torch.Tensor, icept: torch.Tensor, kind: str,
+                        params: SvmFleetParams) -> torch.Tensor:
+    """The fleet kernel's function in PyTorch ops: slot e is
+    :func:`fxp_svm_model_plain` of model e on ``qx[e]``.  qx (E, M, F),
+    sv (E, S, F), dual (E, S, C), icept (E, C) -> (E, M, C)."""
+    _check_svm_fleet(kind, params)
+    if qx.shape[0] != len(params):
+        raise ValueError(f"{len(params)} param tuples for {qx.shape[0]} "
+                         f"stacked models")
+    return torch.stack([
+        fxp_svm_model_plain(qx[e], sv[e], dual[e], icept[e], kind, *p)
+        for e, p in enumerate(params)])
+
+
+@functools.lru_cache(maxsize=64)
+def _svm_fleet_table(params: SvmFleetParams, device: str) -> torch.Tensor:
+    rows = [np.concatenate([epilogue_params(fmt.frac_bits, fmt, "none"),
+                            epilogue_params(dec_shift, out_fmt, "none"),
+                            np.asarray([degree, qgamma, qcoef0], np.int64)])
+            for fmt, out_fmt, qgamma, qcoef0, degree, dec_shift in params]
+    return _device_table(np.stack(rows), torch.device(device))
+
+
+def svm_fleet_table(params: SvmFleetParams,
+                    device: torch.device) -> torch.Tensor:
+    """The (E, 2 * 21 + 3) int64 parameter table of an SVM fleet
+    on ``device`` (``fxp::svm_params_from``): model e's kernel-domain and
+    decision epilogues, degree, q(gamma) and q(coef0) at row e.  Cached per
+    (params, device), like :func:`mlp_fleet_table`."""
+    params = tuple((p[0], p[1], int(p[2]), int(p[3]), int(p[4]), int(p[5]))
+                   for p in params)
+    return _svm_fleet_table(params, str(device))
+
+
+def _svm_fleet_lib():
+    fn = build.load("fxp_svm_fleet").fxp_svm_fleet_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p] * 2)
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def fxp_svm_fleet_cuda(qx: torch.Tensor, sv: torch.Tensor, dual: torch.Tensor,
+                       icept: torch.Tensor, kind: str,
+                       params: SvmFleetParams) -> torch.Tensor:
+    """Launch the CUDA fleet kernel.  qx (E, M, F), sv (E, S, F), dual
+    (E, S, C), icept (E, C), all in the fleet's one container width on one
+    CUDA device; ``params[e]`` is model e's (fmt, out_fmt, qgamma, qcoef0,
+    degree, dec_shift).  Returns (E, M, C).  Does not synchronize."""
+    if qx.device.type != "cuda":
+        raise ValueError(f"fxp_svm_fleet_cuda needs CUDA tensors, got "
+                         f"{qx.device}")
+    params = tuple(tuple(p) for p in params)
+    bits = _check_svm_fleet(kind, params)
+    dtype, dev = params[0][0].dtype, qx.device
+    qx = _check_cuda("qx", qx, dtype, dev)
+    sv = _check_cuda("sv", sv, dtype, dev)
+    dual = _check_cuda("dual", dual, dtype, dev)
+    icept = _check_cuda("icept", icept, dtype, dev)
+    (e, m, f), (s, c) = qx.shape, dual.shape[1:]
+    if (len(params) != e or sv.shape != (e, s, f) or dual.shape != (e, s, c)
+            or icept.shape != (e, c)):
+        raise ValueError(f"shape mismatch for {len(params)} models: qx "
+                         f"{tuple(qx.shape)}, sv {tuple(sv.shape)}, dual "
+                         f"{tuple(dual.shape)}, icept {tuple(icept.shape)}")
+    if min(f, s, c) == 0:
+        raise ValueError("the SVM fleet kernel needs F, S and C >= 1")
+    if svm_smem_bytes(s) > SMEM_PER_BLOCK or e > MAX_MODELS:
+        raise ValueError(f"a fleet of {e} models of {s} support vectors does "
+                         f"not fit the kernel")
+    out = torch.empty((e, m, c), dtype=dtype, device=dev)
+    if m == 0:
+        return out
+    table = svm_fleet_table(params, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = _svm_fleet_lib()(qx.data_ptr(), sv.data_ptr(), dual.data_ptr(),
+                               icept.data_ptr(), out.data_ptr(), m, f, s, c,
+                               e, bits, SVM_KERNELS.index(kind),
+                               table.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"fxp_svm_fleet kernel launch failed: CUDA error "
+                           f"{err}")
+    fxp_svm_fleet_cuda.launches += 1
+    return out
+
+
+fxp_svm_fleet_cuda.launches = 0

@@ -1,6 +1,6 @@
 """Public wrappers around the fixed-point kernels, and their routing.
 
-The counterpart of :mod:`repro.kernels.ops` for the five ported kernels.
+The counterpart of :mod:`repro.kernels.ops` for the eight ported kernels.
 Each wrapper routes by ``impl`` and by where its tensors lie:
 
 * ``impl="ref"`` — the int64-accumulating oracle of :mod:`.ref`;
@@ -27,13 +27,18 @@ from repro_torch.core.trees import TreeArrays
 
 from . import ref as ref_ops
 from .fxp_layer import fxp_layer_cuda, fxp_layer_plain
-from .fxp_model import (LayerSchedule, fxp_mlp_model_cuda, fxp_mlp_model_plain,
+from .fxp_model import (FleetSchedules, LayerSchedule, SvmFleetParams,
+                        fxp_mlp_fleet_cuda, fxp_mlp_fleet_plain,
+                        fxp_mlp_model_cuda, fxp_mlp_model_plain,
+                        fxp_svm_fleet_cuda, fxp_svm_fleet_plain,
                         fxp_svm_model_cuda, fxp_svm_model_plain)
 from .fxp_qmatmul import fxp_qmatmul_cuda, fxp_qmatmul_plain
+from .pwl_activation import pwl_activation_cuda, pwl_activation_plain
 from .tree_ensemble import tree_ensemble_cuda, tree_ensemble_plain
 
 __all__ = ["fxp_qmatmul", "fxp_layer", "fxp_mlp_model", "fxp_svm_model",
-           "tree_predict", "count_dispatches", "IMPLS"]
+           "fxp_mlp_fleet", "fxp_svm_fleet", "pwl_activation", "tree_predict",
+           "count_dispatches", "IMPLS"]
 
 IMPLS = ("cuda", "ref")
 
@@ -141,6 +146,56 @@ def fxp_svm_model(qx: torch.Tensor, sv: torch.Tensor, dual: torch.Tensor,
     if route == "cuda":
         return fxp_svm_model_cuda(*args)
     return fxp_svm_model_plain(*args)
+
+
+def fxp_mlp_fleet(x: torch.Tensor, weights, biases,
+                  schedules: FleetSchedules, impl: str = "cuda") -> torch.Tensor:
+    """E stacked MLP forward passes — the whole fleet — in one dispatch.
+    x (E, M, K0); ``weights[i]``/``biases[i]`` carry the leading model axis;
+    ``schedules[e]`` is model e's layer plan (they may differ per model).
+    Slot e is bit-identical to model e's own :func:`fxp_mlp_model`.  Callers
+    check :func:`repro_torch.kernels.fxp_model.mlp_fleet_fits_smem` first
+    (:func:`repro_torch.compile.stack_fleet` does)."""
+    _tick()
+    weights, biases = tuple(weights), tuple(biases)
+    schedules = tuple(schedules)
+    route = _route(impl, x)
+    if route == "ref":
+        return ref_ops.fxp_mlp_fleet_ref(x, weights, biases, schedules)
+    if route == "cuda":
+        return fxp_mlp_fleet_cuda(x, weights, biases, schedules)
+    return fxp_mlp_fleet_plain(x, weights, biases, schedules)
+
+
+def fxp_svm_fleet(qx: torch.Tensor, sv: torch.Tensor, dual: torch.Tensor,
+                  icept: torch.Tensor, kind: str, params: SvmFleetParams,
+                  impl: str = "cuda") -> torch.Tensor:
+    """E stacked kernel-SVM decision functions in one dispatch.  qx (E, M,
+    F), sv (E, S, F), dual (E, S, C), icept (E, C); ``params[e]`` = model
+    e's (fmt, out_fmt, qgamma, qcoef0, degree, dec_shift).  Slot e is
+    bit-identical to model e's own :func:`fxp_svm_model`."""
+    _tick()
+    params = tuple(tuple(p) for p in params)
+    route = _route(impl, qx)
+    if route == "ref":
+        return ref_ops.fxp_svm_fleet_ref(qx, sv, dual, icept, kind, params)
+    if route == "cuda":
+        return fxp_svm_fleet_cuda(qx, sv, dual, icept, kind, params)
+    return fxp_svm_fleet_plain(qx, sv, dual, icept, kind, params)
+
+
+def pwl_activation(x: torch.Tensor, variant: str = "pwl4",
+                   impl: str = "cuda") -> torch.Tensor:
+    """The float PWL sigmoid/silu family over any-shaped input, in one
+    dispatch (float32 on the card; the plain version and ``ref`` take any
+    float dtype and compute in float32)."""
+    _tick()
+    route = _route(impl, x)
+    if route == "ref":
+        return ref_ops.pwl_activation_ref(x, variant)
+    if route == "cuda":
+        return pwl_activation_cuda(x, variant)
+    return pwl_activation_plain(x, variant)
 
 
 def tree_predict(tree: TreeArrays, x: torch.Tensor,

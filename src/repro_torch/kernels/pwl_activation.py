@@ -1,0 +1,92 @@
+"""The float PWL sigmoid family, elementwise, in one launch.
+
+Replaces the Pallas kernel
+``repro/kernels/pwl_activation.py::pwl_activation_pallas`` (body
+``_kernel``): ``pwl2``, ``pwl4``, ``rational`` and the fused ``silu_pwl4``
+gate, computed in float32.  Two versions of the same function:
+
+* :func:`pwl_activation_cuda` launches the hand-written Hopper kernel
+  (``csrc/pwl_activation.cu``): a grid-stride pass over the flat tensor
+  with 16-byte loads, the arithmetic of ``csrc/pwl.cuh``.  It takes float32
+  only: a float16 or bfloat16 CUDA tensor raises ``TypeError`` (the
+  reference computes those in float32 and casts back; the port's float
+  models are float32 throughout).  It counts its launches in
+  ``pwl_activation_cuda.launches``.
+* :func:`pwl_activation_plain` computes the same thing in PyTorch ops on any
+  device and any float dtype, in float32 with a cast back, as the
+  reference does (the oracle's float sigmoids).
+
+Every slope is a power of two, so the kernel, the plain version and the
+reference agree bit for bit (+-inf, -0.0 and subnormals included; NaN
+where the reference gives NaN).  Like XLA, all three flush a subnormal
+result to a zero of its sign (see ``csrc/pwl.cuh``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+from .ref import pwl_activation_ref
+
+__all__ = ["PWL_VARIANTS", "pwl_activation_plain", "pwl_activation_cuda",
+           "REPLACES"]
+
+# Order = pwl::Variant in csrc/pwl.cuh.
+PWL_VARIANTS = ("pwl2", "pwl4", "rational", "silu_pwl4")
+REPLACES = "src/repro/kernels/pwl_activation.py:63"  # pwl_activation_pallas
+
+
+def _check_variant(variant: str) -> int:
+    try:
+        return PWL_VARIANTS.index(variant)
+    except ValueError:
+        raise KeyError(f"variant must be one of {PWL_VARIANTS}, got "
+                       f"{variant!r}") from None
+
+
+def pwl_activation_plain(x: torch.Tensor, variant: str) -> torch.Tensor:
+    """The kernel's function in PyTorch ops: any shape and float dtype,
+    computed in float32 (subnormal results flushed), returned in ``x``'s
+    dtype.  The float sigmoids have one definition in the port, in
+    :mod:`repro_torch.core.activations`, which the oracle
+    :func:`repro_torch.kernels.ref.pwl_activation_ref` applies."""
+    _check_variant(variant)
+    return pwl_activation_ref(x, variant)
+
+
+def _lib():
+    fn = build.load("pwl_activation").pwl_activation_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def pwl_activation_cuda(x: torch.Tensor, variant: str) -> torch.Tensor:
+    """Launch the CUDA kernel on a float32 CUDA tensor of any shape; returns
+    a new tensor of the same shape."""
+    code = _check_variant(variant)
+    if x.device.type != "cuda":
+        raise ValueError(f"pwl_activation_cuda needs a CUDA tensor, got "
+                         f"{x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"pwl_activation_cuda takes float32, got {x.dtype}")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = _lib()(x.data_ptr(), out.data_ptr(), x.numel(), code, stream)
+    if err != 0:
+        raise RuntimeError(f"pwl_activation kernel launch failed: CUDA error "
+                           f"{err}")
+    pwl_activation_cuda.launches += 1
+    return out
+
+
+pwl_activation_cuda.launches = 0

@@ -4,7 +4,8 @@ contract), counterparts of :mod:`repro.kernels.ref`.
 They accumulate in int64, like the reference oracles, where the kernels and
 their plain versions accumulate in int32; the two agree whenever a dot
 product stays below 2^31, which the planner guarantees for calibrated
-targets.  The fleet, pwl and attention oracles arrive with their kernels.
+targets.  The fleet oracles stack the single-model ones per slot; the
+attention oracle arrives with its kernel.
 """
 
 from __future__ import annotations
@@ -12,11 +13,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import fixedpoint as fxp
-from repro_torch.core.activations import get_qsigmoid
+from repro_torch.core.activations import (get_qsigmoid, sigmoid_pwl2,
+                                          sigmoid_pwl4, sigmoid_rational)
 from repro_torch.core.trees import TreeArrays, predict_oblivious
 
 __all__ = ["fxp_qmatmul_ref", "fxp_layer_ref", "fxp_layer_ref_with_stats",
            "fxp_mlp_model_ref", "fxp_svm_model_ref", "svm_kernel_values",
+           "fxp_mlp_fleet_ref", "fxp_svm_fleet_ref", "pwl_activation_ref",
            "tree_ensemble_ref"]
 
 
@@ -96,6 +99,46 @@ def fxp_svm_model_ref(qx: torch.Tensor, sv: torch.Tensor, dual: torch.Tensor,
     dot = fxp_qmatmul_ref(qx, sv.T, fmt)
     k = svm_kernel_values(dot, qx, sv, kind, fmt, qgamma, qcoef0, degree)
     return fxp_layer_ref(k, dual, icept, out_fmt, "none", dec_shift)
+
+
+def fxp_mlp_fleet_ref(x: torch.Tensor, weights, biases,
+                      schedules) -> torch.Tensor:
+    """Fleet-stacked MLP oracle: slot e IS model e's
+    :func:`fxp_mlp_model_ref`.  x (E, M, K0); weights[i] (E, K_i, K_{i+1});
+    biases[i] (E, K_{i+1}); ``schedules[e]`` is model e's layer plan."""
+    return torch.stack([
+        fxp_mlp_model_ref(x[e], [w[e] for w in weights],
+                          [b[e] for b in biases], schedules[e])
+        for e in range(x.shape[0])])
+
+
+def fxp_svm_fleet_ref(qx: torch.Tensor, sv: torch.Tensor, dual: torch.Tensor,
+                      icept: torch.Tensor, kind: str, params) -> torch.Tensor:
+    """Fleet-stacked kernel-SVM oracle (see :func:`fxp_mlp_fleet_ref`);
+    ``params[e]`` = (fmt, out_fmt, qgamma, qcoef0, degree, dec_shift)."""
+    return torch.stack([
+        fxp_svm_model_ref(qx[e], sv[e], dual[e], icept[e], kind, *params[e])
+        for e in range(qx.shape[0])])
+
+
+def pwl_activation_ref(x: torch.Tensor, variant: str) -> torch.Tensor:
+    """The float PWL family in float32 through the float sigmoids of
+    :mod:`repro_torch.core.activations`, cast back to ``x``'s dtype.  A
+    subnormal float32 result is flushed to a zero of its sign, as XLA does
+    (only ``silu_pwl4`` makes one)."""
+    x32 = x.to(torch.float32)
+    if variant == "pwl2":
+        y = sigmoid_pwl2(x32)
+    elif variant == "pwl4":
+        y = sigmoid_pwl4(x32)
+    elif variant == "rational":
+        y = sigmoid_rational(x32)
+    elif variant == "silu_pwl4":
+        y = x32 * sigmoid_pwl4(x32)
+    else:
+        raise KeyError(variant)
+    y = torch.where(y.abs() < 2.0 ** -126, y * 0.0, y)
+    return y.to(x.dtype)
 
 
 def tree_ensemble_ref(tree: TreeArrays, x: torch.Tensor) -> torch.Tensor:

@@ -139,3 +139,80 @@ def float_logits(kind, params, x):
         if i < len(ws) - 1:
             h = 1.0 / (1.0 + np.exp(-h))
     return h
+
+
+# --------------------------------------------------------------------------
+# the serving slice: a fleet of small models on shared blobs data
+# (the sizes of tests/test_fleet.py: F=8, C=3, MLP hidden (8,), E=3)
+# --------------------------------------------------------------------------
+FLEET_F, FLEET_C = 8, 3
+SVM_KW = {"rbf": dict(gamma=0.125, coef0=0.0, degree=2),
+          "poly": dict(gamma=0.125, coef0=1.0, degree=2)}
+
+
+def fleet_blobs(seed=7, n=360):
+    """(x_train, y_train, x_test, y_test) of the reference's fleet tests."""
+    rng = np.random.RandomState(seed)
+    means = rng.randn(FLEET_C, FLEET_F) * 4.0
+    y = rng.randint(0, FLEET_C, n).astype(np.int32)
+    x = (means[y] + rng.randn(n, FLEET_F)).astype(np.float32)
+    return x[:240], y[:240], x[240:], y[240:]
+
+
+def fleet_params(kind, seed, x, y):
+    """(kind, extracted params) of a seeded fleet member fitted to (x, y):
+    an 8->8->3 MLP, a logistic model, or a poly/rbf SVM on 12 prototypes
+    (``kind`` 'mlp', 'logistic', 'svm-poly', 'svm-rbf')."""
+    rng = np.random.RandomState(100 + seed)
+    x64 = np.asarray(x, np.float64)
+    onehot = np.eye(FLEET_C)[y]
+
+    def readout(h):
+        sol = np.linalg.lstsq(np.c_[h, np.ones(len(h))], onehot, rcond=None)[0]
+        return sol[:-1], sol[-1]
+
+    if kind == "mlp":
+        w0 = (rng.randn(FLEET_F, 8) * 0.3).astype(np.float32)
+        b0 = (rng.randn(8) * 0.5).astype(np.float32)
+        w1, b1 = readout(1.0 / (1.0 + np.exp(-(x64 @ w0 + b0))))
+        return kind, {"weights": [w0, w1.astype(np.float32)],
+                      "biases": [b0, b1.astype(np.float32)]}
+    if kind == "logistic":
+        coef, icept = readout(x64 + rng.randn(*x64.shape) * 0.5)
+        return kind, {"coef": coef.astype(np.float32),
+                      "intercept": icept.astype(np.float32)}
+    svm = kind[len("svm-"):]
+    sv = x64[rng.choice(len(x64), 12, replace=False)] * 0.5
+    consts = SVM_KW[svm]
+    dot = (x64 * 0.5) @ sv.T
+    if svm == "poly":
+        k = (consts["gamma"] * dot + consts["coef0"]) ** consts["degree"]
+    else:
+        d2 = ((x64 * 0.5) ** 2).sum(1)[:, None] - 2 * dot + (sv * sv).sum(1)
+        k = np.exp(-consts["gamma"] * d2)
+    dual, icept = readout(k)
+    return kind, {"kernel": svm, "support_vectors": sv, "dual_coef": dual,
+                  "intercept": icept, **consts}
+
+
+def jax_fleet_model(kind, params):
+    if kind.startswith("svm-"):
+        return jmodels.SVMModel(params["kernel"],
+                                support_vectors=params["support_vectors"],
+                                dual_coef=params["dual_coef"],
+                                intercept=params["intercept"],
+                                gamma=params["gamma"], coef0=params["coef0"],
+                                degree=params["degree"])
+    return jax_model(kind, params)
+
+
+def compile_pair(kind, params, number_format, calibration=None):
+    """(reference artifact on pallas, port artifact on cuda on the host)."""
+    kw = dict(number_format=number_format)
+    jart = jcompile.compile(jax_fleet_model(kind, params),
+                            jcompile.Target(backend="pallas", **kw),
+                            calibration=calibration)
+    tart = tcompile.compile(model_from_params(kind, params),
+                            tcompile.Target(backend="cuda", **kw),
+                            calibration=calibration, device="cpu")
+    return jart, tart

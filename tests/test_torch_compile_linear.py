@@ -12,10 +12,13 @@ import pytest
 import torch
 
 from _torch_port_cases import (QUANT_TAGS, PairCache, assert_same_spec,
-                               float_logits, jax_model)
+                               fleet_blobs, fleet_params, float_logits,
+                               jax_model)
 from repro import compile as jcompile
 from repro_torch import compile as tcompile
+from repro_torch.compile.lowerings.common import require_full_float32
 from repro_torch.convert import model_from_params
+from repro_torch.kernels import ops
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # Rows whose float top-2 logit gap is below this may flip between two
@@ -56,6 +59,47 @@ def test_flt_matches_within_gap(cases, name, backend):
                                   jart.predict(x)[decided])
 
 
+@pytest.fixture
+def matmul_precision():
+    """Restores the float32 matmul precision settings a test changes."""
+    backends = (torch.backends.cuda.matmul, torch.backends.mkldnn.matmul)
+    saved = [b.fp32_precision for b in backends]
+    yield
+    for b, v in zip(backends, saved):
+        b.fp32_precision = v
+
+
+@pytest.mark.parametrize("name", ["mlp1", "logistic", "svm-rbf"])
+def test_float_targets_refuse_reduced_precision_matmuls(cases, name,
+                                                        matmul_precision):
+    # Compiling a float target changes no process-wide setting, and a float
+    # predict run after reduced-precision matmuls were turned on raises
+    # rather than give their labels.
+    cache, x = cases
+    cuda_mm, cpu_mm = torch.backends.cuda.matmul, torch.backends.mkldnn.matmul
+    cuda_mm.fp32_precision = "tf32"
+    if name == "svm-rbf":
+        xtr, ytr, x, _ = fleet_blobs()
+        model = model_from_params(*fleet_params(name, 0, xtr, ytr))
+    else:
+        model = model_from_params(*cache.params(name))
+    art = tcompile.compile(model, tcompile.Target(number_format="flt",
+                                                  backend="cuda"),
+                           device="cpu")
+    assert cuda_mm.fp32_precision == "tf32"
+    labels = art.predict(x)  # the CUDA setting leaves host matmuls alone
+    with pytest.raises(RuntimeError, match="full float32"):
+        require_full_float32(torch.device("cuda"))
+    for reduced in ("bf16", "tf32"):
+        cpu_mm.fp32_precision = reduced
+        with pytest.raises(RuntimeError, match="full float32"):
+            art.predict(x)
+    cpu_mm.fp32_precision = "ieee"
+    cuda_mm.fp32_precision = "ieee"
+    require_full_float32(torch.device("cuda"))
+    np.testing.assert_array_equal(art.predict(x), labels)
+
+
 def test_fixed_batch_policy_matches(cases):
     cache, x = cases
     kind, params = cache.params("mlp2")
@@ -90,14 +134,21 @@ def test_default_device_is_cuda_and_raises_without_one(cases, monkeypatch):
 def test_unported_kernels_and_backends_raise(cases):
     kind, params = cases[0].params("mlp1")
     model = model_from_params(kind, params)
+    x = cases[1][:16]
     for sig in ("pwl4", "pwl2", "rational"):
-        with pytest.raises(NotImplementedError, match="pwl_activation"):
-            tcompile.compile(model, tcompile.Target(sigmoid=sig,
-                                                    backend="cuda"),
-                             device="cpu")
-    # the ref backend computes float sigmoid variants in plain torch ops
-    tcompile.compile(model, tcompile.Target(sigmoid="pwl4", backend="ref"),
-                     device="cpu")
+        # ported: the flt PWL sigmoids on cuda go through pwl_activation,
+        # one dispatch per hidden layer; the ref backend computes them in
+        # plain torch ops, and both give the same labels
+        art = tcompile.compile(model, tcompile.Target(sigmoid=sig,
+                                                      backend="cuda"),
+                               device="cpu")
+        with ops.count_dispatches() as c:
+            got = art.predict(x)
+        assert c.count == len(params["weights"]) - 1
+        ref = tcompile.compile(model, tcompile.Target(sigmoid=sig,
+                                                      backend="ref"),
+                               device="cpu")
+        np.testing.assert_array_equal(got, ref.predict(x))
     with pytest.raises(NotImplementedError, match="emit"):
         tcompile.Target(number_format="fxp16", backend="emit")
     with pytest.raises(KeyError):

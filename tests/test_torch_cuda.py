@@ -163,3 +163,153 @@ def test_tree_svm_artifacts_on_card_match_host(dev, number_format):
         card = tc.compile(model, target, calibration=x[:64])
         host = tc.compile(model, target, calibration=x[:64], device="cpu")
         np.testing.assert_array_equal(card.predict(x), host.predict(x))
+
+
+# --------------------------------------------------------------------------
+# the serving slice: pwl_activation, the fleet kernels, the service
+# --------------------------------------------------------------------------
+PWL_EDGES = [0.0, -0.0, 1.0, -1.0, 2.375, -2.375, 5.0, -5.0, np.inf, -np.inf,
+             np.nan, 1e-45, -1e-45, 1e-39, -1e-39, 3.4e38, -3.4e38]
+
+
+@pytest.mark.parametrize("variant", ["pwl2", "pwl4", "rational", "silu_pwl4"])
+def test_pwl_activation_kernel_matches_plain(dev, variant):
+    from repro_torch.kernels import pwl_activation
+
+    rng = np.random.RandomState(5)
+    for shape in ((3089, 64), (7, 13), (1,), (5, 3, 2)):
+        x = (rng.randn(*shape) * 4).astype(np.float32)
+        flat = x.reshape(-1)
+        flat[:len(PWL_EDGES)] = np.asarray(PWL_EDGES, np.float32)[:flat.size]
+        xt = torch.from_numpy(x).to(dev)
+        before = pwl_activation.pwl_activation_cuda.launches
+        got = ops.pwl_activation(xt, variant)
+        assert pwl_activation.pwl_activation_cuda.launches == before + 1
+        want = pwl_activation.pwl_activation_plain(xt, variant)
+        assert got.shape == xt.shape
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    # an unaligned view takes the element-by-element path
+    xt = torch.from_numpy(rng.randn(1001).astype(np.float32)).to(dev)[1:]
+    assert torch.equal(ops.pwl_activation(xt, variant).view(torch.int32),
+                       pwl_activation.pwl_activation_plain(
+                           xt, variant).view(torch.int32))
+
+
+@pytest.mark.parametrize("bits", [8, 16, 32])
+def test_fxp_mlp_fleet_kernel_matches_plain(dev, bits):
+    rng = np.random.RandomState(bits + 7)
+    for e, m in ((2, 1), (3, 33), (8, 500)):
+        x = _ints(rng, (e, m, 561), bits, False).to(dev)
+        ws = [_ints(rng, (e,) + s, bits, False).to(dev)
+              for s in ((561, 64), (64, 6))]
+        bs = [_ints(rng, (e, s), bits, True).to(dev) for s in (64, 6)]
+        scheds = tuple(
+            ((7 + i % 3, FxpFormat(bits, bits - 6 - i % 2), ACTS[i % 5]),
+             (3 + i % 2, FxpFormat(bits, bits - 6), "none"))
+            for i in range(e))
+        before = fxp_model.fxp_mlp_fleet_cuda.launches
+        got = ops.fxp_mlp_fleet(x, ws, bs, scheds)
+        assert fxp_model.fxp_mlp_fleet_cuda.launches == before + 1
+        want = fxp_model.fxp_mlp_fleet_plain(x, ws, bs, scheds)
+        assert torch.equal(got, want), (e, m)
+        for i in range(e):  # slot i is model i's own megakernel launch
+            own = fxp_model.fxp_mlp_model_cuda(x[i], [w[i] for w in ws],
+                                               [b[i] for b in bs], scheds[i])
+            assert torch.equal(got[i], own)
+
+
+@pytest.mark.parametrize("kind", ["poly", "rbf"])
+@pytest.mark.parametrize("bits", [8, 16, 32])
+def test_fxp_svm_fleet_kernel_matches_plain(dev, bits, kind):
+    rng = np.random.RandomState(bits + 11 + (kind == "rbf"))
+    for e, m, f, s, c in ((2, 1, 561, 300, 6), (4, 37, 8, 300, 10)):
+        x = _ints(rng, (e, m, f), bits, False).to(dev)
+        sv = _ints(rng, (e, s, f), bits, False).to(dev)
+        dual = _ints(rng, (e, s, c), bits, False).to(dev)
+        icept = _ints(rng, (e, c), bits, True).to(dev)
+        params = []
+        for i in range(e):
+            frac = bits - 6 - i % 2
+            params.append((FxpFormat(bits, frac), FxpFormat(bits, frac - 1),
+                           int(rng.randint(1, 2 ** min(frac, bits - 2))),
+                           int(rng.randint(-2 ** frac, 2 ** frac)),
+                           1 + i % 3, frac // 2 + i % 2))
+        before = fxp_model.fxp_svm_fleet_cuda.launches
+        got = ops.fxp_svm_fleet(x, sv, dual, icept, kind, params)
+        assert fxp_model.fxp_svm_fleet_cuda.launches == before + 1
+        want = fxp_model.fxp_svm_fleet_plain(x, sv, dual, icept, kind, params)
+        assert torch.equal(got, want), (e, m, f)
+
+
+def test_service_fleet_on_card_matches_host(dev):
+    from repro_torch.serve import BatchingPolicy, InferenceService
+
+    rng = np.random.RandomState(2)
+    x = (rng.randn(200, 20) * 2).astype(np.float32)
+    results = {}
+    for where in ("cuda", "cpu"):
+        svc = InferenceService(device=where)
+        try:
+            for s in range(3):
+                svc.register(f"m{s}", init_mlp([20, 16, 4], seed=s),
+                             tc.Target(number_format="auto16",
+                                       backend="cuda"),
+                             calibration=x[20 * s:100 + 20 * s],
+                             policy=BatchingPolicy(max_batch=8,
+                                                   max_wait_ms=2))
+            assert len(svc.enable_fleet()) == 1
+            futs = [(n, svc.submit(n, x[i:i + 1 + i % 3]))
+                    for i in range(60) for n in ("m0", "m1", "m2")]
+            results[where] = [f.result(timeout=120) for _, f in futs]
+            fleet = svc.stats()["_fleets"][0]
+            assert fleet["stack_fallbacks"] == 0
+        finally:
+            svc.close()
+    for a, b in zip(results["cuda"], results["cpu"]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_flt_pwl_mlp_on_card_launches_kernel(dev):
+    from repro_torch.kernels import pwl_activation
+
+    rng = np.random.RandomState(4)
+    x = rng.randn(300, 30).astype(np.float32)
+    for sig in ("pwl2", "pwl4", "rational"):
+        art = tc.compile(init_mlp([30, 16, 4], seed=1),
+                         tc.Target(sigmoid=sig, backend="cuda"))
+        before = pwl_activation.pwl_activation_cuda.launches
+        labels = art.predict(x)
+        assert pwl_activation.pwl_activation_cuda.launches == before + 1
+        assert labels.shape == (300,) and labels.max() < 4
+
+
+def test_flt_predict_refuses_tf32_set_after_compile(dev):
+    rng = np.random.RandomState(5)
+    x = rng.randn(300, 30).astype(np.float32)
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.fp32_precision
+    art = tc.compile(init_mlp([30, 16, 4], seed=1), tc.Target(backend="cuda"))
+    assert matmul.fp32_precision == saved  # compile changes no setting
+    labels = art.predict(x)
+    try:
+        matmul.fp32_precision = "tf32"
+        with pytest.raises(RuntimeError, match="full float32"):
+            art.predict(x)
+    finally:
+        matmul.fp32_precision = saved
+    np.testing.assert_array_equal(art.predict(x), labels)
+
+
+def test_staging_buffer_event_follows_its_copy(dev):
+    from repro_torch.compile.lowerings.common import as_input
+    from repro_torch.serve.batching import StagingBuffer
+
+    buf = StagingBuffer((4096, 561), np.float32, dev)
+    assert buf.device == dev and buf.handed.is_pinned()
+    view = buf.acquire()
+    view[:] = 1.5
+    on_card = as_input(buf.handed, dev)
+    buf.release()
+    assert buf.acquire() is view  # waited for the copy
+    view[:] = 0.0
+    assert bool((on_card == 1.5).all())
