@@ -9,7 +9,7 @@ Phases, each of which raises on failure:
 1. Device: the card's name, count and ``nvidia-smi`` name/power limit.
    Exits non-zero without a CUDA device.
 2. Build every CUDA kernel of the main paths from ``src/repro_torch/kernels/
-   csrc`` (eight sources, one ``nvcc`` each, in parallel) and print the
+   csrc`` (nine sources, one ``nvcc`` each, in parallel) and print the
    build time and ``ptxas`` resource lines.  Then the data: D6 ("har") and
    D5 ("pendigits") from their seeds, and the D6 tree trained by the port's
    CART (``max_depth=12``).
@@ -31,7 +31,11 @@ Phases, each of which raises on failure:
      shapes, 3298 rows), each model its own formats, q(gamma) and q(coef0);
    * ``pwl_activation``: the four variants on random values and on +-0,
      +-inf, NaN, subnormals and the segment edges 1.0, 2.375 and 5.0, on
-     the (3089, 64) hidden layer, ragged shapes and an unaligned tensor.
+     the (3089, 64) hidden layer, ragged shapes and an unaligned tensor;
+   * ``flash_attention`` (not bit for bit: the two sum in other orders):
+     float32 within 2e-5 and bfloat16 within 3e-2 of its plain version
+     (scores materialized in float32, full float32 products), causal and
+     full, dh 32/64/128, S in {1, 7, 64, 129, 2048}, BH in {1, 56}.
 4. The main paths, each with every launch count set to 0 just before it
    and read just after it:
    A. a seeded 561->64->6 MLP and a 561x6 logistic model on D6, compiled
@@ -62,10 +66,25 @@ Phases, each of which raises on failure:
       its member's own ``predict``.  Each fleet stacks at least once, none
       falls back, fxp_mlp_fleet and fxp_svm_fleet launch, and the tree is
       served by its own worker.
+   E. the dense LM stack: qwen2-0.5b at its published widths with seeded
+      weights.  A bf16 prefill (batch 4 x 2048 tokens) makes exactly 24
+      flash_attention launches, one per layer; with the weights in float32
+      its logits are within 1e-4 (relative) of the same forward with the
+      attention through the materialized-scores oracle, and in bf16 no
+      further from the float32 logits than 1.5x the oracle route; in
+      float32, decode over the KV cache matches the forward within 2e-3
+      (batch 2, 12 steps); an
+      ``InferenceService`` serves it at ``flt`` and at fxp8/qnm with an
+      int8 KV cache and the pwl4 gate, ``generate`` (batch 4, 32 tokens)
+      launches no flash_attention, and its tokens are serve_step's argmax.
    In A, B and D, labels equal the plain versions' on the card (in D, each
    member's own predict); in A and B the rows where ``ref`` and ``cuda``
    differ are printed as information.
-5. Timing with CUDA events after warm-up: each kernel and its plain version
+5. Timing with CUDA events after warm-up: flash_attention at the prefill's
+   shape (BH 56, S 2048, dh 64, bf16 causal) beside its plain version, its
+   bound and ``scaled_dot_product_attention`` (the library yardstick), the
+   prefill forward and the kernel's share of it, decode ms/token at both
+   served targets; each kernel and its plain version
    at batches 1, 64, 3089 and 65536 (the new kernels at 3089 or 3298 and
    65536, beside eight fxp_mlp_model launches), beside the bound;
    ``predict`` end to end and by stage (pageable and pinned rows); the
@@ -81,6 +100,7 @@ The lines before the last are a JSON ``{"kernels": [...]}`` record and the
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -98,6 +118,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 INT8_TENSOR_OPS_PER_S = 1979e12  # dense int8 tensor-core rate (data sheet)
 FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores (data sheet)
+BF16_TENSOR_OPS_PER_S = 989.4e12  # dense bf16 tensor-core rate (data sheet)
 INT32_LANES_PER_SM = 64  # Hopper SM: 64 INT32 lanes, one IMAD (2 ops) each
 TAGS = {
     "fxp32": dict(number_format="fxp32"),
@@ -115,6 +136,12 @@ N_CALIBRATION = 256
 N_PROTOTYPES = 300
 N_FIT_ROWS = 2000
 TREE_DEPTH = 12  # benchmarks/common.py:40
+FLASH_LENGTHS = (1, 7, 64, 129, 2048)
+FLASH_BH = (1, 56)  # 56 = qwen2-0.5b's 14 heads x batch 4
+LM_ARCH = "qwen2-0.5b"  # src/repro_torch/configs/qwen2_0_5b.py, full width
+LM_BATCH, LM_SEQ = 4, 2048  # the bf16 prefill
+LM_DECODE_BATCH, LM_DECODE_STEPS = 2, 12  # the float32 decode-vs-forward check
+LM_GEN_BATCH, LM_GEN_TOKENS = 4, 32  # generate on each served target
 
 
 def log(*args):
@@ -241,13 +268,14 @@ class KernelCheck:
 
     NAMES = ("fxp_layer", "fxp_mlp_model", "fxp_qmatmul", "fxp_svm_model",
              "tree_ensemble", "pwl_activation", "fxp_mlp_fleet",
-             "fxp_svm_fleet")
+             "fxp_svm_fleet", "flash_attention")
 
     def __init__(self, torch, K):
         self.torch, self.K = torch, K
         self.cases = {n: 0 for n in self.NAMES}
         self.max_abs_err = {n: 0 for n in self.NAMES}
         self.wrapped = 0  # SVM cases whose x . sv^T wrapped int32
+        self.flash_err = {}  # dtype -> max abs err of flash_attention
 
     def _compare(self, name, got, want, what):
         torch = self.torch
@@ -282,6 +310,40 @@ class KernelCheck:
             raise AssertionError(f"{name} {what}: {bad} elements differ from "
                                  f"the plain version in their bits (max abs "
                                  f"err {err})")
+
+    def _compare_close(self, name, got, want, atol, what):
+        """Float results that sum in another order: within ``atol``, every
+        entry finite."""
+        torch = self.torch
+        torch.cuda.synchronize()
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"{name} {what}: {got.dtype}{tuple(got.shape)}"
+                                 f" vs plain {want.dtype}{tuple(want.shape)}")
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name} {what}: non-finite output")
+        err = float((got.float() - want.float()).abs().max())
+        self.max_abs_err[name] = max(self.max_abs_err[name], err)
+        self.cases[name] += 1
+        if err > atol:
+            raise AssertionError(f"{name} {what}: max abs err {err} against "
+                                 f"the plain version, over {atol}")
+        return err
+
+    def flash_case(self, gen, dtype, causal, dh, s, bh):
+        """The kernel against its plain version (scores materialized in
+        float32): atol 2e-5 in float32, 3e-2 in bfloat16, the reference's
+        bounds (tests/test_kernels.py)."""
+        torch, fa = self.torch, self.K.fa
+        q, k, v = (torch.randn(bh, s, dh, generator=gen, device="cuda")
+                   .to(dtype) for _ in range(3))
+        got = fa.flash_attention_cuda(q, k, v, causal)
+        want = fa.flash_attention_plain(q, k, v, causal)
+        atol = 2e-5 if dtype == torch.float32 else 3e-2
+        err = self._compare_close("flash_attention", got, want, atol,
+                                  f"{dtype} causal={causal} (BH {bh}, S {s}, "
+                                  f"dh {dh})")
+        key = str(dtype).replace("torch.", "")
+        self.flash_err[key] = max(self.flash_err.get(key, 0.0), err)
 
     def _cuda(self, *arrays):
         return [self.torch.from_numpy(a).cuda() for a in arrays]
@@ -504,9 +566,21 @@ class KernelCheck:
             qx = fxp.quantize(finite, fmt).to(torch.float32)
             for m in BATCHES:
                 self.tree_case(qt, qx[:m], f"{fmt} batch {m}")
-        log(f"phase 3: {self.cases} kernel-vs-plain cases bit-exact "
-            f"(max abs err {self.max_abs_err}; {self.wrapped} SVM cases "
-            f"wrapped the int32 dot)")
+        # flash_attention: float32 and bf16, causal and full, every head
+        # dim, ragged and tile-aligned S, one head and the LM's 56
+        torch = self.torch
+        self.K.common.require_full_float32(torch.device("cuda", 0))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                for dh in self.K.fa.HEAD_DIMS:
+                    for s in FLASH_LENGTHS:
+                        for bh in FLASH_BH:
+                            self.flash_case(gen, dtype, causal, dh, s, bh)
+        log(f"phase 3: {self.cases} kernel-vs-plain cases, bit-exact but "
+            f"flash_attention (within 2e-5 in float32, 3e-2 in bf16: max "
+            f"abs err {self.flash_err}) (max abs err {self.max_abs_err}; "
+            f"{self.wrapped} SVM cases wrapped the int32 dot)")
 
 
 # --------------------------------------------------------------------------
@@ -945,6 +1019,213 @@ def main_path_serving(torch, K, d6, d5, tree_model):
     return launches, arts
 
 
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _rel_err(a, b):
+    """max |a - b| / max |b|, one batch row at a time (the full-width logits
+    are 5 GB: no third copy)."""
+    err = scale = 0.0
+    for i in range(a.shape[0]):
+        err = max(err, float((a[i] - b[i]).abs().max()))
+        scale = max(scale, float(b[i].abs().max()))
+    return err / scale
+
+
+def _lm_tokens(torch, cfg, shape, seed):
+    return torch.from_numpy(np.random.RandomState(seed).randint(
+        1, cfg.vocab_size, shape).astype(np.int32)).cuda()
+
+
+def _decode_logits(torch, M, cfg, params, tok, max_len):
+    """serve_step along ``tok`` (B, T) from a fresh cache: (B, T, vocab)."""
+    cache = M.init_cache(cfg, tok.shape[0], max_len, tok.device)
+    out = []
+    for i in range(tok.shape[1]):
+        logits, cache = M.serve_step(params, cache, {"token": tok[:, i]}, cfg)
+        out.append(logits)
+    return torch.stack(out, 1)
+
+
+def main_path_lm(torch, K):
+    """Main path E: qwen2-0.5b at its published widths, seeded weights.
+
+    1. bf16 prefill: ``forward`` at batch 4 x 2048 tokens, exactly one
+       flash_attention launch per layer.  With the same weights in float32,
+       the kernel route's logits are within 1e-4 (max |dlogit| / max
+       |logit|) of the same forward with its attention through the
+       materialized-scores oracle; in bf16 the kernel route is no further
+       than 1.5x the oracle route's distance from those float32 logits.
+    2. float32: decode (serve_step over the KV cache) against forward,
+       batch 2 x 12 steps, relative error < 2e-3.
+    3. serving: one InferenceService registers the model at flt (bf16) and
+       at fxp8/qnm with an int8 KV cache and the pwl4 gate; generate (batch
+       4, 32 tokens) on each makes no flash_attention launch, every token is
+       the argmax of serve_step's logits along the sequence, and those
+       logits agree with the prefill's over the same tokens (a misplaced
+       cache entry or position would put the two an order of the logits
+       apart; the bound is 0.25 of the largest logit).
+    """
+    M, cfg = K.lm_model, K.configs.get_config(LM_ARCH)
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(t.numel() for t in _leaves(params))
+    torch.cuda.synchronize()
+    log(f"phase 4E: {LM_ARCH} at full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV, dh "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, tied "
+        f"embeddings): {n_params} seeded {cfg.dtype} parameters in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reset_launches(K)
+    zero = launch_counts(K)
+    tok = _lm_tokens(torch, cfg, (LM_BATCH, LM_SEQ), 0)
+    t0 = time.perf_counter()
+    logits = M.forward(params, {"tokens": tok}, cfg)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    expect_launches(K, zero, {"flash_attention": cfg.n_layers},
+                    "bf16 prefill forward")
+    if (logits.shape != (LM_BATCH, LM_SEQ, cfg.vocab_size)
+            or logits.dtype != torch.float32
+            or not bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"prefill logits {logits.dtype}"
+                             f"{tuple(logits.shape)} not finite float32 of "
+                             f"the expected shape")
+    # The same weights in float32: the kernel route against the oracle's
+    # attention, and the float32 logits that both bf16 routes are held to.
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = _tree_map(lambda t: t.to(torch.float32), params)
+    before = launch_counts(K)
+    ref32 = M.forward(p32, {"tokens": tok}, cfg32, attn_impl="ref")
+    expect_launches(K, before, {}, "float32 prefill through the oracle")
+    f32 = M.forward(p32, {"tokens": tok}, cfg32)
+    expect_launches(K, before, {"flash_attention": cfg.n_layers},
+                    "float32 prefill")
+    rel32 = _rel_err(f32, ref32)
+    del ref32
+    if not rel32 <= 1e-4:
+        raise AssertionError(f"float32 prefill: kernel route against the "
+                             f"oracle's attention, rel err {rel32} > 1e-4")
+    rel_k = _rel_err(logits, f32)
+    before = launch_counts(K)
+    plain = M.forward(params, {"tokens": tok}, cfg, attn_impl="ref")
+    expect_launches(K, before, {}, "bf16 prefill through the oracle")
+    rel_o = _rel_err(plain, f32)
+    rel = _rel_err(logits, plain)
+    del logits, plain, f32
+    # bf16 rounds every layer's output: two bf16 forwards that sum in other
+    # orders part by about as much as either parts from float32, so the
+    # kernel route is held to the oracle route's distance from float32.
+    if not rel_k <= 1.5 * rel_o:
+        raise AssertionError(f"bf16 prefill: kernel route {rel_k} from the "
+                             f"float32 logits, over 1.5 x the oracle "
+                             f"route's {rel_o}")
+    log(f"  bf16 prefill {LM_BATCH} x {LM_SEQ} tokens: {cfg.n_layers} "
+        f"flash_attention launches, first call {t_fwd:.2f} s.  float32, "
+        f"same weights: kernel route within {rel32:.3e} of the oracle's "
+        f"attention (bound 1e-4).  bf16: kernel route {rel_k:.3e} and oracle "
+        f"route {rel_o:.3e} from the float32 logits (bound 1.5x the "
+        f"oracle's), {rel:.3e} from each other (relative to the largest "
+        f"logit)")
+
+    tok = _lm_tokens(torch, cfg, (LM_DECODE_BATCH, LM_DECODE_STEPS), 1)
+    before = launch_counts(K)
+    fwd = M.forward(p32, {"tokens": tok}, cfg32)
+    expect_launches(K, before, {"flash_attention": cfg.n_layers},
+                    "float32 forward")
+    dec = _decode_logits(torch, M, cfg32, p32, tok, LM_DECODE_STEPS + 2)
+    rel32 = _rel_err(dec, fwd)
+    del p32, fwd, dec
+    if not rel32 < 2e-3:
+        raise AssertionError(f"float32 decode against forward: rel err "
+                             f"{rel32} >= 2e-3")
+    log(f"  float32 decode ({LM_DECODE_BATCH} x {LM_DECODE_STEPS} steps over "
+        f"the KV cache) against the kernel's forward: rel err {rel32:.3e} "
+        f"(bound 2e-3)")
+
+    S = K.serve
+    targets = {
+        "flt": K.tc.Target(number_format="flt"),
+        "fxp8_qnm_kv8_pwl4": K.tc.Target(number_format="fxp8",
+                                         weight_scale="qnm", kv_cache="int8",
+                                         sigmoid="pwl4"),
+    }
+    start = np.random.RandomState(2).randint(
+        1, cfg.vocab_size, (LM_GEN_BATCH,)).astype(np.int32)
+    serving = {}
+    svc = S.InferenceService()
+    try:
+        for name, target in targets.items():
+            t0 = time.perf_counter()
+            art = svc.register(name, K.tc.LMModel(cfg, params), target).artifact
+            t_reg = time.perf_counter() - t0
+            svc.generate(name, start, 2)  # warm-up: allocations
+            before = launch_counts(K)
+            t0 = time.perf_counter()
+            seqs = svc.generate(name, start, LM_GEN_TOKENS)
+            ms_tok = (time.perf_counter() - t0) * 1e3 / LM_GEN_TOKENS
+            expect_launches(K, before, {}, f"generate at {name}")
+            if (seqs.shape != (LM_GEN_BATCH, LM_GEN_TOKENS + 1)
+                    or seqs.dtype != np.int32 or seqs.min() < 0
+                    or seqs.max() >= cfg.vocab_size
+                    or not np.array_equal(seqs[:, 0], start)):
+                raise AssertionError(f"generate at {name}: {seqs.dtype}"
+                                     f"{seqs.shape} [{seqs.min()}, "
+                                     f"{seqs.max()}]")
+            acfg, ap = art.extras["cfg"], art.extras["params"]
+            seq_t = torch.from_numpy(seqs).cuda()
+            dec = _decode_logits(torch, M, acfg, ap, seq_t[:, :-1],
+                                 LM_GEN_TOKENS + 4)
+            if not torch.equal(dec.argmax(-1).to(torch.int32), seq_t[:, 1:]):
+                raise AssertionError(f"generate at {name}: tokens are not the "
+                                     f"argmax of serve_step's logits")
+            before = launch_counts(K)
+            fwd = M.forward(ap, {"tokens": seq_t[:, :-1]}, acfg)
+            expect_launches(K, before, {"flash_attention": cfg.n_layers},
+                            f"prefill of the {name} artifact")
+            rel_g = _rel_err(dec, fwd)
+            agree = float((fwd.argmax(-1).to(torch.int32)
+                           == seq_t[:, 1:]).float().mean())
+            if not rel_g < 0.25:
+                raise AssertionError(f"generate at {name}: serve_step logits "
+                                     f"against prefill, rel err {rel_g}")
+            serving[name] = dict(ms_per_token=ms_tok,
+                                 flash_bytes=art.memory_report()["flash"],
+                                 quantized_bytes=art.extras["quantized_bytes"],
+                                 register_s=t_reg, rel=rel_g, agree=agree)
+            log(f"  served {name}: registered in {t_reg:.1f} s, artifact "
+                f"{serving[name]['flash_bytes']} bytes "
+                f"({serving[name]['quantized_bytes']} quantized); generate "
+                f"batch {LM_GEN_BATCH} x {LM_GEN_TOKENS} tokens: "
+                f"{ms_tok:.2f} ms/token, no flash_attention launch; decode "
+                f"logits within {rel_g:.3e} of the prefill's, which picks "
+                f"the same token at {agree:.1%} of the steps; sample "
+                f"{seqs[0, :8].tolist()}")
+        stats = {n: svc.stats()[n] for n in targets}
+    finally:
+        svc.close()
+    for n, st in stats.items():
+        if st["batches"] != 2 or st["rows"] != LM_GEN_BATCH * (LM_GEN_TOKENS + 2):
+            raise AssertionError(f"endpoint {n} stats {st}")
+    launches = launch_counts(K)
+    if launches["flash_attention"] == 0:
+        raise AssertionError("main path E never launched flash_attention")
+    log(f"  kernel launches on path E: {launches}")
+    return launches, dict(cfg=cfg, params=params, serving=serving)
+
+
 # --------------------------------------------------------------------------
 # phase 5: timing
 # --------------------------------------------------------------------------
@@ -1328,11 +1609,116 @@ def serving_record(torch, K, arts_d, rows):
             f" ms over {len(ms)} requests in {wall:.2f} s; {extra}")
 
 
+def _kernel_profile(torch, fn):
+    """Device time by kernel kind (ms) and the number of kernel launches of
+    one call of ``fn``, from torch.profiler's CUDA activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_kind = {"flash_attention": 0.0, "float32 GEMM": 0.0, "bf16 GEMM": 0.0,
+               "other": 0.0}
+    launches = 0
+    for e in prof.key_averages():
+        if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx", "cuLaunchKernel",
+                     "cudaLaunchKernelExC"):
+            launches += e.count
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.key
+        ms = e.self_device_time_total / 1e3
+        if "flash_attention_kernel" in name:
+            by_kind["flash_attention"] += ms
+        elif "f32f32" in name or ("gemm" in name and "f32" in name):
+            by_kind["float32 GEMM"] += ms
+        elif any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma")):
+            by_kind["bf16 GEMM"] += ms
+        else:
+            by_kind["other"] += ms
+    return {"by_kind": by_kind, "launches": launches}
+
+
+def time_lm(torch, K, T, lm):
+    """Path E's kernel at the prefill's shape — qwen2-0.5b's 14 heads x
+    batch 4, 2048 tokens, dh 64, bf16, causal — beside its plain version,
+    its bound and one PyTorch call that computes the same function
+    (scaled_dot_product_attention, a yardstick the port never calls); then
+    the whole prefill forward with the kernel's share of it, and decode
+    ms/token at both served targets."""
+    fa, M = K.fa, K.lm_model
+    cfg, params = lm["cfg"], lm["params"]
+    h, dh, s = cfg.n_heads, cfg.head_dim, LM_SEQ
+    bh = LM_BATCH * h
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn(bh, s, dh, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    out = fa.flash_attention_cuda(q, k, v, True)
+    pairs = s * (s + 1) // 2  # the causal (query, key) pairs this run needs
+    kern_ms = T.time("flash_attention", "bf16 causal", s,
+                     lambda: fa.flash_attention_cuda(q, k, v, True),
+                     lambda: fa.flash_attention_plain(q, k, v, True),
+                     _nbytes(q, k, v, out), 4 * bh * dh * pairs,
+                     BF16_TENSOR_OPS_PER_S, True, "flash_attention.cu",
+                     fa.REPLACES,
+                     shape=f"(BH {bh} = batch {LM_BATCH} x {h} heads, S {s}, "
+                           f"dh {dh}) bf16 causal: one layer of the "
+                           f"{LM_ARCH} prefill")
+    q4, k4, v4 = (t.view(LM_BATCH, h, s, dh) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms, _ = cuda_ms(torch, lambda: sdpa(q4, k4, v4, is_causal=True), 200)
+    err = float((sdpa(q4, k4, v4, is_causal=True).reshape(bh, s, dh).float()
+                 - out.float()).abs().max())
+    T.records["flash_attention"]["library_ms"] = lib_ms
+    log(f"  scaled_dot_product_attention (library yardstick) on the same "
+        f"tensors: {lib_ms:.4f} ms (max abs diff from the kernel {err:.3e}); "
+        f"kernel / library {kern_ms / lib_ms:.1f}x")
+    del q, k, v, out, q4, k4, v4
+    tok = _lm_tokens(torch, cfg, (LM_BATCH, LM_SEQ), 0)
+    fwd_ms, fwd_host = cuda_ms(torch, lambda: M.forward(params,
+                                                        {"tokens": tok}, cfg), 5)
+    ref_ms, _ = cuda_ms(torch, lambda: M.forward(
+        params, {"tokens": tok}, cfg, attn_impl="ref"), 3)
+    body = cfg.param_count() - cfg.vocab_size * cfg.d_model  # minus the table
+    n_tok = LM_BATCH * LM_SEQ
+    flops = (2 * n_tok * body + 2 * n_tok * cfg.d_model * cfg.vocab_size
+             + cfg.n_layers * 4 * LM_BATCH * h * dh * pairs)
+    log(f"  prefill forward {LM_BATCH} x {LM_SEQ} bf16: {fwd_ms:.3f} ms "
+        f"({fwd_host:.3f} ms host); flash_attention {cfg.n_layers} x "
+        f"{kern_ms:.4f} = {cfg.n_layers * kern_ms:.3f} ms, "
+        f"{cfg.n_layers * kern_ms / fwd_ms:.1%} of it; bound "
+        f"{flops / BF16_TENSOR_OPS_PER_S * 1e3:.3f} ms ({flops / 1e12:.3f} "
+        f"Tflop at the bf16 tensor-core rate); with the oracle's attention "
+        f"in place of the kernel: {ref_ms:.3f} ms")
+    prefill = _kernel_profile(torch, lambda: M.forward(params,
+                                                       {"tokens": tok}, cfg))
+    total = sum(prefill["by_kind"].values())
+    log(f"  prefill forward by kernel kind (torch.profiler, device time): "
+        + ", ".join(f"{k} {v:.3f} ms ({v / total:.1%})"
+                    for k, v in prefill["by_kind"].items())
+        + f"; {prefill['launches']} launches")
+    cache = M.init_cache(cfg, LM_GEN_BATCH, 8, tok.device)
+    step = _kernel_profile(torch, lambda: M.serve_step(
+        params, cache, {"token": tok[:LM_GEN_BATCH, 0]}, cfg))
+    log(f"  one flt decode step, batch {LM_GEN_BATCH}: "
+        f"{sum(step['by_kind'].values()):.3f} ms of device time in "
+        f"{step['launches']} launches (host-bound when ms/token is above "
+        f"it)")
+    for name, st in lm["serving"].items():
+        log(f"  decode {name}: {st['ms_per_token']:.3f} ms/token at batch "
+            f"{LM_GEN_BATCH} (host clock over {LM_GEN_TOKENS} tokens); "
+            f"weights read per token {st['flash_bytes']} bytes, bound "
+            f"{st['flash_bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms")
+
+
 def timing(torch, K, dev, d6, d5, check, arts_a, arts_b, arts_d, tree_model,
-           launches):
+           launches, lm):
     x_big = np.resize(d6.x_test, (max(TIMED_BATCHES), d6.x_test.shape[1]))
     n_test = len(d6.x_test)
     T = Timer(torch, dev, check, launches)
+    time_lm(torch, K, T, lm)
     time_mlp(torch, K, T, arts_a, x_big, n_test)
     time_tree_svm(torch, K, T, arts_b, tree_model, x_big, n_test)
     time_slice(torch, K, T, arts_d, d6, d5)
@@ -1367,14 +1753,18 @@ def main() -> int:
     from repro_torch.core import trees
     from repro_torch.data import load_dataset
     from repro_torch import serve
-    from repro_torch.kernels import (build, fxp_layer, fxp_model, fxp_qmatmul,
-                                     pwl_activation, tree_ensemble)
+    from repro_torch import configs
+    from repro_torch.kernels import (build, flash_attention, fxp_layer,
+                                     fxp_model, fxp_qmatmul, pwl_activation,
+                                     tree_ensemble)
+    from repro_torch.lm import model as lm_model
     from repro_torch.models.svm import _pick_prototypes
 
     K = types.SimpleNamespace(
         tc=tc, models=models, common=common, fxp=fxp, trees=trees,
         layer=fxp_layer, model=fxp_model, qm=fxp_qmatmul, te=tree_ensemble,
         pwl=pwl_activation, serve=serve, pick_prototypes=_pick_prototypes,
+        fa=flash_attention, lm_model=lm_model, configs=configs,
         launchers={"fxp_layer": fxp_layer.fxp_layer_cuda,
                    "fxp_mlp_model": fxp_model.fxp_mlp_model_cuda,
                    "fxp_qmatmul": fxp_qmatmul.fxp_qmatmul_cuda,
@@ -1382,7 +1772,8 @@ def main() -> int:
                    "tree_ensemble": tree_ensemble.tree_ensemble_cuda,
                    "pwl_activation": pwl_activation.pwl_activation_cuda,
                    "fxp_mlp_fleet": fxp_model.fxp_mlp_fleet_cuda,
-                   "fxp_svm_fleet": fxp_model.fxp_svm_fleet_cuda})
+                   "fxp_svm_fleet": fxp_model.fxp_svm_fleet_cuda,
+                   "flash_attention": flash_attention.flash_attention_cuda})
 
     t_start = time.perf_counter()
     dev = Device(torch)
@@ -1415,13 +1806,14 @@ def main() -> int:
     arts_b, launches_b = main_path_tree_svm(torch, K, d6, d5, tree_model)
     launches_c = main_path_flt_pwl(torch, K, d6)
     launches_d, arts_d = main_path_serving(torch, K, d6, d5, tree_model)
+    launches_e, lm = main_path_lm(torch, K)
     by_path = {"A": launches_a, "B": launches_b, "C": launches_c,
-               "D": launches_d}
+               "D": launches_d, "E": launches_e}
     launches = {n: (sum(p[n] for p in by_path.values()),
                     {k: p[n] for k, p in by_path.items()})
                 for n in KernelCheck.NAMES}
     kernels = timing(torch, K, dev, d6, d5, check, arts_a, arts_b, arts_d,
-                     tree_model, launches)
+                     tree_model, launches, lm)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(dev.smi_line)

@@ -9,7 +9,9 @@
 
 Stages: ``extract_params -> calibrate -> quantize -> lower -> specialize``,
 dispatched through the lowering registry by model kind: ``tree``,
-``logistic``, ``mlp``, ``svm-linear``, ``svm-poly`` and ``svm-rbf``.
+``logistic``, ``mlp``, ``svm-linear``, ``svm-poly``, ``svm-rbf`` and ``lm``
+(an :class:`LMModel`: weight-only quantized decode serving, whose artifact
+carries ``generate`` in its ``extras``).
 ``compile(..., device="cpu")`` runs the kernels' plain PyTorch versions on
 the host.  :func:`fleet_signature` and :func:`stack_fleet` fuse compatible
 artifacts into one stacked program (:class:`FleetStack`) for the serving
@@ -24,12 +26,14 @@ from .registry import (Lowered, Lowering, get_lowering, lowering_kinds,
                        model_kind, register_lowering)
 from .target import BACKENDS, CALIBRATED_FORMATS, NUMBER_FORMATS, Target
 from . import lowerings as _lowerings  # noqa: F401  (registration side effects)
+from .lowerings.lm import LMModel
 
 __all__ = [
     "compile",
     "compile_from_params",
     "resolve_device",
     "CompiledArtifact",
+    "LMModel",
     "Target",
     "NUMBER_FORMATS",
     "CALIBRATED_FORMATS",

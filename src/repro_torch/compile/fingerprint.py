@@ -5,7 +5,10 @@ The serving layer dedupes recompiles through an artifact cache keyed by
 canonical walk of the *extracted* parameter tree (the archive payload), so
 two models with identical parameters — e.g. the same archive loaded twice,
 or the same trained model compiled for two Targets — share one fingerprint
-regardless of dict ordering or array dtype object identity.
+regardless of dict ordering or array dtype object identity.  A torch
+tensor (an LM's parameters, on any device and of any dtype, bfloat16
+included) is hashed by its dtype, shape and raw bytes; numpy leaves hash as
+the reference's do.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import hashlib
 from typing import Any
 
 import numpy as np
+import torch
 
 __all__ = ["fingerprint_params"]
 
@@ -34,6 +38,11 @@ def _walk(h: "hashlib._Hash", x: Any) -> None:
     elif x is None or isinstance(x, (bool, int, float, str, bytes)):
         h.update(repr(x).encode())
         h.update(b";")
+    elif isinstance(x, torch.Tensor):
+        t = x.detach().contiguous().cpu()
+        h.update(str(t.dtype).encode())
+        h.update(str(tuple(t.shape)).encode())
+        h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
     else:
         a = np.asarray(x)
         h.update(str(a.dtype).encode())

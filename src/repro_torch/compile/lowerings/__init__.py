@@ -1,4 +1,4 @@
 """Registered lowerings, one module per model kind (importing this package
 registers them)."""
 
-from . import linear, mlp, svm, tree  # noqa: F401  (registration side effects)
+from . import linear, lm, mlp, svm, tree  # noqa: F401  (registration side effects)

@@ -9,8 +9,8 @@ ops; ``cuda`` is the counterpart of the reference package's ``pallas``:
 the hand-written CUDA kernels on a card, or their plain PyTorch versions
 when the artifact was compiled for ``device="cpu"``.  The ``emit`` backend
 (C emission) arrives with its own slice; asking for it raises.  The LM
-fields of the reference Target (``weight_scale``, ``kv_cache``) arrive with
-the LM slice.
+fields ``weight_scale`` and ``kv_cache`` are read by the ``lm`` lowering,
+which ignores ``backend`` as the reference's does.
 """
 
 from __future__ import annotations
@@ -56,6 +56,12 @@ class Target:
     * ``backend`` — ``ref`` | ``cuda`` (see the module docstring).
     * ``batch_policy`` — ``dynamic`` or ``fixed`` (padded to ``batch_size``,
       larger batches rejected).
+    * ``weight_scale`` — LM weight-only scale mode: ``qnm`` (paper-faithful
+      global power-of-two scale) or ``per_channel``.
+    * ``kv_cache`` — LM decode cache: ``native`` dtype or ``int8``.
+    For the ``lm`` lowering, ``fxp8``/``fxp16`` select int8/int16
+    weight-only quantization (calibrated formats are classifier-only) and
+    ``sigmoid`` the gate sigmoid/SiLU variant.
     """
 
     number_format: str = "flt"
@@ -64,6 +70,8 @@ class Target:
     backend: str = "ref"
     batch_policy: str = "dynamic"
     batch_size: Optional[int] = None
+    weight_scale: str = "qnm"
+    kv_cache: str = "native"
 
     def __post_init__(self):
         if (self.number_format not in NUMBER_FORMATS
@@ -85,6 +93,10 @@ class Target:
             raise KeyError(f"batch_policy must be one of {BATCH_POLICIES}")
         if self.batch_policy == "fixed" and not self.batch_size:
             raise ValueError("batch_policy='fixed' requires batch_size")
+        if self.weight_scale not in ("qnm", "per_channel"):
+            raise KeyError("weight_scale must be 'qnm' or 'per_channel'")
+        if self.kv_cache not in ("native", "int8"):
+            raise KeyError("kv_cache must be 'native' or 'int8'")
 
     @property
     def fmt(self) -> Optional[FxpFormat]:

@@ -4,19 +4,21 @@
 lowering extracts (``repro.compile.get_lowering(kind).extract_params(model)``,
 numpy arrays and scalars only) and returns the port's model container, so
 both packages compile the same program from the same parameters.
+:func:`lm_params_from_numpy` does the same for an LM's parameter tree.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core.trees import TreeArrays
 from repro_torch.models import (DecisionTreeModel, LogisticModel, MLPModel,
                                 SVMModel)
 
-__all__ = ["model_from_params", "KINDS"]
+__all__ = ["model_from_params", "lm_params_from_numpy", "KINDS"]
 
 KINDS = ("mlp", "logistic", "tree", "svm-linear", "svm-poly", "svm-rbf")
 
@@ -56,3 +58,27 @@ def model_from_params(kind: str, params: Dict[str, Any]):
                         coef0=float(params["coef0"]),
                         degree=int(params["degree"]))
     raise KeyError(f"no port of the '{kind}' model (have: {', '.join(KINDS)})")
+
+
+def _tensor_from_numpy(a: Any) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:  # a JAX array's host view: torch wants its own
+        a = a.copy()
+    if a.dtype.name == "bfloat16":
+        # numpy has no bfloat16 (the reference's arrays carry ml_dtypes'),
+        # and torch.from_numpy refuses it: move the bits, not the values.
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def lm_params_from_numpy(tree: Dict[str, Any], device: Any,
+                         dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """The port's LM parameter tree from the reference's, leaf for leaf:
+    nested dicts of numpy arrays (``np.asarray`` of each JAX leaf) become
+    the same dicts of tensors on ``device``, bit for bit (bfloat16
+    included), floating leaves cast to ``dtype`` when one is given."""
+    if isinstance(tree, dict):
+        return {k: lm_params_from_numpy(v, device, dtype)
+                for k, v in tree.items()}
+    t = _tensor_from_numpy(tree).to(device)
+    return t if dtype is None or not t.is_floating_point() else t.to(dtype)

@@ -20,4 +20,7 @@ between them by device and :mod:`.ref` holds the int64 oracles.
                    ``fxp_mlp_fleet_pallas`` and ``fxp_svm_fleet_pallas``)
 * pwl_activation — the float PWL sigmoid family, elementwise (replaces
                    ``pwl_activation_pallas``)
+* flash_attention — causal or full softmax attention over (BH, S, dh),
+                   one block per 64-query tile (replaces
+                   ``flash_attention_pallas``)
 """

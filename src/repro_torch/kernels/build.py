@@ -27,7 +27,8 @@ from typing import Dict, Iterable
 __all__ = ["SOURCES", "build_all", "load", "nvcc_path", "BUILD_LOG"]
 
 SOURCES = ("fxp_layer", "fxp_mlp_model", "fxp_qmatmul", "fxp_svm_model",
-           "tree_ensemble", "pwl_activation", "fxp_mlp_fleet", "fxp_svm_fleet")
+           "tree_ensemble", "pwl_activation", "fxp_mlp_fleet", "fxp_svm_fleet",
+           "flash_attention")
 _CSRC = Path(__file__).resolve().with_name("csrc")
 _HEADERS = ("fxp_common.cuh", "fxp_tile.cuh", "fxp_mlp_body.cuh",
             "fxp_svm_body.cuh", "pwl.cuh")

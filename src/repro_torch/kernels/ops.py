@@ -1,6 +1,6 @@
 """Public wrappers around the fixed-point kernels, and their routing.
 
-The counterpart of :mod:`repro.kernels.ops` for the eight ported kernels.
+The counterpart of :mod:`repro.kernels.ops` for the nine ported kernels.
 Each wrapper routes by ``impl`` and by where its tensors lie:
 
 * ``impl="ref"`` — the int64-accumulating oracle of :mod:`.ref`;
@@ -26,6 +26,7 @@ from repro_torch.core.fixedpoint import FxpFormat
 from repro_torch.core.trees import TreeArrays
 
 from . import ref as ref_ops
+from .flash_attention import flash_attention_cuda, flash_attention_plain
 from .fxp_layer import fxp_layer_cuda, fxp_layer_plain
 from .fxp_model import (FleetSchedules, LayerSchedule, SvmFleetParams,
                         fxp_mlp_fleet_cuda, fxp_mlp_fleet_plain,
@@ -38,7 +39,7 @@ from .tree_ensemble import tree_ensemble_cuda, tree_ensemble_plain
 
 __all__ = ["fxp_qmatmul", "fxp_layer", "fxp_mlp_model", "fxp_svm_model",
            "fxp_mlp_fleet", "fxp_svm_fleet", "pwl_activation", "tree_predict",
-           "count_dispatches", "IMPLS"]
+           "flash_attention", "count_dispatches", "IMPLS"]
 
 IMPLS = ("cuda", "ref")
 
@@ -209,3 +210,16 @@ def tree_predict(tree: TreeArrays, x: torch.Tensor,
     if route == "cuda":
         return tree_ensemble_cuda(tree, x)
     return tree_ensemble_plain(tree, x)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, impl: str = "cuda") -> torch.Tensor:
+    """(BH, S, dh) softmax attention, causal or full, any S, in one
+    dispatch; float32 or bfloat16 (GQA grouped by the caller)."""
+    _tick()
+    route = _route(impl, q)
+    if route == "ref":
+        return ref_ops.flash_attention_ref(q, k, v, causal)
+    if route == "cuda":
+        return flash_attention_cuda(q, k, v, causal)
+    return flash_attention_plain(q, k, v, causal)

@@ -4,12 +4,15 @@ contract), counterparts of :mod:`repro.kernels.ref`.
 They accumulate in int64, like the reference oracles, where the kernels and
 their plain versions accumulate in int32; the two agree whenever a dot
 product stays below 2^31, which the planner guarantees for calibrated
-targets.  The fleet oracles stack the single-model ones per slot; the
-attention oracle arrives with its kernel.
+targets.  The fleet oracles stack the single-model ones per slot.  The
+attention oracle materializes the scores in float32.
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from repro_torch.core import fixedpoint as fxp
@@ -20,7 +23,7 @@ from repro_torch.core.trees import TreeArrays, predict_oblivious
 __all__ = ["fxp_qmatmul_ref", "fxp_layer_ref", "fxp_layer_ref_with_stats",
            "fxp_mlp_model_ref", "fxp_svm_model_ref", "svm_kernel_values",
            "fxp_mlp_fleet_ref", "fxp_svm_fleet_ref", "pwl_activation_ref",
-           "tree_ensemble_ref"]
+           "tree_ensemble_ref", "flash_attention_ref"]
 
 
 def fxp_qmatmul_ref(a: torch.Tensor, b: torch.Tensor, fmt: fxp.FxpFormat,
@@ -144,3 +147,21 @@ def pwl_activation_ref(x: torch.Tensor, variant: str) -> torch.Tensor:
 def tree_ensemble_ref(tree: TreeArrays, x: torch.Tensor) -> torch.Tensor:
     """Oblivious-form tree oracle (finite inputs)."""
     return predict_oblivious(tree, x)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """(BH, S, dh) softmax attention with float32 internals: the scores
+    ``q . k^T * float32(1/sqrt(dh))``, masked to -1e30 above the diagonal
+    when ``causal``, a softmax over the keys and ``p . v``, cast back to
+    ``q``'s dtype."""
+    s = q.shape[1]
+    scale = float(np.float32(1.0 / math.sqrt(q.shape[-1])))
+    scores = torch.einsum("bqd,bkd->bqk", q.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    if causal:
+        pos = torch.arange(s, device=q.device)
+        scores = torch.where(pos[:, None] >= pos[None, :], scores, -1e30)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bqk,bkd->bqd", p, v.to(torch.float32))
+    return out.to(q.dtype)

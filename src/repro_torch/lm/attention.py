@@ -1,0 +1,294 @@
+"""Attention: GQA with RoPE, prefill through the flash_attention kernel,
+cached decode.
+
+The PyTorch counterpart of :mod:`repro.lm.attention`.  Prefill
+(:func:`attention`) routes by where its tensors lie:
+
+* on a CUDA tensor with no sliding window, the hand-written
+  ``flash_attention`` kernel (:func:`repro_torch.kernels.ops.flash_attention`)
+  on (B*H, S, dh) tensors, whatever S is: K/V heads are repeated to the
+  query heads first (GQA grouped by the caller, as the TPU kernel expects);
+* on the CPU, the reference's own branch: the streaming-softmax
+  :func:`blockwise_attention` when ``S % chunk == 0 and S > chunk``, else
+  :func:`full_attention` with materialized scores;
+* with a sliding ``window`` (no dense config has one), the kernel does not
+  compute the function — it masks only the causal triangle — so a windowed
+  attention takes the CPU branch's functions on either device.  The kernel
+  is never tried and given up on.
+
+Decode (:func:`decode_attention`) computes one query against the cache in
+grouped form (no KV head replication) and updates the cache's buffers in
+place: a KV cache is the largest decode buffer, and the reference's
+functional update would copy it every step.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops
+
+from .layers import apply_linear, apply_rope, init_linear
+
+__all__ = ["attn_params", "attention", "blockwise_attention",
+           "full_attention", "decode_attention", "init_kv_cache"]
+
+_NEG_INF = -1e30
+
+
+def _scale(dh: int) -> float:
+    return float(np.float32(1.0 / math.sqrt(dh)))
+
+
+def attn_params(generator: torch.Generator, d: int, n_heads: int,
+                n_kv_heads: int, head_dim: int, dtype: torch.dtype,
+                qkv_bias: bool = False, lead=()) -> Dict:
+    return {
+        "wq": init_linear(generator, d, n_heads * head_dim, dtype,
+                          bias=qkv_bias, lead=lead),
+        "wk": init_linear(generator, d, n_kv_heads * head_dim, dtype,
+                          bias=qkv_bias, lead=lead),
+        "wv": init_linear(generator, d, n_kv_heads * head_dim, dtype,
+                          bias=qkv_bias, lead=lead),
+        "wo": init_linear(generator, n_heads * head_dim, d, dtype, lead=lead),
+    }
+
+
+def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    return x.reshape(b, s, n, -1)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, s, h, dh = x.shape
+    return x.reshape(b, s, h * dh)
+
+
+def _grouped_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q: (B,Sq,Hkv,G,dh), k: (B,Sk,Hkv,dh) -> scores (B,Hkv,G,Sq,Sk) f32."""
+    return torch.einsum("bqhgd,bkhd->bhgqk", q.to(torch.float32),
+                        k.to(torch.float32))
+
+
+def _grouped_out(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """p: (B,Hkv,G,Sq,Sk) f32, v: (B,Sk,Hkv,dh) -> (B,Sq,Hkv,G,dh)."""
+    return torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(torch.float32))
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool, chunk: int,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """Streaming-softmax attention, chunk by chunk (the reference's scan).
+
+    q: (B, S, Hq, dh); k, v: (B, S, Hkv, dh).  Returns (B, S, Hq, dh).
+    ``chunk`` must divide S.  ``window``: sliding-window size (None = full).
+    """
+    b, s, hq, dh = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    scale = _scale(dh)
+    n = s // chunk
+    qg = q.reshape(b, s, hkv, g, dh)
+    base = torch.arange(chunk, device=q.device)
+    outs = []
+    for qi in range(n):
+        qc = qg[:, qi * chunk:(qi + 1) * chunk]
+        q_pos = qi * chunk + base
+        m = torch.full((b, hkv, g, chunk), _NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, hkv, g, chunk, dh), dtype=torch.float32,
+                          device=q.device)
+        # every kv chunk, as the reference's static-length scan does (a
+        # chunk above the diagonal leaves m, l and acc exactly as they were)
+        for ki in range(n):
+            kc = k[:, ki * chunk:(ki + 1) * chunk]
+            vc = v[:, ki * chunk:(ki + 1) * chunk]
+            k_pos = ki * chunk + base
+            scores = _grouped_scores(qc, kc) * scale
+            mask = torch.ones((chunk, chunk), dtype=torch.bool,
+                              device=q.device)
+            if causal:
+                mask &= q_pos[:, None] >= k_pos[None, :]
+            if window is not None:
+                mask &= (q_pos[:, None] - k_pos[None, :]) < window
+            scores = torch.where(mask, scores, _NEG_INF)
+            m_new = torch.maximum(m, scores.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(scores - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            pv = torch.einsum("bhgqk,bkhd->bhgqd", p, vc.to(torch.float32))
+            acc = acc * alpha[..., None] + pv
+            m = m_new
+        out = acc / torch.clamp_min(l[..., None], 1e-30)
+        # (B, Hkv, G, chunk, dh) -> (B, chunk, Hkv, G, dh)
+        outs.append(out.permute(0, 3, 1, 2, 4))
+    out = torch.cat(outs, dim=1).reshape(b, s, hq, dh)
+    return out.to(q.dtype)
+
+
+def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool, window: Optional[int] = None) -> torch.Tensor:
+    """Materialized-scores attention for short sequences."""
+    b, s, hq, dh = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, s, hkv, hq // hkv, dh)
+    scores = _grouped_scores(qg, k) * _scale(dh)
+    pos = torch.arange(s, device=q.device)
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= pos[:, None] >= pos[None, :]
+    if window is not None:
+        mask &= (pos[:, None] - pos[None, :]) < window
+    scores = torch.where(mask, scores, _NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = _grouped_out(p, v)  # (B, Sq, Hkv, G, dh) — already query-major
+    return out.reshape(b, s, hq, dh).to(q.dtype)
+
+
+def _kernel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool, impl: str) -> torch.Tensor:
+    """One ``flash_attention`` dispatch over (B*Hq, S, dh): K/V heads
+    repeated to the query heads (query head h reads KV head h // G, as the
+    grouped form does)."""
+    b, s, hq, dh = q.shape
+    g = hq // k.shape[2]
+    if g > 1:
+        k = k.repeat_interleave(g, dim=2)
+        v = v.repeat_interleave(g, dim=2)
+
+    def fold(t):  # (B, S, H, dh) -> contiguous (B*H, S, dh)
+        return t.transpose(1, 2).reshape(b * hq, s, dh)
+
+    out = ops.flash_attention(fold(q), fold(k), fold(v), causal, impl=impl)
+    return out.view(b, hq, s, dh).transpose(1, 2)
+
+
+def attention(params: Dict, x: torch.Tensor, *, n_heads: int,
+              n_kv_heads: int, head_dim: int, rope_theta: float,
+              causal: bool = True, chunk: int = 1024,
+              window: Optional[int] = None,
+              positions: Optional[torch.Tensor] = None,
+              impl: str = "cuda") -> torch.Tensor:
+    """Self-attention over a full sequence (prefill).  ``impl`` is the
+    kernel route on a CUDA tensor (``"cuda"`` launches the kernel, ``"ref"``
+    computes its function through the materialized-scores oracle)."""
+    b, s, _ = x.shape
+    q = _split_heads(apply_linear(params["wq"], x), n_heads)
+    k = _split_heads(apply_linear(params["wk"], x), n_kv_heads)
+    v = _split_heads(apply_linear(params["wv"], x), n_kv_heads)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+    if x.device.type == "cuda" and window is None:
+        out = _kernel_attention(q, k, v, causal, impl)
+    elif s % chunk == 0 and s > chunk:
+        out = blockwise_attention(q, k, v, causal, chunk, window)
+    else:
+        out = full_attention(q, k, v, causal, window)
+    return apply_linear(params["wo"], _merge_heads(out))
+
+
+# --------------------------------------------------------------------------
+# Decode path
+# --------------------------------------------------------------------------
+def init_kv_cache(batch: int, max_len: int, n_kv_heads: int, head_dim: int,
+                  dtype: torch.dtype, device: torch.device,
+                  quantized: bool = False, lead=()) -> Dict:
+    """KV cache, with leading (stacked-layer) dims.  ``quantized``: int8
+    entries + a per-(token, head) float32 scale."""
+    shape = tuple(lead) + (batch, max_len, n_kv_heads, head_dim)
+    sshape = shape[:-1] + (1,)
+    z = lambda sh, dt: torch.zeros(sh, dtype=dt, device=device)
+    if quantized:
+        return {"k_q": z(shape, torch.int8),
+                "k_scale": z(sshape, torch.float32),
+                "v_q": z(shape, torch.int8),
+                "v_scale": z(sshape, torch.float32)}
+    return {"k": z(shape, dtype), "v": z(shape, dtype)}
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, 1, H, dh) -> int8 values + per-(token, head) scale."""
+    x32 = x.to(torch.float32)
+    amax = torch.amax(torch.abs(x32), dim=-1, keepdim=True)
+    scale = torch.clamp_min(amax, 1e-8) / 127.0
+    q = torch.clamp(torch.round(x32 / scale), -128, 127)
+    return q.to(torch.int8), scale
+
+
+def decode_attention(params: Dict, x: torch.Tensor, cache: Dict,
+                     position: torch.Tensor, *, n_heads: int,
+                     n_kv_heads: int, head_dim: int, rope_theta: float,
+                     window: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, Dict]:
+    """One-token decode.  x: (B, 1, d); cache K/V: (B, L, Hkv, dh);
+    ``position``: a 0-d integer tensor.
+
+    Full-length cache (L > position): write at ``position`` in place and
+    attend over the first ``position`` + 1 slots.  Sliding-window cache
+    (``window`` set and L <= window): a shift buffer ordered oldest to
+    newest, shifted left one slot per step once full (a new buffer, which
+    the returned cache holds); keys are stored RoPE'd at their absolute
+    positions.  The write index is clamped to L - 1, as the reference's
+    ``dynamic_update_slice`` clamps it.
+    """
+    b = x.shape[0]
+    quantized = "k_q" in cache
+    L = cache["k_q" if quantized else "k"].shape[1]
+    windowed = window is not None and L <= window
+    position = torch.as_tensor(position, device=x.device)
+    q = _split_heads(apply_linear(params["wq"], x), n_heads)  # (B,1,Hq,dh)
+    k_new = _split_heads(apply_linear(params["wk"], x), n_kv_heads)
+    v_new = _split_heads(apply_linear(params["wv"], x), n_kv_heads)
+    pos = position.reshape(1, 1).expand(b, 1)
+    q = apply_rope(q, pos, rope_theta)
+    k_new = apply_rope(k_new, pos, rope_theta)
+
+    if windowed:
+        full = position >= L
+        slot = torch.clamp_max(position, L - 1)
+        base = {kk: torch.where(full, torch.roll(cc, -1, dims=1), cc)
+                for kk, cc in cache.items()}
+    else:
+        slot = position
+        base = cache
+    index = torch.clamp_max(slot, L - 1).reshape(1).long()
+
+    def upd(buf, new):
+        return buf.index_copy_(1, index, new.to(buf.dtype))
+
+    if quantized:
+        kq_new, ks_new = _quantize_kv(k_new)
+        vq_new, vs_new = _quantize_kv(v_new)
+        new_cache = {"k_q": upd(base["k_q"], kq_new),
+                     "k_scale": upd(base["k_scale"], ks_new),
+                     "v_q": upd(base["v_q"], vq_new),
+                     "v_scale": upd(base["v_scale"], vs_new)}
+        # dequantize at use: the resident buffer stays int8 (paper C1)
+        k = (new_cache["k_q"].to(torch.float32)
+             * new_cache["k_scale"]).to(x.dtype)
+        v = (new_cache["v_q"].to(torch.float32)
+             * new_cache["v_scale"]).to(x.dtype)
+    else:
+        k = upd(base["k"], k_new)
+        v = upd(base["v"], v_new)
+        new_cache = {"k": k, "v": v}
+    hkv = n_kv_heads
+    qg = q.reshape(b, 1, hkv, n_heads // hkv, head_dim)
+    scores = _grouped_scores(qg, k) * _scale(head_dim)  # (B,Hkv,G,1,L)
+    idx = torch.arange(L, device=x.device)
+    valid = idx[None, :] <= slot
+    if window is not None and not windowed:
+        valid &= (position - idx[None, :]) < window
+    scores = torch.where(valid, scores, _NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = _grouped_out(p, v)  # (B, 1, Hkv, G, dh) — already query-major
+    out = out.reshape(b, 1, n_heads * head_dim)
+    y = apply_linear(params["wo"], out.to(x.dtype))
+    return y, new_cache

@@ -1,0 +1,191 @@
+"""Shared LM layers: norms, MLPs, RoPE, embeddings, PWL-gated activations.
+
+The PyTorch counterpart of :mod:`repro.lm.layers`.  All functions are pure;
+parameters are plain dicts of tensors.  Compute dtype follows the input;
+norm statistics and RoPE angles always run in float32.  The paper's PWL
+sigmoid (C3) is available for every sigmoid-derived gate (sigmoid, silu)
+via ``gate_sigmoid`` — exact by default.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.activations import get_sigmoid
+
+__all__ = ["rmsnorm", "layernorm", "make_norm_params", "apply_norm",
+           "init_linear", "mlp_params", "apply_mlp", "activation_fn",
+           "rope_freqs", "apply_rope", "init_embed", "gated_silu", "wval",
+           "apply_linear", "embed_tokens", "unembed"]
+
+
+# --------------------------------------------------------------------------
+# Norms
+# --------------------------------------------------------------------------
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """``x / rms(x) * (1 + scale)`` in float32, cast back to ``x``'s dtype."""
+    x32 = x.to(torch.float32)
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    return (out * (1.0 + scale.to(torch.float32))).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.to(torch.float32)
+    mean = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    out = (x32 - mean) * torch.rsqrt(var + eps)
+    return (out * (1.0 + scale.to(torch.float32))
+            + bias.to(torch.float32)).to(x.dtype)
+
+
+def make_norm_params(kind: str, d: int, dtype: torch.dtype,
+                     device: torch.device, lead=()) -> Dict:
+    """Zero-initialized norm parameters, with leading (stacked) dims."""
+    z = lambda: torch.zeros(tuple(lead) + (d,), dtype=dtype, device=device)
+    if kind == "rmsnorm":
+        return {"scale": z()}
+    return {"scale": z(), "bias": z()}
+
+
+def apply_norm(kind: str, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    if kind == "rmsnorm":
+        return rmsnorm(x, p["scale"])
+    return layernorm(x, p["scale"], p["bias"])
+
+
+# --------------------------------------------------------------------------
+# Linear / MLP
+# --------------------------------------------------------------------------
+def init_linear(generator: torch.Generator, d_in: int, d_out: int,
+                dtype: torch.dtype, bias: bool = False,
+                scale: Optional[float] = None, lead=()) -> Dict:
+    """A (lead..., d_in, d_out) weight drawn N(0, 1) * ``scale`` (default
+    1/sqrt(d_in)) in float32 and cast to ``dtype``, on the generator's
+    device; a zero bias when asked."""
+    s = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    dev = generator.device
+    w = torch.randn(tuple(lead) + (d_in, d_out), generator=generator,
+                    dtype=torch.float32, device=dev) * s
+    p = {"w": w.to(dtype)}
+    if bias:
+        p["b"] = torch.zeros(tuple(lead) + (d_out,), dtype=dtype, device=dev)
+    return p
+
+
+def wval(p: Dict, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Weight value of a linear dict, dequantizing a Qn.m/int8 artifact
+    (``w_q`` in its integer container times ``scale``)."""
+    if "w_q" in p:
+        dt = dtype if dtype is not None else p["scale"].dtype
+        return p["w_q"].to(dt) * p["scale"].to(dt)
+    return p["w"] if dtype is None else p["w"].to(dtype)
+
+
+def apply_linear(p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """``x @ w (+ b)``; a quantized linear computes
+    ``(x @ w_q.to(x.dtype)) * scale`` — the integer buffer stays resident
+    and is converted at use, as the reference does."""
+    if "w_q" in p:
+        y = (x @ p["w_q"].to(x.dtype)) * p["scale"].to(x.dtype)
+    else:
+        y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def activation_fn(name: str, gate_sigmoid: str = "exact") -> Callable:
+    """silu/gelu/relu/relu2; silu routes through the (possibly PWL) sigmoid."""
+    if name == "silu":
+        sig = get_sigmoid(gate_sigmoid)
+        return lambda x: x * sig(x)
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "relu":
+        return torch.relu
+    if name == "relu2":
+        return lambda x: torch.square(torch.relu(x))
+    raise KeyError(f"unknown activation '{name}'")
+
+
+def gated_silu(x: torch.Tensor, gate_sigmoid: str = "exact") -> torch.Tensor:
+    sig = get_sigmoid(gate_sigmoid)
+    return x * sig(x)
+
+
+def mlp_params(generator: torch.Generator, d: int, d_ff: int, mlp_type: str,
+               dtype: torch.dtype, lead=()) -> Dict:
+    if mlp_type == "glu":
+        return {
+            "wi": init_linear(generator, d, d_ff, dtype, lead=lead),
+            "wg": init_linear(generator, d, d_ff, dtype, lead=lead),
+            "wo": init_linear(generator, d_ff, d, dtype, lead=lead),
+        }
+    return {
+        "wi": init_linear(generator, d, d_ff, dtype, lead=lead),
+        "wo": init_linear(generator, d_ff, d, dtype, lead=lead),
+    }
+
+
+def apply_mlp(p: Dict, x: torch.Tensor, mlp_type: str, activation: str,
+              gate_sigmoid: str = "exact") -> torch.Tensor:
+    act = activation_fn(activation, gate_sigmoid)
+    h = apply_linear(p["wi"], x)
+    if mlp_type == "glu":
+        h = act(apply_linear(p["wg"], x)) * h
+    else:
+        h = act(h)
+    return apply_linear(p["wo"], h)
+
+
+# --------------------------------------------------------------------------
+# RoPE
+# --------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    # a Python scalar base: no host-to-device copy (which would wait for
+    # the card), and float32 arithmetic, as the reference's weak-typed theta
+    return 1.0 / torch.pow(theta, exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, dh) rotated pairwise; positions: (..., S) int.  Angles,
+    sin and cos in float32."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)  # (dh/2,)
+    angles = positions[..., None].to(torch.float32) * freqs  # (..., S, dh/2)
+    cos = torch.cos(angles)[..., None, :]  # broadcast over heads
+    sin = torch.sin(angles)[..., None, :]
+    x1 = x[..., 0::2].to(torch.float32)
+    x2 = x[..., 1::2].to(torch.float32)
+    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Embeddings
+# --------------------------------------------------------------------------
+def init_embed(generator: torch.Generator, vocab: int, d: int,
+               dtype: torch.dtype) -> Dict:
+    table = torch.randn((vocab, d), generator=generator, dtype=torch.float32,
+                        device=generator.device) * (1.0 / math.sqrt(d))
+    return {"table": table.to(dtype)}
+
+
+def embed_tokens(p: Dict, tokens: torch.Tensor) -> torch.Tensor:
+    return p["table"][tokens.long()]
+
+
+def unembed(p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """Logits in float32 (loss-critical)."""
+    return x.to(torch.float32) @ p["table"].T.to(torch.float32)

@@ -1,0 +1,205 @@
+"""Model assembly for the dense attention family: init / forward / decode.
+
+The PyTorch counterpart of :mod:`repro.lm.model`, dense decoder stacks only
+(``family`` dense: GQA or MHA attention, glu or standard MLP, rmsnorm or
+layernorm).  The parameter tree keeps the reference's layout — nested dicts,
+the layers stacked on a leading ``n_layers`` axis — so weights carry across
+one to one (:func:`repro_torch.convert.lm_params_from_numpy`); a Python
+loop over the stacked index takes the place of the reference's
+``lax.scan``.  MoE, MLA, mamba-hybrid, rwkv and modality configs raise
+``NotImplementedError`` (roadmap item A13); the training loss waits for the
+trainers (A12).
+
+Public API:
+  init_params(cfg, generator)            -> params tree on the generator's device
+  forward(params, batch, cfg)            -> (B, S, vocab) float32 logits
+  init_cache(cfg, batch, max_len, device) -> decode cache tree
+  serve_step(params, cache, batch, cfg)  -> (logits, cache)
+
+Everything runs under ``torch.inference_mode()``.  ``serve_step`` updates
+the cache's buffers in place and returns the same buffers under an advanced
+``pos``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+
+from . import attention as attn_mod
+from .layers import (apply_linear, apply_mlp, apply_norm, embed_tokens,
+                     init_embed, init_linear, make_norm_params, mlp_params)
+
+__all__ = ["init_params", "forward", "init_cache", "serve_step",
+           "require_dense"]
+
+
+def _dtype(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def require_dense(cfg: ArchConfig) -> None:
+    """Raise unless ``cfg`` is a dense attention stack the port runs."""
+    kind = None
+    if cfg.block_pattern != "attn":
+        kind = f"the {cfg.block_pattern} block pattern"
+    elif cfg.moe is not None:
+        kind = "MoE layers"
+    elif cfg.mla is not None:
+        kind = "MLA attention"
+    elif cfg.modality is not None:
+        kind = f"the {cfg.modality} modality frontend"
+    if kind is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: {kind} is not ported to repro_torch yet (roadmap "
+            f"item A13, the rest of the LM stack); the port runs dense "
+            f"attention stacks")
+
+
+def _layer(stacked: Dict, i: int) -> Dict:
+    """Layer ``i``'s parameters (views) from a stacked tree."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in stacked.items()}
+
+
+def _n_layers(stacked: Dict) -> int:
+    leaf = stacked
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return leaf.shape[0]
+
+
+def _tokens(tokens: Any, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(tokens, device=device)
+
+
+# ===========================================================================
+# Parameter construction
+# ===========================================================================
+@torch.inference_mode()
+def init_params(cfg: ArchConfig, generator: torch.Generator) -> Dict:
+    """Seeded parameters (the reference's layout and init scales) on the
+    generator's device."""
+    require_dense(cfg)
+    dt, dev, lead = _dtype(cfg), generator.device, (cfg.n_layers,)
+    params: Dict[str, Any] = {
+        "embed": init_embed(generator, cfg.vocab_size, cfg.d_model, dt)}
+    params["layers"] = {
+        "ln1": make_norm_params(cfg.norm, cfg.d_model, dt, dev, lead),
+        "ln2": make_norm_params(cfg.norm, cfg.d_model, dt, dev, lead),
+        "attn": attn_mod.attn_params(generator, cfg.d_model, cfg.n_heads,
+                                     cfg.n_kv_heads, cfg.head_dim, dt,
+                                     cfg.qkv_bias, lead),
+        "mlp": mlp_params(generator, cfg.d_model, cfg.d_ff, cfg.mlp_type, dt,
+                          lead),
+    }
+    params["final_norm"] = make_norm_params(cfg.norm, cfg.d_model, dt, dev)
+    if not cfg.tie_embeddings:
+        params["head"] = init_linear(generator, cfg.d_model, cfg.vocab_size,
+                                     dt)
+    return params
+
+
+# ===========================================================================
+# Forward
+# ===========================================================================
+def _block_attn(cfg: ArchConfig, p: Dict, x: torch.Tensor,
+                attn_impl: str) -> torch.Tensor:
+    return attn_mod.attention(p["attn"], x, n_heads=cfg.n_heads,
+                              n_kv_heads=cfg.n_kv_heads,
+                              head_dim=cfg.head_dim,
+                              rope_theta=cfg.rope_theta,
+                              causal=not cfg.encoder_only,
+                              chunk=cfg.attn_chunk,
+                              window=cfg.sliding_window, impl=attn_impl)
+
+
+def _dense_block(cfg: ArchConfig, p: Dict, x: torch.Tensor,
+                 attn_impl: str) -> torch.Tensor:
+    x = x + _block_attn(cfg, p, apply_norm(cfg.norm, p["ln1"], x), attn_impl)
+    x = x + apply_mlp(p["mlp"], apply_norm(cfg.norm, p["ln2"], x),
+                      cfg.mlp_type, cfg.activation, cfg.gate_sigmoid)
+    return x
+
+
+def _logits(cfg: ArchConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
+    x = apply_norm(cfg.norm, params["final_norm"], x)
+    if cfg.tie_embeddings:
+        return (x.to(torch.float32)
+                @ params["embed"]["table"].T.to(torch.float32))
+    return apply_linear(params["head"], x).to(torch.float32)
+
+
+@torch.inference_mode()
+def forward(params: Dict, batch: Dict, cfg: ArchConfig,
+            attn_impl: str = "cuda") -> torch.Tensor:
+    """Full-sequence forward -> float32 logits (B, S, vocab).  On the card
+    each layer's attention is one ``flash_attention`` launch
+    (``attn_impl="ref"`` computes the same function through the
+    materialized-scores oracle instead, for checks)."""
+    require_dense(cfg)
+    table = params["embed"]["table"]
+    x = embed_tokens(params["embed"], _tokens(batch["tokens"], table.device))
+    layers = params["layers"]
+    for i in range(_n_layers(layers)):
+        x = _dense_block(cfg, _layer(layers, i), x, attn_impl)
+    return _logits(cfg, params, x)
+
+
+# ===========================================================================
+# Decode (serve_step)
+# ===========================================================================
+@torch.inference_mode()
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               device: Any) -> Dict:
+    require_dense(cfg)
+    device = torch.device(device)
+    return {"pos": torch.zeros((), dtype=torch.int32, device=device),
+            "layers": attn_mod.init_kv_cache(
+                batch, max_len, cfg.n_kv_heads, cfg.head_dim, _dtype(cfg),
+                device, quantized=cfg.kv_cache_dtype == "int8",
+                lead=(cfg.n_layers,))}
+
+
+def _decode_attn(cfg: ArchConfig, p: Dict, x, layer_cache, pos):
+    return attn_mod.decode_attention(p["attn"], x, layer_cache, pos,
+                                     n_heads=cfg.n_heads,
+                                     n_kv_heads=cfg.n_kv_heads,
+                                     head_dim=cfg.head_dim,
+                                     rope_theta=cfg.rope_theta,
+                                     window=cfg.sliding_window)
+
+
+def _decode_dense_block(cfg, p, x, layer_cache, pos):
+    att, new_cache = _decode_attn(cfg, p, apply_norm(cfg.norm, p["ln1"], x),
+                                  layer_cache, pos)
+    x = x + att
+    x = x + apply_mlp(p["mlp"], apply_norm(cfg.norm, p["ln2"], x),
+                      cfg.mlp_type, cfg.activation, cfg.gate_sigmoid)
+    return x, new_cache
+
+
+@torch.inference_mode()
+def serve_step(params: Dict, cache: Dict, batch: Dict,
+               cfg: ArchConfig) -> Tuple[torch.Tensor, Dict]:
+    """One decode step: new tokens (B,) -> logits (B, vocab), cache.  The
+    cache's buffers are written in place (a windowed layer's shifted buffer
+    is copied back into its slot of the stack)."""
+    require_dense(cfg)
+    pos = cache["pos"]
+    tok = _tokens(batch["token"], pos.device)
+    x = embed_tokens(params["embed"], tok[:, None])  # (B, 1, d)
+    stacked = cache["layers"]
+    layers = params["layers"]
+    for i in range(_n_layers(layers)):
+        layer_cache = {k: c[i] for k, c in stacked.items()}
+        x, new_cache = _decode_dense_block(cfg, _layer(layers, i), x,
+                                           layer_cache, pos)
+        for k, c in new_cache.items():
+            if c is not layer_cache[k]:
+                stacked[k][i].copy_(c)
+    logits = _logits(cfg, params, x[:, 0])
+    return logits, {"pos": pos + 1, "layers": stacked}

@@ -5,8 +5,8 @@ registered :class:`~repro_torch.compile.artifact.CompiledArtifact` gets an
 *endpoint*: its own micro-batching scheduler and a rolling stats window —
 QPS, p50/p95/p99 request latency, mean batch-fill ratio (rows per
 dispatched bucket).  The scheduler stages batches in pinned host memory
-when the artifact runs on a CUDA device.  The port has no LM artifacts
-yet, so every endpoint is a classifier's.
+when the artifact runs on a CUDA device.  An LM artifact's endpoint also
+answers :meth:`Endpoint.generate`, outside the scheduler.
 
 An endpoint may additionally carry a *fallback* artifact of the same model
 at a narrower precision (``set_fallback``): a
@@ -269,6 +269,20 @@ class Endpoint:
                     for i in range(0, x.shape[0], self.policy.max_batch)]
             return np.concatenate([f.result() for f in futs], axis=0)
         return self.submit(x).result()
+
+    # -- lm surface ----------------------------------------------------------
+    def generate(self, tokens: np.ndarray, n_tokens: int, **kw) -> np.ndarray:
+        """Greedy generation through the artifact's ``generate``; recorded
+        as one batch of ``B * n_tokens`` tokens."""
+        if "generate" not in self.artifact.extras:
+            raise TypeError(f"endpoint '{self.name}' ({self.artifact.kind}) "
+                            f"has no generate entry point")
+        t0 = time.perf_counter()
+        seqs = self.artifact.extras["generate"](tokens, n_tokens, **kw)
+        dt = time.perf_counter() - t0
+        n = int(np.asarray(tokens).shape[0])
+        self.stats.record_batch(1, n * n_tokens, n * n_tokens, [dt])
+        return seqs
 
     def snapshot(self) -> Dict[str, object]:
         """Full stats surface: serving stats + reliability counters +

@@ -24,8 +24,10 @@ endpoints into stacked fleet launches, and ``svc.enable_degradation(name,
 ...)`` arms an endpoint with a narrower-precision fallback artifact
 (compiled through the same cache, so ``auto16`` and ``auto8`` of one model
 coexist as two cache entries) that serves under overload — see
-:mod:`repro_torch.serve.degrade`.  The HTTP front end, mesh-sharded
-endpoints and LM generation arrive with later slices of the port.
+:mod:`repro_torch.serve.degrade`.  An :class:`~repro_torch.compile.LMModel`
+registers like any model; ``svc.generate(name, tokens, n)`` decodes on it.
+The HTTP front end and mesh-sharded endpoints arrive with later slices of
+the port.
 """
 
 from __future__ import annotations
@@ -272,10 +274,9 @@ class InferenceService:
 
     def generate(self, name: str, tokens: np.ndarray, n_tokens: int,
                  **kw) -> np.ndarray:
-        """LM generation: the port has no LM yet (its LM slice)."""
-        raise NotImplementedError(
-            "the port serves classifiers only; LM generation arrives with "
-            "its LM slice")
+        """Greedy LM generation on an ``lm`` endpoint: (B,) start tokens ->
+        (B, n_tokens + 1) token ids."""
+        return self.router[name].generate(tokens, n_tokens, **kw)
 
     # -- observability -------------------------------------------------------
     def stats(self) -> Dict[str, Dict[str, float]]:

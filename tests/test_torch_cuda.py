@@ -313,3 +313,73 @@ def test_staging_buffer_event_follows_its_copy(dev):
     assert buf.acquire() is view  # waited for the copy
     view[:] = 0.0
     assert bool((on_card == 1.5).all())
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 3e-2)])
+def test_flash_attention_kernel_matches_plain(dev, dtype, atol):
+    """float32 and bfloat16 (the reference's bounds), causal and full, every
+    head dim, ragged and tile-aligned S."""
+    from repro_torch.compile.lowerings.common import require_full_float32
+    from repro_torch.kernels import flash_attention as fa
+
+    require_full_float32(dev)  # the plain version's float32 products
+    g = torch.Generator(device=dev).manual_seed(0)
+    for causal in (True, False):
+        for dh in fa.HEAD_DIMS:
+            for bh, s in ((1, 1), (3, 7), (2, 64), (5, 129), (2, 300)):
+                q, k, v = (torch.randn(bh, s, dh, generator=g, device=dev)
+                           .to(dtype) for _ in range(3))
+                before = fa.flash_attention_cuda.launches
+                got = ops.flash_attention(q, k, v, causal)
+                assert fa.flash_attention_cuda.launches == before + 1
+                want = fa.flash_attention_plain(q, k, v, causal)
+                assert got.dtype == dtype and got.shape == want.shape
+                err = float((got.float() - want.float()).abs().max())
+                assert err <= atol, (causal, dh, bh, s, err)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention_cuda(*(torch.zeros(1, 8, 48, device=dev)
+                                  for _ in range(3)))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention_cuda(*(torch.zeros(1, 8, 64, device=dev,
+                                              dtype=torch.float16)
+                                  for _ in range(3)))
+
+
+def test_lm_forward_on_card_launches_kernel_per_layer(dev):
+    """A reduced qwen2 forward on the card: one flash_attention launch per
+    layer, logits equal to the same forward through the oracle's
+    attention, and to the host's."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.lm import model as M
+
+    cfg = get_config("qwen2-0.5b").reduced()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    tok = torch.from_numpy(np.random.RandomState(0).randint(
+        1, cfg.vocab_size, (2, 77)).astype(np.int32)).to(dev)
+    before = fa.flash_attention_cuda.launches
+    logits = M.forward(params, {"tokens": tok}, cfg)
+    assert fa.flash_attention_cuda.launches == before + cfg.n_layers
+    plain = M.forward(params, {"tokens": tok}, cfg, attn_impl="ref")
+    assert fa.flash_attention_cuda.launches == before + cfg.n_layers
+    scale = float(plain.abs().max())
+    assert float((logits - plain).abs().max()) <= 1e-4 * scale
+    host = M.forward({k: _to_cpu(v) for k, v in params.items()},
+                     {"tokens": tok.cpu()}, cfg)
+    assert float((logits.cpu() - host).abs().max()) <= 1e-4 * scale
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.cpu()
+
+
+def test_fingerprint_of_a_card_tensor(dev):
+    from repro_torch.compile.fingerprint import fingerprint_params
+
+    for dtype in (torch.float32, torch.bfloat16):
+        t = torch.arange(24, dtype=torch.float32).reshape(4, 6).to(dtype)
+        assert (fingerprint_params("lm", {"w": t.to(dev)})
+                == fingerprint_params("lm", {"w": t}))

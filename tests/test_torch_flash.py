@@ -1,0 +1,96 @@
+"""The port's flash_attention against the live JAX package, on the CPU.
+
+The same seeded numpy inputs go through the reference's
+``ops.flash_attention`` (the Pallas kernel in interpret mode, as
+``tests/test_kernels.py`` runs it) and its oracle ``flash_attention_ref``,
+and through the port's ``ops.flash_attention`` on CPU tensors (the kernel's
+plain version, which is what the CUDA kernel is held to on the card) and
+its oracle.  Bounds are the reference's own (``tests/test_kernels.py``):
+atol 2e-5 in float32, 3e-2 in bfloat16 (one rounding of a bf16 output
+near 2-4 is 1.6e-2).  The CUDA kernel itself is tested on the card in
+``tests/test_torch_cuda.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro  # noqa: F401  (enables jax x64, as the reference runs)
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+
+def _qkv(seed, bh, s, dh):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(bh, s, dh).astype(np.float32) for _ in range(3)]
+
+
+def _port(arrays, dtype=torch.float32):
+    return [torch.from_numpy(a).to(dtype) for a in arrays]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,bq,bk", [(128, 64, 64), (256, 128, 64),
+                                     (64, 64, 64)])
+def test_flash_attention_matches_reference_kernel(causal, s, bq, bk):
+    """The reference test's shapes (dh 32), against the Pallas kernel in
+    interpret mode and against the reference oracle."""
+    arrays = _qkv(s + causal, 2, s, 32)
+    want = np.asarray(jops.flash_attention(*map(jnp.asarray, arrays),
+                                           causal=causal, bq=bq, bk=bk))
+    want_ref = np.asarray(jref.flash_attention_ref(*map(jnp.asarray, arrays),
+                                                   causal=causal))
+    got = tops.flash_attention(*_port(arrays), causal=causal).numpy()
+    got_ref = tref.flash_attention_ref(*_port(arrays), causal=causal).numpy()
+    for g in (got, got_ref):
+        np.testing.assert_allclose(g, want, atol=2e-5)
+        np.testing.assert_allclose(g, want_ref, atol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [1, 12, 100])
+def test_flash_attention_ragged_lengths(causal, s):
+    """Any S (the LM's prefill lengths are arbitrary): the reference kernel
+    takes one block of S there (bq = bk = min(512, S))."""
+    arrays = _qkv(7 * s + causal, 3, s, 64)
+    want = np.asarray(jops.flash_attention(*map(jnp.asarray, arrays),
+                                           causal=causal))
+    got = tops.flash_attention(*_port(arrays), causal=causal).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5)
+    if causal:  # the first query sees only the first key
+        np.testing.assert_array_equal(got[:, 0], arrays[2][:, 0])
+
+
+def test_flash_attention_bf16():
+    arrays = _qkv(7, 2, 128, 64)
+    jin = [jnp.asarray(a).astype(jnp.bfloat16) for a in arrays]
+    want = np.asarray(jops.flash_attention(*jin, bq=64, bk=64), np.float32)
+    tin = _port(arrays, torch.bfloat16)
+    got = tops.flash_attention(*tin)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, atol=3e-2)
+    want_ref = np.asarray(jref.flash_attention_ref(*jin), np.float32)
+    np.testing.assert_allclose(tref.flash_attention_ref(*tin).float().numpy(),
+                               want_ref, atol=3e-2)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    q, k, v = _port(_qkv(3, 2, 64, 32))
+    before = tfa.flash_attention_cuda.launches
+    with tops.count_dispatches() as c:
+        got = tops.flash_attention(q, k, v)
+    assert c.count == 1 and tfa.flash_attention_cuda.launches == before
+    torch.testing.assert_close(got, tfa.flash_attention_plain(q, k, v),
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_cuda(q, k, v)
+    with pytest.raises(ValueError, match="one shape"):
+        tops.flash_attention(q, k[:, :32], v)
+    with pytest.raises(TypeError, match="dtype"):
+        tops.flash_attention(q, k.double(), v)
+    with pytest.raises(KeyError, match="impl"):
+        tops.flash_attention(q, k, v, impl="pallas")

@@ -548,8 +548,6 @@ def test_register_pretune_and_unported_entry_points(pairs, blobs):
                                       pairs["r0"][1].predict(xte[:4]))
         with pytest.raises(NotImplementedError, match="serve/net"):
             svc.serve_http()
-        with pytest.raises(NotImplementedError, match="LM"):
-            svc.generate("warm", np.zeros((1, 4), np.int32), 2)
         with pytest.raises(NotImplementedError, match="multi-GPU"):
             svc.register("sharded", artifact=pairs["r1"][1], mesh=object())
         assert svc.endpoint("warm").artifact.max_supported_batch is None
