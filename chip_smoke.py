@@ -10,7 +10,11 @@ Phases, each of which raises on failure:
    Exits non-zero without a CUDA device.
 2. Build every CUDA kernel of the main paths from ``src/repro_torch/kernels/
    csrc`` (nine sources, one ``nvcc`` each, in parallel) and print the
-   build time and ``ptxas`` resource lines.  Then the data: D6 ("har") and
+   build time and ``ptxas`` resource lines (by instance for the two kernels
+   redesigned for Hopper, flash_attention and fxp_svm_model), and, where
+   the toolkit's ``cuobjdump`` exists, the count of tensor-core MMA
+   instructions (HMMA) in each flash_attention instance's SASS (a bf16
+   instance without any fails).  Then the data: D6 ("har") and
    D5 ("pendigits") from their seeds, and the D6 tree trained by the port's
    CART (``max_depth=12``).
 3. Each kernel against its plain PyTorch version on the card, bit for bit,
@@ -21,7 +25,9 @@ Phases, each of which raises on failure:
    * ``fxp_qmatmul``: (M,561)x(561,300) and (M,8)x(8,300);
    * ``fxp_svm_model``: poly and rbf at the D6 shapes (S=300, F=561, C=6)
      and the D5 shapes (S=300, F=8, C=10), nonzero random q(gamma) and
-     q(coef0), degrees 1-3;
+     q(coef0), degrees 1-3; and the cluster's split of the support vectors
+     at S in {1, 31, 33, 300, 1696} (1696: the fit predicate's limit) x
+     batches {1, 31, 3089, 65536};
    * ``tree_ensemble``: the trained D6 tree on float rows with NaN and
      +-inf values, and on fxp16/fxp32 rows;
    * ``fxp_mlp_fleet``: E in {2, 8} stacked 561->64->6 MLPs, one schedule
@@ -34,8 +40,16 @@ Phases, each of which raises on failure:
      the (3089, 64) hidden layer, ragged shapes and an unaligned tensor;
    * ``flash_attention`` (not bit for bit: the two sum in other orders):
      float32 within 2e-5 and bfloat16 within 3e-2 of its plain version
-     (scores materialized in float32, full float32 products), causal and
-     full, dh 32/64/128, S in {1, 7, 64, 129, 2048}, BH in {1, 56}.
+     (scores materialized in float32, full float32 products), and in
+     bfloat16 also every output row within 4e-2 of the row's largest
+     |value| (at S 2048 a row averages ~2000 keys and is ~20x smaller than
+     3e-2 allows for); causal and full, dh 32/64/128, S in {1, 7, 63, 64,
+     65, 129, 2048}, BH 1 and BH 56 (4 x 14 heads) with K/V of 56 rows
+     (G 1) and of 8 rows (G 7, the grouped form path E launches).  Two
+     controls at (56, 2048, 64) bf16 causal G 7, printed beside the
+     kernel's readings: the plain version with P rounded to bf16 (what the
+     kernel does) must pass both bounds, and with one key tile dropped from
+     the last 64 rows must fail the row bound.
 4. The main paths, each with every launch count set to 0 just before it
    and read just after it:
    A. a seeded 561->64->6 MLP and a 561x6 logistic model on D6, compiled
@@ -68,7 +82,8 @@ Phases, each of which raises on failure:
       served by its own worker.
    E. the dense LM stack: qwen2-0.5b at its published widths with seeded
       weights.  A bf16 prefill (batch 4 x 2048 tokens) makes exactly 24
-      flash_attention launches, one per layer; with the weights in float32
+      flash_attention launches, one per layer, each on the 2 KV heads (G 7,
+      K/V not repeated); with the weights in float32
       its logits are within 1e-4 (relative) of the same forward with the
       attention through the materialized-scores oracle, and in bf16 no
       further from the float32 logits than 1.5x the oracle route; in
@@ -81,10 +96,15 @@ Phases, each of which raises on failure:
    member's own predict); in A and B the rows where ``ref`` and ``cuda``
    differ are printed as information.
 5. Timing with CUDA events after warm-up: flash_attention at the prefill's
-   shape (BH 56, S 2048, dh 64, bf16 causal) beside its plain version, its
-   bound and ``scaled_dot_product_attention`` (the library yardstick), the
+   shape (BH 56, S 2048, dh 64, bf16 causal), with K/V of 8 rows (G 7, as
+   path E launches it) and of 56, beside its plain version, its bound and
+   ``scaled_dot_product_attention`` (the library yardstick, with
+   ``enable_gqa`` for the grouped form), the
    prefill forward and the kernel's share of it, decode ms/token at both
-   served targets; each kernel and its plain version
+   served targets; each recorded kernel's device time from a
+   torch.profiler trace besides (below ~0.04 ms the CUDA-event loop
+   measures the host's launch cost), and fxp_svm_model's at fxp16 rbf
+   at every timed batch; each kernel and its plain version
    at batches 1, 64, 3089 and 65536 (the new kernels at 3089 or 3298 and
    65536, beside eight fxp_mlp_model launches), beside the bound;
    ``predict`` end to end and by stage (pageable and pinned rows); the
@@ -104,6 +124,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -136,16 +157,57 @@ N_CALIBRATION = 256
 N_PROTOTYPES = 300
 N_FIT_ROWS = 2000
 TREE_DEPTH = 12  # benchmarks/common.py:40
-FLASH_LENGTHS = (1, 7, 64, 129, 2048)
-FLASH_BH = (1, 56)  # 56 = qwen2-0.5b's 14 heads x batch 4
+FLASH_LENGTHS = (1, 7, 63, 64, 65, 129, 2048)  # around the 64-wide tiles
+# (BH, group G): one head, and qwen2-0.5b's 14 heads x batch 4, ungrouped
+# and with its 2 KV heads (G = 7, as path E launches it)
+FLASH_HEADS = ((1, 1), (56, 1), (56, 7))
+# bf16 flash_attention against its plain version: max abs error, and max
+# over rows of (max |error| in the row) / (max |value| in the row); see
+# PERF.md (Findings) for the readings that set the row bound
+FLASH_BF16_ATOL, FLASH_BF16_ROW_RTOL = 3e-2, 4e-2
+SVM_LENGTHS = (1, 31, 33, 300, 1696)  # 1696: the fit predicate's limit
+SVM_BATCHES = (1, 31, 3089, 65536)
 LM_ARCH = "qwen2-0.5b"  # src/repro_torch/configs/qwen2_0_5b.py, full width
 LM_BATCH, LM_SEQ = 4, 2048  # the bf16 prefill
 LM_DECODE_BATCH, LM_DECODE_STEPS = 2, 12  # the float32 decode-vs-forward check
 LM_GEN_BATCH, LM_GEN_TOKENS = 4, 32  # generate on each served target
+REDESIGNED = ("flash_attention", "fxp_svm_model")  # their ptxas lines by name
 
 
 def log(*args):
     print(*args, flush=True)
+
+
+def row_rel_err(got, want):
+    """Max over the rows of (max |got - want| in the row) / (max |want| in
+    the row), in float32: an attention output's error against the row's own
+    scale, which at S 2048 is ~20x below an absolute bound of 3e-2."""
+    err = (got.float() - want.float()).abs().amax(-1)
+    scale = want.float().abs().amax(-1).clamp_min(1e-30)
+    return float((err / scale).max()) if err.numel() else 0.0
+
+
+def attention_control(torch, q, k, v, p_bf16=False, drop=None):
+    """Causal attention with float32 scores as the plain version computes
+    it, changed in one way: ``p_bf16`` rounds the unnormalized p to bf16
+    before P.V (l sums the float32 p), ``drop=(a, b, r)`` masks keys
+    [a, b) from rows r.. (a fault that loses one key tile)."""
+    s, dh = q.shape[1], q.shape[2]
+    scale = float(np.float32(1.0 / math.sqrt(dh)))
+    scores = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    pos = torch.arange(s, device=q.device)
+    masked = pos[None, :] > pos[:, None]
+    if drop is not None:
+        a, b, r = drop
+        masked = masked | ((pos[:, None] >= r) & (pos[None, :] >= a)
+                           & (pos[None, :] < b))
+    scores = scores.masked_fill(masked, -1e30)
+    p = torch.exp(scores - scores.amax(-1, keepdim=True))
+    del scores
+    l = p.sum(-1, keepdim=True)
+    if p_bf16:
+        p = p.to(torch.bfloat16).float()
+    return (torch.einsum("bqk,bkd->bqd", p, v.float()) / l).to(q.dtype)
 
 
 def smi(query: str) -> str:
@@ -276,6 +338,7 @@ class KernelCheck:
         self.max_abs_err = {n: 0 for n in self.NAMES}
         self.wrapped = 0  # SVM cases whose x . sv^T wrapped int32
         self.flash_err = {}  # dtype -> max abs err of flash_attention
+        self.flash_row_rel = 0.0  # bf16: max per-row relative error
 
     def _compare(self, name, got, want, what):
         torch = self.torch
@@ -329,21 +392,62 @@ class KernelCheck:
                                  f"the plain version, over {atol}")
         return err
 
-    def flash_case(self, gen, dtype, causal, dh, s, bh):
-        """The kernel against its plain version (scores materialized in
-        float32): atol 2e-5 in float32, 3e-2 in bfloat16, the reference's
-        bounds (tests/test_kernels.py)."""
+    def flash_case(self, gen, dtype, causal, dh, s, bh, group):
+        """The kernel against its plain version (K/V repeated to the query
+        heads, scores materialized in float32): atol 2e-5 in float32, 3e-2
+        in bfloat16, the reference's bounds (tests/test_kernels.py), and in
+        bfloat16 the per-row relative bound."""
         torch, fa = self.torch, self.K.fa
-        q, k, v = (torch.randn(bh, s, dh, generator=gen, device="cuda")
-                   .to(dtype) for _ in range(3))
+        q = torch.randn(bh, s, dh, generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn(bh // group, s, dh, generator=gen, device="cuda")
+                .to(dtype) for _ in range(2))
         got = fa.flash_attention_cuda(q, k, v, causal)
         want = fa.flash_attention_plain(q, k, v, causal)
-        atol = 2e-5 if dtype == torch.float32 else 3e-2
-        err = self._compare_close("flash_attention", got, want, atol,
-                                  f"{dtype} causal={causal} (BH {bh}, S {s}, "
-                                  f"dh {dh})")
+        what = f"{dtype} causal={causal} (BH {bh}, S {s}, dh {dh}, G {group})"
+        atol = 2e-5 if dtype == torch.float32 else FLASH_BF16_ATOL
+        err = self._compare_close("flash_attention", got, want, atol, what)
         key = str(dtype).replace("torch.", "")
         self.flash_err[key] = max(self.flash_err.get(key, 0.0), err)
+        if dtype == torch.bfloat16:
+            rel = row_rel_err(got, want)
+            self.flash_row_rel = max(self.flash_row_rel, rel)
+            if rel > FLASH_BF16_ROW_RTOL:
+                raise AssertionError(f"flash_attention {what}: a row's error "
+                                     f"is {rel} of its largest value, over "
+                                     f"{FLASH_BF16_ROW_RTOL}")
+
+    def flash_controls(self, gen):
+        """The bf16 bounds' controls at the prefill's shape (BH 56, S 2048,
+        dh 64, causal, G 7): the plain version with P rounded to bf16 before
+        P.V (l from the float32 p) must pass both bounds; with keys
+        1920..1983 dropped from the rows that see key 1984 (the last query
+        tile loses one key tile) it must fail the row bound."""
+        torch, fa = self.torch, self.K.fa
+        bh, s, dh, group = 56, 2048, 64, 7
+        q = torch.randn(bh, s, dh, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        k, v = (fa.expand_kv(torch.randn(bh // group, s, dh, generator=gen,
+                                         device="cuda").to(torch.bfloat16),
+                             group) for _ in range(2))
+        want = fa.flash_attention_plain(q, k, v, True)
+        readings = {}
+        for name, kw in (("P bf16", dict(p_bf16=True)),
+                         ("tile dropped", dict(drop=(1920, 1984, 1984)))):
+            got = attention_control(torch, q, k, v, **kw)
+            readings[name] = (float((got.float() - want.float()).abs().max()),
+                              row_rel_err(got, want))
+        abs_p, rel_p = readings["P bf16"]
+        if abs_p > FLASH_BF16_ATOL or rel_p > FLASH_BF16_ROW_RTOL:
+            raise AssertionError(f"flash_attention control: the plain version "
+                                 f"with P in bf16 fails the bounds "
+                                 f"({readings})")
+        if readings["tile dropped"][1] <= FLASH_BF16_ROW_RTOL:
+            raise AssertionError(f"flash_attention control: a dropped key "
+                                 f"tile passes the row bound ({readings})")
+        log(f"  flash_attention bf16 controls at (BH 56, S 2048, dh 64) "
+            f"causal, G 7, (max abs err, max row relative err) against the "
+            f"plain version: " + ", ".join(
+                f"{n} ({a:.4e}, {r:.4e})" for n, (a, r) in readings.items()))
 
     def _cuda(self, *arrays):
         return [self.torch.from_numpy(a).cuda() for a in arrays]
@@ -534,6 +638,16 @@ class KernelCheck:
                     for m in BATCHES:
                         self.svm_case(rng, bits, m, f, N_PROTOTYPES, c, kind,
                                       "mid")
+            # the megakernel's cluster split of the support vectors: one
+            # vector to the fit predicate's limit, S not a multiple of
+            # G x 64, ragged batches (D6 width where the plain version is
+            # cheap, D5 width elsewhere)
+            for kind in ("poly", "rbf"):
+                for s in SVM_LENGTHS:
+                    for m in SVM_BATCHES:
+                        f = 561 if s <= N_PROTOTYPES and m <= 3089 else 8
+                        self.svm_case(rng, bits, m, f, s, 6, kind,
+                                      "full" if m == 31 else "mid")
             # the fleet kernels: E in {2, 8}, uniform and per-model
             # schedules, ragged and full batches, int32-wrapping sums
             for e in (2, 8):
@@ -575,11 +689,15 @@ class KernelCheck:
             for causal in (True, False):
                 for dh in self.K.fa.HEAD_DIMS:
                     for s in FLASH_LENGTHS:
-                        for bh in FLASH_BH:
-                            self.flash_case(gen, dtype, causal, dh, s, bh)
+                        for bh, group in FLASH_HEADS:
+                            self.flash_case(gen, dtype, causal, dh, s, bh,
+                                            group)
+        self.flash_controls(gen)
         log(f"phase 3: {self.cases} kernel-vs-plain cases, bit-exact but "
-            f"flash_attention (within 2e-5 in float32, 3e-2 in bf16: max "
-            f"abs err {self.flash_err}) (max abs err {self.max_abs_err}; "
+            f"flash_attention (within 2e-5 in float32, {FLASH_BF16_ATOL} in "
+            f"bf16: max abs err {self.flash_err}; bf16 rows within "
+            f"{FLASH_BF16_ROW_RTOL} of their largest value: max "
+            f"{self.flash_row_rel:.4e}) (max abs err {self.max_abs_err}; "
             f"{self.wrapped} SVM cases wrapped the int32 dot)")
 
 
@@ -1246,6 +1364,23 @@ def cuda_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters, host_ms
 
 
+def device_ms(torch, fn, iters=20):
+    """Device time per call of ``fn`` (ms): the sum of its kernels' device
+    time in a torch.profiler trace of ``iters`` calls.  Below ~0.04 ms a
+    CUDA-event loop measures the host's launch cost instead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / 1e3 / iters
+
+
 class Timer:
     """Phase 5: kernel times beside their bounds; keeps the record of each
     kernel at its recorded shape for the JSON line."""
@@ -1259,13 +1394,15 @@ class Timer:
             f"{'host_ms':>9s} {'plain_ms':>9s} {'bound_ms':>9s} bound_by")
 
     def time(self, name, tag, m, kern, plain, nbytes, ops, peak, record,
-             source, replaces, shape=None):
+             source, replaces, shape=None, profile=False):
         iters = 200 if m <= 3298 else 20
         ms, host_ms = cuda_ms(self.torch, kern, iters)
         plain_ms, _ = cuda_ms(self.torch, plain, max(3, iters // 20))
         bound_ms, bound_by = self.dev.bound(nbytes, ops, peak)
+        dev_ms = device_ms(self.torch, kern) if record or profile else None
         log(f"  {name:14s} {tag:10s} {m:6d} {ms:9.4f} {host_ms:9.4f} "
-            f"{plain_ms:9.4f} {bound_ms:9.5f} {bound_by}")
+            f"{plain_ms:9.4f} {bound_ms:9.5f} {bound_by}"
+            + ("" if dev_ms is None else f"; profiler device {dev_ms:.4f}"))
         if record:
             total, by_path = self.launches[name]
             self.records[name] = {
@@ -1276,6 +1413,7 @@ class Timer:
                 "max_abs_err": self.check.max_abs_err[name],
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": None,
+                "device_ms": dev_ms,
                 "shape": shape or f"{tag} D6 test split, batch {m}"}
         return ms
 
@@ -1387,7 +1525,8 @@ def time_tree_svm(torch, K, T, arts, tree_model, x_big, n_test):
                        _nbytes(qx, sv, dual, b, out),
                        2 * m * (f * s + s * c), T.dev.int_peak(bits),
                        kind == "svm-rbf" and tag == "fxp16" and m == n_test,
-                       "fxp_svm_model.cu", K.model.SVM_REPLACES)
+                       "fxp_svm_model.cu", K.model.SVM_REPLACES,
+                       profile=kind == "svm-rbf" and tag == "fxp16")
                 if kind != "svm-rbf":
                     continue
                 kern = lambda: K.qm.fxp_qmatmul_cuda(qx, svt, fmt)
@@ -1651,31 +1790,52 @@ def time_lm(torch, K, T, lm):
     fa, M = K.fa, K.lm_model
     cfg, params = lm["cfg"], lm["params"]
     h, dh, s = cfg.n_heads, cfg.head_dim, LM_SEQ
+    hkv, group = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
     bh = LM_BATCH * h
     gen = torch.Generator(device="cuda").manual_seed(3)
     q, k, v = (torch.randn(bh, s, dh, generator=gen, device="cuda")
                .to(torch.bfloat16) for _ in range(3))
-    out = fa.flash_attention_cuda(q, k, v, True)
+    # the grouped form path E launches: K/V of the 4 x 2 KV heads
+    kg, vg = (t.view(LM_BATCH, h, s, dh)[:, ::group].reshape(
+        LM_BATCH * hkv, s, dh).contiguous() for t in (k, v))
     pairs = s * (s + 1) // 2  # the causal (query, key) pairs this run needs
-    kern_ms = T.time("flash_attention", "bf16 causal", s,
-                     lambda: fa.flash_attention_cuda(q, k, v, True),
-                     lambda: fa.flash_attention_plain(q, k, v, True),
-                     _nbytes(q, k, v, out), 4 * bh * dh * pairs,
-                     BF16_TENSOR_OPS_PER_S, True, "flash_attention.cu",
-                     fa.REPLACES,
-                     shape=f"(BH {bh} = batch {LM_BATCH} x {h} heads, S {s}, "
-                           f"dh {dh}) bf16 causal: one layer of the "
-                           f"{LM_ARCH} prefill")
-    q4, k4, v4 = (t.view(LM_BATCH, h, s, dh) for t in (q, k, v))
+    flops = 4 * bh * dh * pairs
+    out = fa.flash_attention_cuda(q, k, v, True)
+    ungrouped_ms = T.time("flash_attention", "bf16 G=1", s,
+                          lambda: fa.flash_attention_cuda(q, k, v, True),
+                          lambda: fa.flash_attention_plain(q, k, v, True),
+                          _nbytes(q, k, v, out), flops, BF16_TENSOR_OPS_PER_S,
+                          False, "flash_attention.cu", fa.REPLACES)
+    outg = fa.flash_attention_cuda(q, kg, vg, True)
+    kern_ms = T.time("flash_attention", f"bf16 G={group}", s,
+                     lambda: fa.flash_attention_cuda(q, kg, vg, True),
+                     lambda: fa.flash_attention_plain(q, kg, vg, True),
+                     _nbytes(q, kg, vg, outg), flops, BF16_TENSOR_OPS_PER_S,
+                     True, "flash_attention.cu", fa.REPLACES,
+                     shape=f"(BH {bh} = batch {LM_BATCH} x {h} heads, K/V "
+                           f"{LM_BATCH * hkv} rows (G {group}), S {s}, dh "
+                           f"{dh}) bf16 causal: one layer of the {LM_ARCH} "
+                           f"prefill")
+    q4, k4, v4 = (t.view(LM_BATCH, -1, s, dh) for t in (q, k, v))
+    kg4, vg4 = (t.view(LM_BATCH, hkv, s, dh) for t in (kg, vg))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms, _ = cuda_ms(torch, lambda: sdpa(q4, k4, v4, is_causal=True), 200)
+    lib_g_ms, _ = cuda_ms(torch, lambda: sdpa(q4, kg4, vg4, is_causal=True,
+                                              enable_gqa=True), 200)
     err = float((sdpa(q4, k4, v4, is_causal=True).reshape(bh, s, dh).float()
                  - out.float()).abs().max())
-    T.records["flash_attention"]["library_ms"] = lib_ms
+    err_g = float((sdpa(q4, kg4, vg4, is_causal=True, enable_gqa=True)
+                   .reshape(bh, s, dh).float() - outg.float()).abs().max())
+    T.records["flash_attention"]["library_ms"] = lib_g_ms
+    T.records["flash_attention"]["ungrouped_ms"] = ungrouped_ms
+    T.records["flash_attention"]["ungrouped_library_ms"] = lib_ms
     log(f"  scaled_dot_product_attention (library yardstick) on the same "
-        f"tensors: {lib_ms:.4f} ms (max abs diff from the kernel {err:.3e}); "
-        f"kernel / library {kern_ms / lib_ms:.1f}x")
-    del q, k, v, out, q4, k4, v4
+        f"tensors: {lib_ms:.4f} ms ungrouped (max abs diff from the kernel "
+        f"{err:.3e}; kernel / library {ungrouped_ms / lib_ms:.2f}x), "
+        f"{lib_g_ms:.4f} ms with enable_gqa (max abs diff {err_g:.3e}; "
+        f"kernel / library {kern_ms / lib_g_ms:.2f}x); kernel at "
+        f"{flops / kern_ms / 1e9:.1f} Tflop/s")
+    del q, k, v, kg, vg, out, outg, q4, k4, v4, kg4, vg4
     tok = _lm_tokens(torch, cfg, (LM_BATCH, LM_SEQ), 0)
     fwd_ms, fwd_host = cuda_ms(torch, lambda: M.forward(params,
                                                         {"tokens": tok}, cfg), 5)
@@ -1739,6 +1899,32 @@ def timing(torch, K, dev, d6, d5, check, arts_a, arts_b, arts_d, tree_model,
     return [T.records[n] for n in KernelCheck.NAMES]
 
 
+def check_tensor_core_sass(build):
+    """Count the tensor-core MMA instructions (HMMA) in the SASS of each
+    flash_attention instance, where the toolkit's cuobjdump exists; fail if
+    a bfloat16 instance has none."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.access(tool, os.X_OK):
+        log("  cuobjdump not found: HMMA count not taken")
+        return
+    sass = subprocess.run([tool, "-sass", str(build._library_path(
+        "flash_attention"))], capture_output=True, text=True, timeout=300,
+        check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    for fn, n in counts.items():
+        log(f"  SASS flash_attention {fn}: {n} HMMA")
+    bf16 = {fn: n for fn, n in counts.items() if "bfloat16" in fn}
+    if not bf16 or not all(bf16.values()):
+        raise AssertionError(f"bf16 flash_attention instances without HMMA "
+                             f"in their SASS: {bf16}")
+
+
 def main() -> int:
     import torch
 
@@ -1784,8 +1970,10 @@ def main() -> int:
         f"(per library: { {k: round(v, 1) for k, v in built.items()} })")
     for name, out in build.BUILD_LOG.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if ("registers" in line or "spill" in line or "smem" in line
+                    or (name in REDESIGNED and "entry function" in line)):
                 log(f"  ptxas {name}: {line.strip()}")
+    check_tensor_core_sass(build)
     t0 = time.perf_counter()
     d6, d5 = load_dataset("D6"), load_dataset("D5")
     log(f"  D6 and D5 generated in {time.perf_counter() - t0:.1f} s: D6 train "

@@ -4,74 +4,107 @@ Replaces the Pallas kernel
 ``repro/kernels/flash_attention.py::flash_attention_pallas`` (body
 ``_kernel``): the streaming-softmax attention of the LM's prefill, scores
 and the running (max, sum, acc) in float32, output in the input's dtype.
-Two versions of the same function:
+Grouped-query attention is part of the function here: q is (BH, S, dh)
+with BH = B * H query heads, k and v are (BH / G, S, dh) with G query
+heads per KV head, G read off the shapes, and query row ``bh`` reads KV
+row ``bh // G`` (for ``bh = b*H + h`` that is ``b*(H/G) + h//G``, the
+reference LM's ``_grouped_scores``).  G = 1 is the JAX kernel's
+signature, equal-shape q, k, v.  Two versions of the same function:
 
 * :func:`flash_attention_cuda` launches the hand-written Hopper kernel
-  (``csrc/flash_attention.cu``): one block per (bh, 64-query tile), K/V
-  tiles staged in shared memory as float32, products on the CUDA cores.
-  It takes float32 or bfloat16 and dh in {32, 64, 128}; anything else
-  raises.  Unlike the TPU kernel it takes any S (ragged edges are masked).
-  It counts its launches in ``flash_attention_cuda.launches``.
-* :func:`flash_attention_plain` materializes the (BH, S, S) scores in
-  float32 in PyTorch ops (the oracle
+  (``csrc/flash_attention.cu``): one block per (bh, 64-query tile).  In
+  bfloat16 it runs FlashAttention-2 on the tensor cores (``mma.sync``
+  m16n8k16, Q fragments in registers, a two-stage ``cp.async`` ring of
+  swizzled bf16 K/V tiles, P kept in registers); in float32 the products
+  stay on the CUDA cores (TF32 would not hold the float32 tolerance).  It
+  takes dh in {32, 64, 128}; anything else raises.  Unlike the TPU kernel
+  it takes any S (ragged edges are masked).  It counts its launches in
+  ``flash_attention_cuda.launches``.
+* :func:`flash_attention_plain` repeats K/V to the query heads and
+  materializes the (BH, S, S) scores in float32 in PyTorch ops (the oracle
   :func:`repro_torch.kernels.ref.flash_attention_ref`), on any device.
 
-The two sum in different orders, so they agree to float32 rounding (bf16
-outputs to one rounding of the output), not bit for bit.  GQA grouping is
-the caller's: K/V heads are repeated to the query heads before the launch.
+The two sum in different orders, and the bf16 kernel rounds P to bf16
+before P.V, so they agree to float32 rounding (bf16 outputs to about one
+rounding of the output), not bit for bit.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-
 import numpy as np
 import torch
 
 from . import build
 from .ref import flash_attention_ref
 
-__all__ = ["flash_attention_plain", "flash_attention_cuda", "HEAD_DIMS",
-           "REPLACES"]
+__all__ = ["flash_attention_plain", "flash_attention_cuda", "check_shapes",
+           "expand_kv", "HEAD_DIMS", "REPLACES"]
 
 HEAD_DIMS = (32, 64, 128)  # the kernel's template instances
 REPLACES = "src/repro/kernels/flash_attention.py:71"  # flash_attention_pallas
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError(f"q, k, v must be (BH, S, dh) of one shape, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+def check_shapes(q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> int:
+    """Validate the shapes; returns the group G = BH / BH_kv, the query
+    heads that share one key/value row."""
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
+        raise ValueError(f"q, k, v must be (BH, S, dh) and k, v of one shape, "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"q, k, v must share a dtype, got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
+    bh, bh_kv = q.shape[0], k.shape[0]
+    group = bh // bh_kv if bh_kv else int(bh == 0)
+    if k.shape[1:] != q.shape[1:] or not group or group * bh_kv != bh:
+        raise ValueError(f"k, v must be (BH / G, S, dh) for q "
+                         f"{tuple(q.shape)}, with G dividing BH, got "
+                         f"{tuple(k.shape)}")
+    return group
+
+
+def expand_kv(t: torch.Tensor, group: int) -> torch.Tensor:
+    """(BH / G, S, dh) key or value rows repeated to the (BH, S, dh) query
+    rows they serve: row ``bh`` is input row ``bh // G``."""
+    return t if group == 1 else t.repeat_interleave(group, dim=0)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True) -> torch.Tensor:
-    """The kernel's function in PyTorch ops, with the scores materialized in
-    float32: (BH, S, dh) -> (BH, S, dh) in ``q``'s dtype."""
-    _check(q, k, v)
-    return flash_attention_ref(q, k, v, causal)
+    """The kernel's function in PyTorch ops, with K/V repeated to the query
+    heads and the scores materialized in float32: (BH, S, dh) ->
+    (BH, S, dh) in ``q``'s dtype."""
+    group = check_shapes(q, k, v)
+    return flash_attention_ref(q, expand_kv(k, group), expand_kv(v, group),
+                               causal)
 
 
 def _lib():
     fn = build.load("flash_attention").flash_attention_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous and starting on a 16-byte boundary (the kernel's 16-byte
+    copies)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True) -> torch.Tensor:
-    """Launch the CUDA kernel on (BH, S, dh) CUDA tensors; returns a new
-    (BH, S, dh) tensor of ``q``'s dtype."""
-    _check(q, k, v)
+    """Launch the CUDA kernel on a (BH, S, dh) q and (BH / G, S, dh) k and v
+    on one CUDA device; returns a new (BH, S, dh) tensor of ``q``'s
+    dtype."""
+    group = check_shapes(q, k, v)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention_cuda needs q, k, v on one CUDA "
                          f"device, got {q.device}, {k.device}, {v.device}")
@@ -82,7 +115,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention_cuda takes head dims {HEAD_DIMS}, "
                          f"got {dh}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -91,7 +124,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      bh, s, dh, _DTYPES[q.dtype], scale, int(bool(causal)),
-                     stream)
+                     group, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
                            f"{err}")

@@ -11,11 +11,15 @@ models in one launch.
   shared-memory buffers in the container type, every layer's int32
   accumulate-and-wrap plus the shared epilogue, one launch for the whole
   model.  It counts its launches in ``fxp_mlp_model_cuda.launches``.
-* :func:`fxp_svm_model_cuda` launches ``csrc/fxp_svm_model.cu``: one block
-  per ``MODEL_BLOCK_M`` batch rows fills a (rows, S) tile of kernel values
-  in shared memory (x . sv^T through the shared tile loop, then the poly or
-  rbf algebra), then runs the decision stage ``k . dual`` with the shared
-  epilogue.  It counts its launches in ``fxp_svm_model_cuda.launches``.
+* :func:`fxp_svm_model_cuda` launches ``csrc/fxp_svm_model.cu``: a thread
+  block cluster per ``MODEL_BLOCK_M`` batch rows, its blocks splitting the
+  support vectors in chunks of 64.  Each block computes x . sv^T for its
+  vectors with 4x4 register micro-tiles, the poly or rbf algebra into a
+  tile of kernel values in shared memory, and a uint32 partial of
+  ``k . dual``; the cluster sums the
+  partials (mod 2^32, so exactly) through distributed shared memory and
+  applies the shared epilogue.  It counts its launches in
+  ``fxp_svm_model_cuda.launches``.
 * :func:`fxp_mlp_fleet_cuda` and :func:`fxp_svm_fleet_cuda` launch
   ``csrc/fxp_mlp_fleet.cu`` and ``csrc/fxp_svm_fleet.cu``: a grid of
   (batch blocks, E models) whose blocks run exactly the single-model bodies
@@ -198,10 +202,15 @@ fxp_mlp_model_cuda.launches = 0
 # kernel-SVM megakernel
 # --------------------------------------------------------------------------
 def svm_smem_bytes(n_sv: int, bm: int = MODEL_BLOCK_M) -> int:
-    """Shared memory of one SVM megakernel block: the (bm, S) int32
-    kernel-value tile, the S + bm int32 squared norms, and the two int32
-    operand tiles of the shared tile loop (``csrc/fxp_tile.cuh``).  The
-    features and classes stream through the tile and L1/L2."""
+    """Shared memory of one block of the single-block SVM body
+    (``csrc/fxp_svm_body.cuh``, which the fleet kernel runs): the (bm, S)
+    int32 kernel-value tile, the S + bm int32 squared norms, and the two
+    int32 operand tiles of the shared tile loop (``csrc/fxp_tile.cuh``).
+    The features and classes stream through the tile and L1/L2.  The
+    single-model kernel splits the support vectors over a cluster and needs
+    less per block (at most 61 KB at S = 1696); the routing predicates keep
+    this count, so the megakernel takes exactly the models it took
+    before."""
     return 4 * (bm * int(n_sv) + int(n_sv) + bm) + 2 * 4 * TILE * (TILE + 1)
 
 

@@ -215,11 +215,11 @@ def tree_predict(tree: TreeArrays, x: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, impl: str = "cuda") -> torch.Tensor:
     """(BH, S, dh) softmax attention, causal or full, any S, in one
-    dispatch; float32 or bfloat16 (GQA grouped by the caller)."""
+    dispatch; float32 or bfloat16.  k and v hold BH / G rows, G >= 1: query
+    row ``bh`` reads key/value row ``bh // G`` (G = 1 is the JAX kernel's
+    equal-shape signature)."""
     _tick()
     route = _route(impl, q)
-    if route == "ref":
-        return ref_ops.flash_attention_ref(q, k, v, causal)
     if route == "cuda":
         return flash_attention_cuda(q, k, v, causal)
     return flash_attention_plain(q, k, v, causal)

@@ -152,17 +152,14 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _kernel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       causal: bool, impl: str) -> torch.Tensor:
-    """One ``flash_attention`` dispatch over (B*Hq, S, dh): K/V heads
-    repeated to the query heads (query head h reads KV head h // G, as the
-    grouped form does)."""
+    """One ``flash_attention`` dispatch over (B*Hq, S, dh) queries and
+    (B*Hkv, S, dh) keys and values: the kernel groups the G = Hq / Hkv
+    query heads of each KV head itself (query head h reads KV head h // G,
+    as the grouped form does)."""
     b, s, hq, dh = q.shape
-    g = hq // k.shape[2]
-    if g > 1:
-        k = k.repeat_interleave(g, dim=2)
-        v = v.repeat_interleave(g, dim=2)
 
     def fold(t):  # (B, S, H, dh) -> contiguous (B*H, S, dh)
-        return t.transpose(1, 2).reshape(b * hq, s, dh)
+        return t.transpose(1, 2).reshape(b * t.shape[2], s, dh)
 
     out = ops.flash_attention(fold(q), fold(k), fold(v), causal, impl=impl)
     return out.view(b, hq, s, dh).transpose(1, 2)

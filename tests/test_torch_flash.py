@@ -18,6 +18,7 @@ import torch
 
 import repro  # noqa: F401  (enables jax x64, as the reference runs)
 from repro.kernels import ops as jops
+from repro.kernels import flash_attention as jfa
 from repro.kernels import ref as jref
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
@@ -94,3 +95,39 @@ def test_cpu_tensors_take_the_plain_version():
         tops.flash_attention(q, k.double(), v)
     with pytest.raises(KeyError, match="impl"):
         tops.flash_attention(q, k, v, impl="pallas")
+    # grouped K/V: BH / G rows, G read off the shapes and dividing BH
+    k3, v3 = torch.cat([k, k[:1]]), torch.cat([v, v[:1]])
+    with pytest.raises(ValueError, match="BH / G"):
+        tops.flash_attention(q, k3, v3)
+    with pytest.raises(ValueError, match="BH / G"):
+        tops.flash_attention(q, k[:, :32], v[:, :32])
+    with pytest.raises(ValueError, match="BH / G"):
+        tops.flash_attention(q, k[:0], v[:0])
+    assert tfa.check_shapes(q, k[:1], v[:1]) == 2
+    assert torch.equal(tfa.expand_kv(k[:1], 2), k[:1].expand_as(q))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group", [1, 2, 7])
+def test_flash_attention_gqa_matches_reference_kernel(causal, group):
+    """Grouped-query attention in the kernel's function: K/V with BH / G
+    rows, query row b*H + h reading KV row (b*H + h) // G = b*(H/G) + h//G,
+    against the Pallas kernel (interpret mode) on K/V repeated with
+    np.repeat."""
+    b, h, s, dh = 2, 14, 64, 32
+    rng = np.random.RandomState(100 + 2 * group + causal)
+    q = rng.randn(b * h, s, dh).astype(np.float32)
+    k, v = (rng.randn(b * h // group, s, dh).astype(np.float32)
+            for _ in range(2))
+    k_rep, v_rep = (np.repeat(t.reshape(b, h // group, s, dh), group, axis=1)
+                    .reshape(b * h, s, dh) for t in (k, v))
+    want = np.asarray(jfa.flash_attention_pallas(
+        *map(jnp.asarray, (q, k_rep, v_rep)), causal=causal, bq=32, bk=32,
+        interpret=True))
+    tq, tk, tv = _port((q, k, v))
+    got = tops.flash_attention(tq, tk, tv, causal=causal)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+    plain = tfa.flash_attention_plain(tq, tk, tv, causal)
+    np.testing.assert_allclose(plain.numpy(), want, atol=2e-5)
+    ref = tops.flash_attention(tq, tk, tv, causal=causal, impl="ref")
+    np.testing.assert_allclose(ref.numpy(), want, atol=2e-5)

@@ -15,7 +15,9 @@ over max |reference|):
   top-2 logit gap (in the reference) is under 1e-4.
 
 On the CPU the port's prefill takes the reference's blockwise or full
-attention branch; the card's ``flash_attention`` route is tested in
+attention branch; the card's route (``_kernel_attention``: one grouped
+``flash_attention`` dispatch per layer) is also taken here, through the
+kernel's plain version, and its kernel is tested in
 ``tests/test_torch_cuda.py``.
 """
 
@@ -40,6 +42,7 @@ from repro_torch.configs import ARCH_IDS, ArchConfig, MoEConfig
 from repro_torch.configs import get_config as tget_config
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.core import quantize as tquant
+from repro_torch.kernels import ops as tops
 from repro_torch.launch import serve as tserve_cli
 from repro_torch.lm import attention as tattn
 from repro_torch.lm import layers as tlayers
@@ -218,6 +221,34 @@ def test_forward_blockwise_and_full_attention(s):
     want = jax.jit(lambda p, t: JM.forward(p, {"tokens": t}, jcfg))(
         jp, jnp.asarray(tok))
     assert _rel(TM.forward(tp, {"tokens": _t(tok)}, tcfg), want) <= 1e-4
+
+
+@pytest.mark.parametrize("s", [12, 77])
+def test_forward_through_kernel_attention_matches_reference(s, monkeypatch):
+    """The card's attention route, ``_kernel_attention`` (one grouped
+    ``flash_attention`` dispatch per layer over (B*Hq, S, dh) queries and
+    (B*Hkv, S, dh) keys and values, nothing repeated), taken on the host,
+    where the dispatch runs the kernel's plain version."""
+    jcfg, tcfg = _cfgs("qwen2-0.5b")
+    assert tcfg.n_heads > tcfg.n_kv_heads  # G > 1 reaches the kernel
+    jp, tp = _params("qwen2-0.5b", jcfg)
+    shapes = []
+
+    def kernel_route(q, k, v, causal, *args):
+        shapes.append((tuple(q.shape), tuple(k.shape)))
+        return tattn._kernel_attention(q, k, v, causal, "cuda")
+
+    monkeypatch.setattr(tattn, "blockwise_attention", kernel_route)
+    monkeypatch.setattr(tattn, "full_attention", kernel_route)
+    tok = _tokens(jcfg, 2, s, seed=s)
+    want = jax.jit(lambda p, t: JM.forward(p, {"tokens": t}, jcfg))(
+        jp, jnp.asarray(tok))
+    with tops.count_dispatches() as c:
+        got = TM.forward(tp, {"tokens": _t(tok)}, tcfg)
+    assert c.count == tcfg.n_layers
+    assert shapes == [((2, s, tcfg.n_heads, tcfg.head_dim),
+                       (2, s, tcfg.n_kv_heads, tcfg.head_dim))] * tcfg.n_layers
+    assert _rel(got, want) <= 1e-4
 
 
 @pytest.mark.parametrize("window", [None, 8])

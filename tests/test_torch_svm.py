@@ -9,6 +9,9 @@
 * The port's int64 oracles of ``kernels/ref.py`` against the reference's.
 * Routing of the new wrappers, and the shared-memory fit predicate that
   sends the paper's D5 and D6 SVMs to the megakernel.
+* The CUDA megakernel's split of the decision sum over a cluster's blocks,
+  modelled in plain torch for any split into G slices, against
+  ``fxp_svm_model_plain``.
 """
 
 import jax.numpy as jnp
@@ -23,6 +26,7 @@ from repro.kernels.fxp_model import fxp_svm_model_pallas
 from repro.kernels.fxp_qmatmul import fxp_qmatmul_pallas
 from repro_torch.core import fixedpoint as tfx
 from repro_torch.kernels import fxp_model as tmodel
+from repro_torch.kernels.fxp_layer import epilogue_plain
 from repro_torch.kernels import fxp_qmatmul as tqm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -175,3 +179,57 @@ def test_svm_wrappers_route_and_fit_predicate():
     assert tmodel.svm_smem_bytes(300) == 4 * (32 * 300 + 300 + 32) + 8448
     assert tmodel.svm_fits_smem(300)
     assert tmodel.svm_fits_smem(1696) and not tmodel.svm_fits_smem(1697)
+
+
+def _split_decision(k, dual, icept, out_fmt, dec_shift, slices):
+    """A plain-torch model of the megakernel's split decision stage: each
+    block's uint32 partial of k . dual over its slice of the support
+    vectors (every product and sum taken mod 2^32 in int64), the cluster's
+    sum of the partials mod 2^32, then the shared epilogue."""
+    mask = (1 << 32) - 1
+    total = torch.zeros((k.shape[0], dual.shape[1]), dtype=torch.int64)
+    for a, b in slices:
+        prods = (k[:, a:b, None].to(torch.int64)
+                 * dual[None, a:b].to(torch.int64)) & mask
+        total = (total + (prods.sum(1) & mask)) & mask
+    acc = torch.where(total >= 2 ** 31, total - 2 ** 32, total)
+    return epilogue_plain(acc.to(torch.int32), icept[None, :], out_fmt,
+                          "none", dec_shift)
+
+
+@pytest.mark.parametrize("kind", ["poly", "rbf"])
+@pytest.mark.parametrize("n_sv", [33, 300])
+@pytest.mark.parametrize("bits", [8, 16, 32])
+def test_split_decision_stage_is_bit_exact(bits, n_sv, kind):
+    """The CUDA megakernel splits the support vectors over a cluster and
+    sums the blocks' uint32 partials.  Modelled in plain torch, splits into
+    G slices equal ``fxp_svm_model_plain`` bit for bit, with duals at
+    qmin/qmax and (poly) kernel values at qmin/qmax, so that the partial
+    sums wrap at 16 and 32 bits; the kernel's own split is held to the
+    plain version on the card (``tests/test_torch_cuda.py``)."""
+    rng = np.random.RandomState(bits * 7 + n_sv)
+    qmin, qmax = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
+    frac = bits // 4 + 2  # few fraction bits: qmul(dot, qmax) saturates
+    fmt, out_fmt = tfx.FxpFormat(bits, frac), tfx.FxpFormat(bits, frac - 1)
+    mag = None if kind == "poly" else bits // 4  # rbf: k away from 0
+    qx, sv = (torch.from_numpy(_ints(rng, shape, bits, mag))
+              for shape in ((M, F), (n_sv, F)))
+    dual = torch.from_numpy(np.where(rng.rand(n_sv, C) < 0.5, qmin, qmax)
+                            .astype(NP[bits]))
+    icept = torch.from_numpy(_ints(rng, (C,), bits))
+    qgamma, qcoef0 = (qmax, 0) if kind == "poly" else (1, 0)
+    args = (kind, fmt, out_fmt, qgamma, qcoef0, 1, frac)
+    want = tmodel.fxp_svm_model_plain(qx, sv, dual, icept, *args)
+    dot = tfx.rshift_round_saturate(tfx.imatmul(qx, sv.T, torch.int32), fmt)
+    k = tref.svm_kernel_values(dot, qx, sv, kind, fmt, qgamma, qcoef0, 1)
+    if kind == "poly":  # kernel values at the container's extremes
+        assert int((k == qmax).sum()) and int((k == qmin).sum())
+        true = k.to(torch.float64) @ dual.to(torch.float64)
+        assert bits == 8 or float(true.abs().max()) >= 2 ** 31  # sums wrap
+    else:
+        assert int((k != 0).sum()) > k.numel() // 2
+    for g in (1, 2, 3, 5, 8):
+        edges = [i * n_sv // g for i in range(g + 1)]
+        slices = tuple(zip(edges, edges[1:]))
+        got = _split_decision(k, dual, icept, out_fmt, frac, slices)
+        assert torch.equal(got, want), (g, slices)
