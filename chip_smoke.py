@@ -10,11 +10,13 @@ Phases, each of which raises on failure:
    Exits non-zero without a CUDA device.
 2. Build every CUDA kernel of the main paths from ``src/repro_torch/kernels/
    csrc`` (nine sources, one ``nvcc`` each, in parallel) and print the
-   build time and ``ptxas`` resource lines (by instance for the two kernels
-   redesigned for Hopper, flash_attention and fxp_svm_model), and, where
-   the toolkit's ``cuobjdump`` exists, the count of tensor-core MMA
-   instructions (HMMA) in each flash_attention instance's SASS (a bf16
-   instance without any fails).  Then the data: D6 ("har") and
+   build time and ``ptxas`` resource lines (by instance for the kernels
+   redesigned for Hopper: flash_attention, fxp_svm_model, fxp_mlp_model and
+   fxp_mlp_fleet), and, where the toolkit's ``cuobjdump`` exists, the count
+   of tensor-core MMA instructions in the SASS: HMMA in each
+   flash_attention instance, IMMA in each MLP megakernel instance (a bf16
+   flash instance without HMMA, or an 8- or 16-bit MLP instance without
+   IMMA, fails).  Then the data: D6 ("har") and
    D5 ("pendigits") from their seeds, and the D6 tree trained by the port's
    CART (``max_depth=12``).
 3. Each kernel against its plain PyTorch version on the card, bit for bit,
@@ -22,6 +24,12 @@ Phases, each of which raises on failure:
    int32-wrapping sums and batches 1..65536:
    * ``fxp_layer`` (561x64, 64x6, 561x6 layers, every activation, shifts 0
      and width-1) and ``fxp_mlp_model`` (561->64->6);
+   * the MLP megakernels' tensor-core body at every container width: K not
+     a multiple of 32 (561, 8, 33), N not a multiple of 8 (6, 10), widths
+     at the routing predicate's limit (weights streamed), 8 layers, batches
+     1..65536 around the 16-row tile, fleets of 2 and 8 whose slices start
+     off a 16-byte boundary (M 3089, K 561), a logistic fleet (561 -> 6),
+     full-range and edge values; at least one case's int32 dot must wrap;
    * ``fxp_qmatmul``: (M,561)x(561,300) and (M,8)x(8,300);
    * ``fxp_svm_model``: poly and rbf at the D6 shapes (S=300, F=561, C=6)
      and the D5 shapes (S=300, F=8, C=10), nonzero random q(gamma) and
@@ -37,7 +45,8 @@ Phases, each of which raises on failure:
      shapes, 3298 rows), each model its own formats, q(gamma) and q(coef0);
    * ``pwl_activation``: the four variants on random values and on +-0,
      +-inf, NaN, subnormals and the segment edges 1.0, 2.375 and 5.0, on
-     the (3089, 64) hidden layer, ragged shapes and an unaligned tensor;
+     the (3089, 64) hidden layer, ragged shapes and an unaligned tensor, in
+     float32, float16 and bfloat16 (bit for bit in each);
    * ``flash_attention`` (not bit for bit: the two sum in other orders):
      float32 within 2e-5 and bfloat16 within 3e-2 of its plain version
      (scores materialized in float32, full float32 products), and in
@@ -45,7 +54,10 @@ Phases, each of which raises on failure:
      |value| (at S 2048 a row averages ~2000 keys and is ~20x smaller than
      3e-2 allows for); causal and full, dh 32/64/128, S in {1, 7, 63, 64,
      65, 129, 2048}, BH 1 and BH 56 (4 x 14 heads) with K/V of 56 rows
-     (G 1) and of 8 rows (G 7, the grouped form path E launches).  Two
+     (G 1) and of 8 rows (G 7, the grouped form path E launches); head dims
+     56, 80 and 112 (zero-padded to the next instance) in float32, bf16 and
+     float16, and float16 at dh 64 (the float32 instance, rounded once:
+     within 2^-8, one float16 ulp below 8).  Two
      controls at (56, 2048, 64) bf16 causal G 7, printed beside the
      kernel's readings: the plain version with P rounded to bf16 (what the
      kernel does) must pass both bounds, and with one key tile dropped from
@@ -165,13 +177,26 @@ FLASH_HEADS = ((1, 1), (56, 1), (56, 7))
 # over rows of (max |error| in the row) / (max |value| in the row); see
 # PERF.md (Findings) for the readings that set the row bound
 FLASH_BF16_ATOL, FLASH_BF16_ROW_RTOL = 3e-2, 4e-2
+# float16 flash_attention runs the float32 instance and rounds its output
+# once to float16: one float16 ulp of an output below 8 in magnitude
+FLASH_FP16_ATOL = 2.0 ** -8
+# head dims between the kernel's instances (deepseek-v3 56, hubert 80,
+# zamba2 112): zero-padded to the next instance by the wrapper
+FLASH_PADDED_DIMS = (56, 80, 112)
 SVM_LENGTHS = (1, 31, 33, 300, 1696)  # 1696: the fit predicate's limit
 SVM_BATCHES = (1, 31, 3089, 65536)
 LM_ARCH = "qwen2-0.5b"  # src/repro_torch/configs/qwen2_0_5b.py, full width
 LM_BATCH, LM_SEQ = 4, 2048  # the bf16 prefill
 LM_DECODE_BATCH, LM_DECODE_STEPS = 2, 12  # the float32 decode-vs-forward check
 LM_GEN_BATCH, LM_GEN_TOKENS = 4, 32  # generate on each served target
-REDESIGNED = ("flash_attention", "fxp_svm_model")  # their ptxas lines by name
+# the kernels redesigned for Hopper: their ptxas lines by instance
+REDESIGNED = ("flash_attention", "fxp_svm_model", "fxp_mlp_model",
+              "fxp_mlp_fleet")
+# tensor-core MMA in the SASS: (library, instance name part, opcode); each
+# instance whose name holds the part must issue the opcode
+TENSOR_CORE_SASS = (("flash_attention", "bfloat16", "HMMA"),
+                    ("fxp_mlp_model", "mma_kernel", "IMMA"),
+                    ("fxp_mlp_fleet", "mma_kernel", "IMMA"))
 
 
 def log(*args):
@@ -241,6 +266,13 @@ class Device:
     def int_peak(self, bits: int) -> float:
         """Peak integer rate for a container width."""
         return INT8_TENSOR_OPS_PER_S if bits == 8 else self.int32_ops_per_s
+
+    def mma_peak(self, bits: int) -> float:
+        """Peak rate of a container width's products on the MLP
+        megakernels' route: int8 tensor cores at 8 bits, four int8 MMAs per
+        product at 16 bits (split bytes), the CUDA cores at 32 bits."""
+        return {8: INT8_TENSOR_OPS_PER_S, 16: INT8_TENSOR_OPS_PER_S / 4,
+                32: self.int32_ops_per_s}[bits]
 
     def bound(self, nbytes: int, ops: int, peak: float):
         """(bound_ms, bound_by): the larger of bytes over the memory rate and
@@ -337,6 +369,7 @@ class KernelCheck:
         self.cases = {n: 0 for n in self.NAMES}
         self.max_abs_err = {n: 0 for n in self.NAMES}
         self.wrapped = 0  # SVM cases whose x . sv^T wrapped int32
+        self.mlp_wrapped = 0  # MLP cases whose first int32 dot wrapped
         self.flash_err = {}  # dtype -> max abs err of flash_attention
         self.flash_row_rel = 0.0  # bf16: max per-row relative error
 
@@ -356,8 +389,9 @@ class KernelCheck:
                                  f"the plain version (max abs err {err})")
 
     def _compare_bits(self, name, got, want, what):
-        """Float results: the same float32 bits everywhere (the card's NaN
-        is canonical in both); max_abs_err over the finite entries."""
+        """Float results: the same bits everywhere, float32, float16 or
+        bfloat16 (the card's NaN is canonical in both); max_abs_err over the
+        finite entries."""
         torch = self.torch
         torch.cuda.synchronize()
         if got.dtype != want.dtype or got.shape != want.shape:
@@ -368,7 +402,8 @@ class KernelCheck:
             if bool(both.any()) else 0.0
         self.max_abs_err[name] = max(self.max_abs_err[name], err)
         self.cases[name] += 1
-        bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        as_int = {4: torch.int32, 2: torch.int16}[got.element_size()]
+        bad = int((got.view(as_int) != want.view(as_int)).sum())
         if bad:
             raise AssertionError(f"{name} {what}: {bad} elements differ from "
                                  f"the plain version in their bits (max abs "
@@ -404,7 +439,8 @@ class KernelCheck:
         got = fa.flash_attention_cuda(q, k, v, causal)
         want = fa.flash_attention_plain(q, k, v, causal)
         what = f"{dtype} causal={causal} (BH {bh}, S {s}, dh {dh}, G {group})"
-        atol = 2e-5 if dtype == torch.float32 else FLASH_BF16_ATOL
+        atol = {torch.float32: 2e-5, torch.bfloat16: FLASH_BF16_ATOL,
+                torch.float16: FLASH_FP16_ATOL}[dtype]
         err = self._compare_close("flash_attention", got, want, atol, what)
         key = str(dtype).replace("torch.", "")
         self.flash_err[key] = max(self.flash_err.get(key, 0.0), err)
@@ -452,18 +488,23 @@ class KernelCheck:
     def _cuda(self, *arrays):
         return [self.torch.from_numpy(a).cuda() for a in arrays]
 
-    def pwl_case(self, rng, shape, variant, offset=0):
+    def pwl_case(self, rng, shape, variant, offset=0, dtype=None):
+        """float32, or a narrow float (rounded from the same values): the
+        kernel computes in float32 and rounds to nearest even on the store,
+        as the plain version's cast does."""
         K = self.K
         n = int(np.prod(shape))
         flat = (rng.randn(n + offset) * 4).astype(np.float32)
         edges = pwl_edges()
         flat[offset:offset + min(n, edges.size)] = edges[:n]
         x, = self._cuda(flat)
+        if dtype is not None:
+            x = x.to(dtype)
         x = x[offset:].view(shape)  # offset 1: an unaligned tensor
         got = K.pwl.pwl_activation_cuda(x, variant)
         want = K.pwl.pwl_activation_plain(x, variant)
         self._compare_bits("pwl_activation", got, want,
-                           f"{variant} {shape} offset {offset}")
+                           f"{variant} {x.dtype} {shape} offset {offset}")
 
     def mlp_fleet_case(self, rng, bits, e, m, hetero, regime):
         K = self.K
@@ -493,6 +534,92 @@ class KernelCheck:
                       f"w{bits} E={e} {m}x{dims} "
                       f"{'per-model' if hetero else 'uniform'} schedules "
                       f"{regime}")
+
+    def _count_wrap(self, x, w):
+        """Whether the first layer's exact dot over the first rows leaves
+        int32 (float64 is exact below 2^53, so at 8 and 16 bits)."""
+        torch = self.torch
+        dot = x[:64].to(torch.float64) @ w.to(torch.float64)
+        self.mlp_wrapped += int(dot.abs().max() >= 2 ** 31)
+
+    def _mlp_schedule(self, bits, dims, regime, j):
+        """A schedule for ``dims``: model j's shifts and formats vary with
+        j; hidden layers take the activations in turn, the last none."""
+        fxp, acts = self.K.fxp, self.K.layer.LAYER_ACTIVATIONS
+        n, sched = len(dims) - 1, []
+        for l in range(n):
+            hidden = l < n - 1
+            if regime == "mid":
+                shift = max(0, _mid_shift(bits, dims[l]) - j % 2)
+                frac = bits - 6 - (j % 2 if hidden else 0)
+            elif regime == "full":  # full-range values: int32 sums wrap
+                shift, frac = ((bits - 1 - j % 2, bits - 1) if hidden
+                               else (0, j % 2))
+            else:  # edge
+                shift, frac = (0, bits - 1) if hidden else (bits - 1, 0)
+            act = acts[(l + j + bits) % len(acts)] if hidden else "none"
+            sched.append((min(shift, 31), fxp.FxpFormat(bits, frac), act))
+        return tuple(sched)
+
+    def mlp_shape_case(self, rng, bits, dims, m, e=0, hetero=False,
+                       regime="mid"):
+        """fxp_mlp_model (e = 0) or fxp_mlp_fleet of e models at any widths
+        and depth, against the plain version; counts int32-wrapping dots."""
+        K = self.K
+        n_models = max(e, 1)
+        scheds = tuple(self._mlp_schedule(bits, dims, regime,
+                                          i if hetero else 0)
+                       for i in range(n_models))
+        x, = self._cuda(_ints(rng, (n_models, m, dims[0]), bits, regime))
+        ws = self._cuda(*[_ints(rng, (n_models, i, o), bits, regime)
+                          for i, o in zip(dims, dims[1:])])
+        bs = self._cuda(*[_ints(rng, (n_models, o), bits, "full")
+                          for o in dims[1:]])
+        self._count_wrap(x[0], ws[0][0])
+        what = (f"w{bits} {m}x{tuple(dims)} {regime}"
+                + (f" E={e} {'per-model' if hetero else 'uniform'}"
+                   if e else ""))
+        if e:
+            got = K.model.fxp_mlp_fleet_cuda(x, ws, bs, scheds)
+            want = K.model.fxp_mlp_fleet_plain(x, ws, bs, scheds)
+            self._compare("fxp_mlp_fleet", got, want, what)
+        else:
+            args = (x[0], [w[0] for w in ws], [b[0] for b in bs], scheds[0])
+            got = K.model.fxp_mlp_model_cuda(*args)
+            want = K.model.fxp_mlp_model_plain(*args)
+            self._compare("fxp_mlp_model", got, want, what)
+
+    def mlp_cases(self, rng, bits):
+        """The tensor-core MLP body's edges (every container width; the
+        32-bit one runs the CUDA-core body): K not a multiple of 32 (561, 8,
+        33), N not a multiple of 8 (6, 10), widths at the routing
+        predicate's limit (weights streamed through a chunk), 8 layers,
+        batches around the 16-row tile up to 65536, fleets of 2 and 8 whose
+        slices start off a 16-byte boundary (M 3089, K 561), a logistic
+        fleet (one layer, N 6), full-range and edge values."""
+        limit = self.K.tune.SMEM_PER_BLOCK // (2 * self.K.tune.MODEL_BLOCK_M
+                                               * bits // 8)
+        for dims in ((561, 64, 6), (8, 16, 10), (33, 40, 6), (64, 10),
+                     (561, 6)):
+            for m, regime in ((3089, "mid"), (31, "full"), (33, "edge")):
+                self.mlp_shape_case(rng, bits, dims, m, regime=regime)
+        for m in (1, 7, 15, 16, 17, 31, 3089, 65536):
+            self.mlp_shape_case(rng, bits, (561, 64, 6), m,
+                                regime="full" if m < 3089 else "mid")
+        for dims in ((limit, 64, 6), (48, limit, 6), (limit, 6)):
+            self.mlp_shape_case(rng, bits, dims, 40, regime="mid")
+            self.mlp_shape_case(rng, bits, dims, 17, regime="edge")
+        deep = (40, 32, 24, 48, 16, 33, 8, 12, 6)  # 8 layers
+        self.mlp_shape_case(rng, bits, deep, 3089, regime="mid")
+        self.mlp_shape_case(rng, bits, deep, 31, regime="edge")
+        for e in (2, 8):
+            for hetero in (False, True):
+                self.mlp_shape_case(rng, bits, (561, 64, 6), 3089, e, hetero,
+                                    "full" if hetero else "mid")
+            self.mlp_shape_case(rng, bits, (561, 6), 3089, e, True, "mid")
+            self.mlp_shape_case(rng, bits, (561, 6), 33, e, True, "edge")
+        self.mlp_shape_case(rng, bits, deep, 100, 2, True, "mid")
+        self.mlp_shape_case(rng, bits, (limit, 64, 6), 20, 2, True, "mid")
 
     def _svm_params(self, rng, bits, regime):
         """(fmt, out_fmt, q(gamma), q(coef0), degree, dec_shift): random,
@@ -648,6 +775,8 @@ class KernelCheck:
                         f = 561 if s <= N_PROTOTYPES and m <= 3089 else 8
                         self.svm_case(rng, bits, m, f, s, 6, kind,
                                       "full" if m == 31 else "mid")
+            # the MLP megakernels' edges (tensor cores at 8 and 16 bits)
+            self.mlp_cases(rng, bits)
             # the fleet kernels: E in {2, 8}, uniform and per-model
             # schedules, ragged and full batches, int32-wrapping sums
             for e in (2, 8):
@@ -664,10 +793,14 @@ class KernelCheck:
                                     kind, "edge")
         if not self.wrapped:
             raise AssertionError("no SVM case wrapped the int32 dot")
+        if not self.mlp_wrapped:
+            raise AssertionError("no MLP case wrapped the int32 dot")
+        torch = self.torch
         for variant in self.K.pwl.PWL_VARIANTS:
-            for shape in ((3089, 64), (7, 13), (5, 3, 2)):
-                self.pwl_case(rng, shape, variant)
-            self.pwl_case(rng, (4097,), variant, offset=1)
+            for dtype in (None, torch.float16, torch.bfloat16):
+                for shape in ((3089, 64), (7, 13), (5, 3, 2)):
+                    self.pwl_case(rng, shape, variant, dtype=dtype)
+                self.pwl_case(rng, (4097,), variant, offset=1, dtype=dtype)
         # the tree on float rows with non-finite values, and quantized rows
         torch, fxp = self.torch, self.K.fxp
         rows = np.resize(x_rows, (max(BATCHES), x_rows.shape[1]))
@@ -692,13 +825,23 @@ class KernelCheck:
                         for bh, group in FLASH_HEADS:
                             self.flash_case(gen, dtype, causal, dh, s, bh,
                                             group)
+        # head dims between the instances (zero-padded), and float16 (the
+        # float32 instance, rounded once), at the grouped LM shape
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            dims = FLASH_PADDED_DIMS + ((64,) if dtype == torch.float16
+                                        else ())
+            for dh in dims:
+                for s in (7, 65, 2048):
+                    for causal in (True, False):
+                        self.flash_case(gen, dtype, causal, dh, s, 56, 7)
         self.flash_controls(gen)
         log(f"phase 3: {self.cases} kernel-vs-plain cases, bit-exact but "
             f"flash_attention (within 2e-5 in float32, {FLASH_BF16_ATOL} in "
             f"bf16: max abs err {self.flash_err}; bf16 rows within "
             f"{FLASH_BF16_ROW_RTOL} of their largest value: max "
             f"{self.flash_row_rel:.4e}) (max abs err {self.max_abs_err}; "
-            f"{self.wrapped} SVM cases wrapped the int32 dot)")
+            f"{self.wrapped} SVM cases and {self.mlp_wrapped} MLP cases "
+            f"wrapped the int32 dot)")
 
 
 # --------------------------------------------------------------------------
@@ -1418,6 +1561,13 @@ class Timer:
         return ms
 
 
+def log_cuda_core_bound(dev, nbytes, ops, bits):
+    """The MLP megakernels' bound on the CUDA cores (their route before the
+    tensor cores), printed beside the tensor-core bound the record keeps."""
+    ms, by = dev.bound(nbytes, ops, dev.int_peak(bits))
+    log(f"  {'':14s} CUDA-core bound {ms:.5f} ms ({by})")
+
+
 def time_mlp(torch, K, T, arts, x_big, n_test):
     for tag in ("fxp16", "auto8", "fxp32"):
         for kind in ("mlp", "logistic"):
@@ -1438,10 +1588,12 @@ def time_mlp(torch, K, T, arts, x_big, n_test):
                                                                 sched)
                     out = kern()
                     macs = m * sum(w.shape[0] * w.shape[1] for w in ws)
-                    T.time("fxp_mlp_model", tag, m, kern, plain,
-                           _nbytes(qx, *ws, *bs, out), 2 * macs,
-                           T.dev.int_peak(bits), record, "fxp_mlp_model.cu",
-                           K.model.REPLACES)
+                    nbytes = _nbytes(qx, *ws, *bs, out)
+                    T.time("fxp_mlp_model", tag, m, kern, plain, nbytes,
+                           2 * macs, T.dev.mma_peak(bits), record,
+                           "fxp_mlp_model.cu", K.model.REPLACES,
+                           profile=m >= n_test)
+                    log_cuda_core_bound(T.dev, nbytes, 2 * macs, bits)
                 else:
                     w = torch.from_numpy(spec["w"]).cuda()
                     b = torch.from_numpy(spec["b"]).cuda()
@@ -1629,12 +1781,14 @@ def time_slice(torch, K, T, arts_d, d6, d5):
         plain = lambda: K.model.fxp_mlp_fleet_plain(qx, ws, bs, scheds)
         out = kern()
         macs = 8 * m * sum(w.shape[1] * w.shape[2] for w in ws)
+        nbytes = _nbytes(qx, *ws, *bs, out)
         ms = T.time("fxp_mlp_fleet", "auto16 E=8", m, kern, plain,
-                    _nbytes(qx, *ws, *bs, out), 2 * macs,
-                    T.dev.int_peak(bits), m == len(d6.x_test),
-                    "fxp_mlp_fleet.cu", K.model.MLP_FLEET_REPLACES,
+                    nbytes, 2 * macs, T.dev.mma_peak(bits),
+                    m == len(d6.x_test), "fxp_mlp_fleet.cu",
+                    K.model.MLP_FLEET_REPLACES,
                     shape=f"8 D6 MLPs (auto16, per-model schedules) x {m} "
-                          f"rows")
+                          f"rows", profile=True)
+        log_cuda_core_bound(T.dev, nbytes, 2 * macs, bits)
         solo = lambda: [K.model.fxp_mlp_model_cuda(
             qx[e], [w[e] for w in ws], [b[e] for b in bs], scheds[e])
             for e in range(8)]
@@ -1900,29 +2054,31 @@ def timing(torch, K, dev, d6, d5, check, arts_a, arts_b, arts_d, tree_model,
 
 
 def check_tensor_core_sass(build):
-    """Count the tensor-core MMA instructions (HMMA) in the SASS of each
-    flash_attention instance, where the toolkit's cuobjdump exists; fail if
-    a bfloat16 instance has none."""
+    """Count the tensor-core MMA instructions in the SASS of each instance
+    of the kernels in TENSOR_CORE_SASS (HMMA for bf16 flash_attention, IMMA
+    for the 8- and 16-bit MLP megakernels), where the toolkit's cuobjdump
+    exists; fail if an instance that must use the tensor cores has none."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.access(tool, os.X_OK):
-        log("  cuobjdump not found: HMMA count not taken")
+        log("  cuobjdump not found: MMA counts not taken")
         return
-    sass = subprocess.run([tool, "-sass", str(build._library_path(
-        "flash_attention"))], capture_output=True, text=True, timeout=300,
-        check=True).stdout
-    counts, fn = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-            counts[fn] = 0
-        elif fn is not None and "HMMA" in line:
-            counts[fn] += 1
-    for fn, n in counts.items():
-        log(f"  SASS flash_attention {fn}: {n} HMMA")
-    bf16 = {fn: n for fn, n in counts.items() if "bfloat16" in fn}
-    if not bf16 or not all(bf16.values()):
-        raise AssertionError(f"bf16 flash_attention instances without HMMA "
-                             f"in their SASS: {bf16}")
+    for lib, part, opcode in TENSOR_CORE_SASS:
+        sass = subprocess.run([tool, "-sass", str(build._library_path(lib))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                counts[fn] = 0
+            elif fn is not None and opcode in line:
+                counts[fn] += 1
+        for fn, n in counts.items():
+            log(f"  SASS {lib} {fn}: {n} {opcode}")
+        need = {fn: n for fn, n in counts.items() if part in fn}
+        if not need or not all(need.values()):
+            raise AssertionError(f"{lib} instances without {opcode} in their "
+                                 f"SASS: {need}")
 
 
 def main() -> int:
@@ -1942,7 +2098,7 @@ def main() -> int:
     from repro_torch import configs
     from repro_torch.kernels import (build, flash_attention, fxp_layer,
                                      fxp_model, fxp_qmatmul, pwl_activation,
-                                     tree_ensemble)
+                                     tree_ensemble, tune)
     from repro_torch.lm import model as lm_model
     from repro_torch.models.svm import _pick_prototypes
 
@@ -1950,7 +2106,7 @@ def main() -> int:
         tc=tc, models=models, common=common, fxp=fxp, trees=trees,
         layer=fxp_layer, model=fxp_model, qm=fxp_qmatmul, te=tree_ensemble,
         pwl=pwl_activation, serve=serve, pick_prototypes=_pick_prototypes,
-        fa=flash_attention, lm_model=lm_model, configs=configs,
+        fa=flash_attention, lm_model=lm_model, configs=configs, tune=tune,
         launchers={"fxp_layer": fxp_layer.fxp_layer_cuda,
                    "fxp_mlp_model": fxp_model.fxp_mlp_model_cuda,
                    "fxp_qmatmul": fxp_qmatmul.fxp_qmatmul_cuda,

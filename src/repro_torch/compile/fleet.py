@@ -170,8 +170,8 @@ def _stack_mlp(artifacts, device: torch.device) -> Callable:
         fxp_model.mlp_fleet_table(schedules, device)  # built once, here
 
     def predict_device(x):
-        out = ops.fxp_mlp_fleet(qstack(as_input(x, device)), weights, biases,
-                                schedules)
+        rows = as_input(x, device, (2, 3))  # shared or per-slot rows
+        out = ops.fxp_mlp_fleet(qstack(rows), weights, biases, schedules)
         return argmax_first(out)
 
     return predict_device
@@ -190,8 +190,8 @@ def _stack_svm(artifacts, device: torch.device) -> Callable:
         fxp_model.svm_fleet_table(params, device)  # built once, here
 
     def predict_device(x):
-        out = ops.fxp_svm_fleet(qstack(as_input(x, device)), sv, dual, icept,
-                                kind, params)
+        rows = as_input(x, device, (2, 3))  # shared or per-slot rows
+        out = ops.fxp_svm_fleet(qstack(rows), sv, dual, icept, kind, params)
         return argmax_first(out)
 
     return predict_device

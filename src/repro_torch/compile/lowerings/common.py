@@ -31,18 +31,24 @@ def qx_with_stats(x: torch.Tensor,
     return fxp.quantize_with_stats(x, fmt)
 
 
-def as_input(x: Any, device: torch.device) -> torch.Tensor:
+def as_input(x: Any, device: torch.device,
+             ranks: Tuple[int, ...] = (2,)) -> torch.Tensor:
     """A predict input as a float32 tensor on ``device`` (numpy arrays are
     copied over; tensors already there are used as they are).  A tensor in
     pinned host memory (the serving plane's staging buffers) is copied to
     the card without blocking, ordered on the current stream; the caller
-    keeps the buffer unchanged until the predict's result has been read."""
-    if isinstance(x, torch.Tensor):
-        pinned = (device.type == "cuda" and x.device.type == "cpu"
-                  and x.is_pinned())
-        return x.to(device=device, dtype=torch.float32, non_blocking=pinned)
-    arr = np.ascontiguousarray(x, np.float32)
-    return torch.from_numpy(arr).to(device)
+    keeps the buffer unchanged until the predict's result has been read.
+    Raises ``ValueError`` unless the input's rank is one of ``ranks``: an
+    artifact's predict takes a 2-D (N, F) batch (a single row is
+    ``x[None]``), a fleet's also (E, M, F) rows."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    if x.dim() not in ranks:
+        raise ValueError(f"predict takes a {' or '.join(map(str, ranks))}-D "
+                         f"input ((N, F) rows), got shape {tuple(x.shape)}")
+    pinned = (device.type == "cuda" and x.device.type == "cpu"
+              and x.is_pinned())
+    return x.to(device=device, dtype=torch.float32, non_blocking=pinned)
 
 
 def require_full_float32(device: torch.device) -> None:

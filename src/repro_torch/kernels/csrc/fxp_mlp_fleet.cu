@@ -7,66 +7,116 @@
 // calibrated fleet) it takes one model per grid step and picks the model's
 // static branch with lax.switch.
 //
-// Here the grid is (ceil(M / kBM), E) and blockIdx.y picks the model.  Each
-// block runs exactly the single-model megakernel's body (fxp_mlp_body.cuh)
-// on its model's slices of the stacked operands, so slot e equals model e's
-// own fxp_mlp_model launch bit for bit and models never mix.  The schedules
-// are data, not code: the per-model epilogue rows sit in an (E, L,
-// kEpilogueFields) int64 table in device memory (an E x L table of
+// Here the grid is (blocks per model, E) and blockIdx.y picks the model.
+// Each block runs exactly the single-model megakernel's body
+// (fxp_mlp_body.cuh) on its model's slices of the stacked operands, so slot
+// e equals model e's own fxp_mlp_model launch bit for bit and models never
+// mix.  The schedules are data, not code: the per-model epilogue rows sit in
+// an (E, L, kEpilogueFields) int64 table in device memory (an E x L table of
 // Epilogues would outgrow the kernel parameters), and the body reads its
-// model's row at run time.  Heterogeneous schedules therefore cost nothing,
-// and no model-block restriction applies.  Shared memory per block is the
-// single model's (two kBM x widest-layer buffers), independent of E.
+// model's row at run time.  Heterogeneous schedules therefore cost nothing.
+// Shared memory per block is the single model's, independent of E.
 //
-// Bound on the H100: integer multiply-adds on the CUDA cores for the 16- and
-// 32-bit containers, as for the single model; the E models give E times the
-// blocks, which fills the card at batches where one model cannot.
+// Bound on the H100: as for the single model (bytes on paper; the layer
+// epilogue and mma.sync's int8 rate on the card).  8- and 16-bit
+// containers run on the int8 tensor cores (16-bit operands split into high
+// and low bytes, four MMAs recombined exactly mod 2^32); the card's block
+// slots are shared out over the E models, and each persistent block stages
+// its model's weights once and its warp groups walk that model's 16-row
+// tiles.  Model e's
+// input slice starts at e.M.K0 elements, which need not be 16-byte aligned
+// (M 3089, K0 561 at 16 bits: 2e mod 16): the body copies each tile from
+// the 16-byte boundary below it.  The 32-bit container keeps the CUDA-core
+// body, one block per 32 rows per model.
 #include "fxp_mlp_body.cuh"
 
 namespace {
 
 constexpr int kMaxLayers = fxp::kMlpMaxLayers;
-constexpr int kBM = fxp::kMlpBM, kThreads = fxp::kMlpThreads;
+constexpr int kThreads = fxp::kMlpThreads;
 constexpr int kMaxModels = 65535;  // gridDim.y
 
 struct FleetParams {
   const void* w[kMaxLayers];  // (E, K_l, K_{l+1}) row-major
   const void* b[kMaxLayers];  // (E, K_{l+1})
   fxp::MlpShape shape;
+  fxp::MlpPlan plan;  // tensor-core body only
+};
+
+// Model e's slices of the stacked operands and its schedule row.
+template <typename T>
+struct FleetModel {
+  const FleetParams& p;
+  const long long* __restrict__ epis;
+  size_t e;
+
+  __device__ __forceinline__ fxp::MlpLayer<T> operator()(int l) const {
+    const size_t K = p.shape.dims[l], N = p.shape.dims[l + 1];
+    return fxp::MlpLayer<T>{static_cast<const T*>(p.w[l]) + e * K * N,
+                            static_cast<const T*>(p.b[l]) + e * N};
+  }
+  __device__ __forceinline__ fxp::Epilogue epilogue(int l) const {
+    return fxp::epilogue_from(
+        epis + (e * p.shape.n_layers + l) * fxp::kEpilogueFields);
+  }
 };
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-fxp_mlp_fleet_kernel(const T* __restrict__ x, T* __restrict__ out, int M,
-                     const FleetParams p,
-                     const long long* __restrict__ epis) {
-  const size_t e = blockIdx.y;
+__global__ void __launch_bounds__(fxp::kMlpMaxGroups * kThreads)
+fxp_mlp_fleet_mma_kernel(const T* __restrict__ x, T* __restrict__ out, int M,
+                         const FleetParams p,
+                         const long long* __restrict__ epis) {
+  const FleetModel<T> m{p, epis, blockIdx.y};
   const int L = p.shape.n_layers;
-  const T* xe = x + e * M * (size_t)p.shape.dims[0];
-  T* oute = out + e * M * (size_t)p.shape.dims[L];
-  fxp::mlp_block<T>(
-      xe, oute, M, blockIdx.x * kBM, p.shape,
-      [&](int l) {
-        const size_t K = p.shape.dims[l], N = p.shape.dims[l + 1];
-        return fxp::MlpLayer<T>{static_cast<const T*>(p.w[l]) + e * K * N,
-                                static_cast<const T*>(p.b[l]) + e * N};
-      },
-      [&](int l) {
-        return fxp::epilogue_from(epis + (e * L + l) * fxp::kEpilogueFields);
-      });
+  fxp::mlp_mma_block<T>(
+      x + m.e * M * (size_t)p.shape.dims[0],
+      out + m.e * M * (size_t)p.shape.dims[L], M, p.shape, p.plan,
+      blockIdx.x, gridDim.x, m, [&](int l) { return m.epilogue(l); });
+}
+
+__global__ void __launch_bounds__(kThreads)
+fxp_mlp_fleet_cuda_core_kernel(const int32_t* __restrict__ x,
+                               int32_t* __restrict__ out, int M,
+                               const FleetParams p,
+                               const long long* __restrict__ epis) {
+  const FleetModel<int32_t> m{p, epis, blockIdx.y};
+  const int L = p.shape.n_layers;
+  fxp::mlp_block_cuda_cores<int32_t>(
+      x + m.e * M * (size_t)p.shape.dims[0],
+      out + m.e * M * (size_t)p.shape.dims[L], M, blockIdx.x * fxp::kMlpBM,
+      p.shape, m, [&](int l) { return m.epilogue(l); });
 }
 
 template <typename T>
-int launch(const void* x, void* out, int M, int E, const FleetParams& p,
-           const long long* epis, cudaStream_t stream) {
-  const size_t smem = fxp::mlp_smem_bytes<T>(p.shape);
-  auto kernel = fxp_mlp_fleet_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+int launch_mma(const void* x, void* out, int M, int E, FleetParams& p,
+               const long long* epis, cudaStream_t stream) {
+  if (!fxp::mlp_plan(p.shape, (int)sizeof(T), &p.plan))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = fxp_mlp_fleet_mma_kernel<T>;
+  const int threads = p.plan.groups * kThreads;
+  int slots = 0;
+  const cudaError_t err =
+      fxp::mlp_launch_slots(kernel, threads, p.plan.total, &slots);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((M + kBM - 1) / kBM, E);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(x),
-                                           static_cast<T*>(out), M, p, epis);
+  const int tiles = (M + fxp::kMmaBM - 1) / fxp::kMmaBM;
+  const dim3 grid(
+      fxp::mlp_blocks_per_model(tiles, slots, p.plan.groups, E), E);
+  kernel<<<grid, threads, p.plan.total, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), M, p, epis);
+  return (int)cudaGetLastError();
+}
+
+int launch_cuda_cores(const void* x, void* out, int M, int E,
+                      const FleetParams& p, const long long* epis,
+                      cudaStream_t stream) {
+  const size_t smem = fxp::mlp_smem_bytes<int32_t>(p.shape);
+  cudaError_t err = cudaFuncSetAttribute(
+      fxp_mlp_fleet_cuda_core_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((M + fxp::kMlpBM - 1) / fxp::kMlpBM, E);
+  fxp_mlp_fleet_cuda_core_kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const int32_t*>(x), static_cast<int32_t*>(out), M, p, epis);
   return (int)cudaGetLastError();
 }
 
@@ -74,9 +124,9 @@ int launch(const void* x, void* out, int M, int E, const FleetParams& p,
 
 // x: (E, M, dims[0]); ws[l]: (E, dims[l], dims[l+1]); bs[l]: (E, dims[l+1]);
 // out: (E, M, dims[n_layers]); every tensor contiguous in the `bits`-wide
-// container.  `epis` is a DEVICE pointer to E x n_layers rows of
-// fxp::kEpilogueFields int64 values (model-major).  Launches on the calling
-// thread's current device.  Returns the CUDA error code of the launch (0 on
+// container, x 16-byte aligned.  `epis` is a DEVICE pointer to E x n_layers
+// rows of fxp::kEpilogueFields int64 values (model-major).  Launches on the
+// calling thread's current device.  Returns the CUDA error code of the launch (0 on
 // success).
 extern "C" int fxp_mlp_fleet_launch(const void* x, void* out, int M, int E,
                                     int n_layers, const int* dims,
@@ -94,9 +144,9 @@ extern "C" int fxp_mlp_fleet_launch(const void* x, void* out, int M, int E,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bits) {
-    case 8: return launch<int8_t>(x, out, M, E, p, epis, s);
-    case 16: return launch<int16_t>(x, out, M, E, p, epis, s);
-    case 32: return launch<int32_t>(x, out, M, E, p, epis, s);
+    case 8: return launch_mma<int8_t>(x, out, M, E, p, epis, s);
+    case 16: return launch_mma<int16_t>(x, out, M, E, p, epis, s);
+    case 32: return launch_cuda_cores(x, out, M, E, p, epis, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -16,8 +16,14 @@ signature, equal-shape q, k, v.  Two versions of the same function:
   bfloat16 it runs FlashAttention-2 on the tensor cores (``mma.sync``
   m16n8k16, Q fragments in registers, a two-stage ``cp.async`` ring of
   swizzled bf16 K/V tiles, P kept in registers); in float32 the products
-  stay on the CUDA cores (TF32 would not hold the float32 tolerance).  It
-  takes dh in {32, 64, 128}; anything else raises.  Unlike the TPU kernel
+  stay on the CUDA cores (TF32 would not hold the float32 tolerance).  Its
+  instances take dh in {32, 64, 128}: a head dim below 128 between them is
+  zero-padded to the next instance (:func:`pad_head_dim`; zeros add nothing
+  to q.k or to the output's first dh columns, and the scale stays
+  ``1/sqrt(dh)`` of the true dh), and the output is sliced back; dh above
+  128 raises.  float32 and bfloat16 run their own instances; any other
+  float dtype (float16, float64) computes on the float32 instance and is
+  cast back, as the reference computes in float32.  Unlike the TPU kernel
   it takes any S (ragged edges are masked).  It counts its launches in
   ``flash_attention_cuda.launches``.
 * :func:`flash_attention_plain` repeats K/V to the query heads and
@@ -40,7 +46,7 @@ from . import build
 from .ref import flash_attention_ref
 
 __all__ = ["flash_attention_plain", "flash_attention_cuda", "check_shapes",
-           "expand_kv", "HEAD_DIMS", "REPLACES"]
+           "expand_kv", "pad_head_dim", "HEAD_DIMS", "REPLACES"]
 
 HEAD_DIMS = (32, 64, 128)  # the kernel's template instances
 REPLACES = "src/repro/kernels/flash_attention.py:71"  # flash_attention_pallas
@@ -74,13 +80,33 @@ def expand_kv(t: torch.Tensor, group: int) -> torch.Tensor:
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True) -> torch.Tensor:
+                          causal: bool = True,
+                          scale: float | None = None) -> torch.Tensor:
     """The kernel's function in PyTorch ops, with K/V repeated to the query
     heads and the scores materialized in float32: (BH, S, dh) ->
-    (BH, S, dh) in ``q``'s dtype."""
+    (BH, S, dh) in ``q``'s dtype.  ``scale`` multiplies the scores
+    (default ``float32(1/sqrt(dh))``)."""
     group = check_shapes(q, k, v)
     return flash_attention_ref(q, expand_kv(k, group), expand_kv(v, group),
-                               causal)
+                               causal, scale)
+
+
+def pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """(q, k, v, scale) with the head dim zero-padded to the kernel's next
+    instance (:data:`HEAD_DIMS`) and ``scale = float32(1/sqrt(dh))`` of the
+    true dh: attention over the padded tensors, sliced to the first dh
+    output columns, is attention over the given ones.  Raises for dh above
+    the largest instance."""
+    dh = q.shape[-1]
+    fit = [d for d in HEAD_DIMS if d >= dh]
+    if not fit:
+        raise ValueError(f"flash_attention_cuda takes head dims up to "
+                         f"{HEAD_DIMS[-1]} (instances {HEAD_DIMS}), got {dh}")
+    scale = float(np.float32(1.0 / math.sqrt(dh)))
+    if fit[0] != dh:
+        pad = (0, fit[0] - dh)
+        q, k, v = (torch.nn.functional.pad(t, pad) for t in (q, k, v))
+    return q, k, v, scale
 
 
 def _lib():
@@ -108,28 +134,30 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention_cuda needs q, k, v on one CUDA "
                          f"device, got {q.device}, {k.device}, {v.device}")
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"flash_attention_cuda takes float32 or bfloat16, "
-                        f"got {q.dtype}")
-    bh, s, dh = q.shape
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda takes head dims {HEAD_DIMS}, "
-                         f"got {dh}")
+    if not q.dtype.is_floating_point:
+        raise TypeError(f"flash_attention_cuda takes float tensors, got "
+                        f"{q.dtype}")
+    dtype, dh = q.dtype, q.shape[-1]
+    if dtype not in _DTYPES:  # float16, float64: the float32 instance
+        q, k, v = q.float(), k.float(), v.float()
+    q, k, v, scale = pad_head_dim(q, k, v)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    bh, s, dh_kernel = q.shape
     out = torch.empty_like(q)
     if out.numel() == 0:
-        return out
-    scale = float(np.float32(1.0 / math.sqrt(dh)))
+        return out[..., :dh].to(dtype)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     bh, s, dh, _DTYPES[q.dtype], scale, int(bool(causal)),
-                     group, stream)
+                     bh, s, dh_kernel, _DTYPES[q.dtype], scale,
+                     int(bool(causal)), group, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
                            f"{err}")
     flash_attention_cuda.launches += 1
-    return out
+    if dh_kernel != dh:
+        out = out[..., :dh].contiguous()
+    return out if out.dtype == dtype else out.to(dtype)
 
 
 flash_attention_cuda.launches = 0

@@ -6,11 +6,15 @@ Replaces the Pallas kernels of ``repro/kernels/fxp_model.py``:
 ``fxp_mlp_fleet_pallas`` and ``fxp_svm_fleet_pallas``, which run E stacked
 models in one launch.
 
-* :func:`fxp_mlp_model_cuda` launches ``csrc/fxp_mlp_model.cu``: one block
-  per ``MODEL_BLOCK_M`` batch rows, the activations ping-ponging between two
-  shared-memory buffers in the container type, every layer's int32
-  accumulate-and-wrap plus the shared epilogue, one launch for the whole
-  model.  It counts its launches in ``fxp_mlp_model_cuda.launches``.
+* :func:`fxp_mlp_model_cuda` launches ``csrc/fxp_mlp_model.cu``: every
+  layer's int32 accumulate-and-wrap plus the shared epilogue, one launch for
+  the whole model, the activations in shared memory.  8- and 16-bit
+  containers run on the int8 tensor cores (``mma.sync`` m16n8k32; a 16-bit
+  operand splits into a signed high and an unsigned low byte, and four
+  int8 products recombine exactly mod 2^32) in persistent blocks that stage
+  the weights once and walk 16-row tiles; the 32-bit container runs on the
+  CUDA cores, one block per ``MODEL_BLOCK_M`` rows.  It counts its launches
+  in ``fxp_mlp_model_cuda.launches``.
 * :func:`fxp_svm_model_cuda` launches ``csrc/fxp_svm_model.cu``: a thread
   block cluster per ``MODEL_BLOCK_M`` batch rows, its blocks splitting the
   support vectors in chunks of 64.  Each block computes x . sv^T for its
@@ -94,8 +98,12 @@ def smem_budget() -> int:
 
 def mlp_smem_bytes(widths: Sequence[int], bits: int,
                    bm: int = MODEL_BLOCK_M) -> int:
-    """Shared memory of one megakernel block: two ``bm x max(widths)``
-    activation buffers in the container type."""
+    """The routing count of the megakernel's shared memory: two ``bm x
+    max(widths)`` activation buffers in the container type (what the 32-bit
+    CUDA-core body holds).  The tensor-core body of the 8- and 16-bit
+    containers lays out its own (``mlp_plan`` in ``csrc/fxp_mlp_body.cuh``:
+    16-row tiles, the weights staged or streamed) and fits every model this
+    count admits."""
     return 2 * bm * max(int(w) for w in widths) * (int(bits) // 8)
 
 
@@ -113,6 +121,13 @@ def _check_schedule(weights, biases, schedule) -> None:
     for _, _, activation in schedule:
         if activation not in LAYER_ACTIVATIONS:
             raise KeyError(f"activation must be one of {LAYER_ACTIVATIONS}")
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (contiguous) starting on a 16-byte boundary: the MLP kernels
+    copy input tiles with 16-byte ``cp.async`` from the boundary at or
+    below each tile, which must not lie before the tensor."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def fxp_mlp_model_plain(x: torch.Tensor, weights, biases,
@@ -161,7 +176,7 @@ def fxp_mlp_model_cuda(x: torch.Tensor, weights, biases,
         raise ValueError(f"the megakernel runs at most {MAX_LAYERS} layers")
     dtype = schedule[0][1].dtype
     dev = x.device
-    x = _check_cuda("x", x, dtype, dev)
+    x = _aligned16(_check_cuda("x", x, dtype, dev))
     weights = [_check_cuda(f"weights[{i}]", w, dtype, dev)
                for i, w in enumerate(weights)]
     biases = [_check_cuda(f"biases[{i}]", b, dtype, dev)
@@ -410,7 +425,7 @@ def fxp_mlp_fleet_cuda(x: torch.Tensor, weights, biases,
     if n > MAX_LAYERS:
         raise ValueError(f"the megakernel runs at most {MAX_LAYERS} layers")
     dtype, dev = schedules[0][0][1].dtype, x.device
-    x = _check_cuda("x", x, dtype, dev)
+    x = _aligned16(_check_cuda("x", x, dtype, dev))
     weights = [_check_cuda(f"weights[{i}]", w, dtype, dev)
                for i, w in enumerate(weights)]
     biases = [_check_cuda(f"biases[{i}]", b, dtype, dev)

@@ -7,10 +7,10 @@ gate, computed in float32.  Two versions of the same function:
 
 * :func:`pwl_activation_cuda` launches the hand-written Hopper kernel
   (``csrc/pwl_activation.cu``): a grid-stride pass over the flat tensor
-  with 16-byte loads, the arithmetic of ``csrc/pwl.cuh``.  It takes float32
-  only: a float16 or bfloat16 CUDA tensor raises ``TypeError`` (the
-  reference computes those in float32 and casts back; the port's float
-  models are float32 throughout).  It counts its launches in
+  with 16-byte loads, the arithmetic of ``csrc/pwl.cuh``.  It takes
+  float32, float16 and bfloat16: a narrow value widens to float32, and the
+  result narrows back with round to nearest even, as the reference's cast
+  does.  Another dtype raises ``TypeError``.  It counts its launches in
   ``pwl_activation_cuda.launches``.
 * :func:`pwl_activation_plain` computes the same thing in PyTorch ops on any
   device and any float dtype, in float32 with a cast back, as the
@@ -37,6 +37,8 @@ __all__ = ["PWL_VARIANTS", "pwl_activation_plain", "pwl_activation_cuda",
 # Order = pwl::Variant in csrc/pwl.cuh.
 PWL_VARIANTS = ("pwl2", "pwl4", "rational", "silu_pwl4")
 REPLACES = "src/repro/kernels/pwl_activation.py:63"  # pwl_activation_pallas
+# The kernel's storage dtypes, by their code in csrc/pwl_activation.cu.
+_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
 def _check_variant(variant: str) -> int:
@@ -61,27 +63,29 @@ def _lib():
     fn = build.load("pwl_activation").pwl_activation_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def pwl_activation_cuda(x: torch.Tensor, variant: str) -> torch.Tensor:
-    """Launch the CUDA kernel on a float32 CUDA tensor of any shape; returns
-    a new tensor of the same shape."""
+    """Launch the CUDA kernel on a float32, float16 or bfloat16 CUDA tensor
+    of any shape; returns a new tensor of the same shape and dtype."""
     code = _check_variant(variant)
     if x.device.type != "cuda":
         raise ValueError(f"pwl_activation_cuda needs a CUDA tensor, got "
                          f"{x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"pwl_activation_cuda takes float32, got {x.dtype}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"pwl_activation_cuda takes {tuple(_DTYPES)}, got "
+                        f"{x.dtype}")
     x = x.contiguous()
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = _lib()(x.data_ptr(), out.data_ptr(), x.numel(), code, stream)
+        err = _lib()(x.data_ptr(), out.data_ptr(), x.numel(), code,
+                     _DTYPES[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"pwl_activation kernel launch failed: CUDA error "
                            f"{err}")

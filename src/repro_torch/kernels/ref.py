@@ -150,13 +150,15 @@ def tree_ensemble_ref(tree: TreeArrays, x: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True) -> torch.Tensor:
+                        causal: bool = True,
+                        scale: float | None = None) -> torch.Tensor:
     """(BH, S, dh) softmax attention with float32 internals: the scores
-    ``q . k^T * float32(1/sqrt(dh))``, masked to -1e30 above the diagonal
-    when ``causal``, a softmax over the keys and ``p . v``, cast back to
-    ``q``'s dtype."""
+    ``q . k^T * scale`` (default ``float32(1/sqrt(dh))``), masked to -1e30
+    above the diagonal when ``causal``, a softmax over the keys and
+    ``p . v``, cast back to ``q``'s dtype."""
     s = q.shape[1]
-    scale = float(np.float32(1.0 / math.sqrt(q.shape[-1])))
+    if scale is None:
+        scale = float(np.float32(1.0 / math.sqrt(q.shape[-1])))
     scores = torch.einsum("bqd,bkd->bqk", q.to(torch.float32),
                           k.to(torch.float32)) * scale
     if causal:

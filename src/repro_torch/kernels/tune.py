@@ -3,9 +3,10 @@
 The counterpart of :mod:`repro.kernels.tune`.  The CUDA kernels run with
 fixed block sizes, ``constexpr`` in their sources; the JSON
 disk cache and the timed sweeps of the TPU autotuner are not ported yet.
-``MODEL_BLOCK_M`` must match ``kBM`` in ``csrc/fxp_mlp_model.cu`` and
-``csrc/fxp_tile.cuh``, and ``TILE`` the tile of ``csrc/fxp_tile.cuh``: the
-megakernels' fit predicates size their shared memory from them.
+``MODEL_BLOCK_M`` must match ``kMlpBM`` in ``csrc/fxp_mlp_body.cuh`` and
+``kBM`` in ``csrc/fxp_tile.cuh``, and ``TILE`` the tile of
+``csrc/fxp_tile.cuh``: the megakernels' fit predicates size their shared
+memory from them.
 """
 
 from __future__ import annotations

@@ -6,8 +6,9 @@ The PyTorch counterpart of :mod:`repro.lm.attention`.  Prefill
 
 * on a CUDA tensor with no sliding window, the hand-written
   ``flash_attention`` kernel (:func:`repro_torch.kernels.ops.flash_attention`)
-  on (B*H, S, dh) tensors, whatever S is: K/V heads are repeated to the
-  query heads first (GQA grouped by the caller, as the TPU kernel expects);
+  on (B*Hq, S, dh) queries and (B*Hkv, S, dh) keys and values, whatever S
+  is: K/V heads are not repeated, the kernel groups the G = Hq / Hkv query
+  heads of each KV head itself (query row bh reads KV row bh // G);
 * on the CPU, the reference's own branch: the streaming-softmax
   :func:`blockwise_attention` when ``S % chunk == 0 and S > chunk``, else
   :func:`full_attention` with materialized scores;

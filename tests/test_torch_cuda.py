@@ -202,6 +202,30 @@ def test_pwl_activation_kernel_matches_plain(dev, variant):
                            xt, variant).view(torch.int32))
 
 
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+@pytest.mark.parametrize("variant", ["pwl2", "pwl4", "rational", "silu_pwl4"])
+def test_pwl_activation_narrow_floats_match_plain(dev, variant, dtype):
+    """float16 and bfloat16 load and store narrow, compute in float32 and
+    round to nearest even: bit for bit against the plain version's cast."""
+    from repro_torch.kernels import pwl_activation
+
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(6)
+    for shape, offset in (((3089, 64), 0), ((7, 13), 0), ((1,), 0),
+                          ((4097,), 1)):
+        flat = (rng.randn(int(np.prod(shape)) + offset) * 4).astype(
+            np.float32)
+        flat[offset:offset + len(PWL_EDGES)] = np.asarray(
+            PWL_EDGES, np.float32)[:flat.size - offset]
+        xt = torch.from_numpy(flat).to(dev).to(dt)[offset:].view(shape)
+        before = pwl_activation.pwl_activation_cuda.launches
+        got = ops.pwl_activation(xt, variant)
+        assert pwl_activation.pwl_activation_cuda.launches == before + 1
+        want = pwl_activation.pwl_activation_plain(xt, variant)
+        assert got.dtype == dt and got.shape == xt.shape
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
 @pytest.mark.parametrize("bits", [8, 16, 32])
 def test_fxp_mlp_fleet_kernel_matches_plain(dev, bits):
     rng = np.random.RandomState(bits + 7)
@@ -223,6 +247,69 @@ def test_fxp_mlp_fleet_kernel_matches_plain(dev, bits):
             own = fxp_model.fxp_mlp_model_cuda(x[i], [w[i] for w in ws],
                                                [b[i] for b in bs], scheds[i])
             assert torch.equal(got[i], own)
+
+
+def _edge_ints(rng, shape, bits):
+    """Only the container's extremes and their neighbours: 16-bit dots
+    wrap int32."""
+    lo, hi = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
+    return torch.from_numpy(np.choose(rng.randint(0, 5, shape),
+                                      [lo, lo + 1, -1, hi - 1, hi])
+                            .astype(NP[bits]))
+
+
+MLP_EDGE_SHAPES = (  # (E or 0 for one model, M, widths)
+    (0, 3089, (561, 64, 6)), (0, 31, (8, 16, 10)), (0, 17, (33, 40, 6)),
+    (0, 1, (64, 10)), (0, 16, (561, 6)), (0, 65536, (561, 64, 6)),
+    (0, 40, (40, 32, 24, 48, 16, 33, 8, 12, 6)), (2, 3089, (561, 64, 6)),
+    (8, 3089, (561, 6)), (8, 33, (561, 64, 6)))
+
+
+@pytest.mark.parametrize("edge", [False, True], ids=["mid", "edge"])
+@pytest.mark.parametrize("bits", [8, 16, 32])
+def test_fxp_mlp_tensor_core_edges_match_plain(dev, bits, edge):
+    """The MLP megakernels (int8 tensor cores at 8 and 16 bits) against
+    their plain versions: K not a multiple of 32, N not a multiple of 8,
+    batches around the 16-row tile, 8 layers, fleet slices that start off a
+    16-byte boundary (M 3089, K 561), a logistic fleet (one layer), widths
+    at the routing predicate's limit, and edge values whose int32 dots
+    wrap."""
+    rng = np.random.RandomState(bits + 3 * edge)
+    limit = 232_448 // (2 * 32 * bits // 8)
+    shapes = MLP_EDGE_SHAPES + ((0, 20, (limit, 64, 6)),
+                                (2, 9, (48, limit, 6)))
+    wrapped = 0
+    for e, m, dims in shapes:
+        n = max(e, 1)
+        if edge:
+            x = _edge_ints(rng, (n, m, dims[0]), bits)
+            ws = [_edge_ints(rng, (n, i, o), bits)
+                  for i, o in zip(dims, dims[1:])]
+        else:
+            x = _ints(rng, (n, m, dims[0]), bits, False)
+            ws = [_ints(rng, (n, i, o), bits, False)
+                  for i, o in zip(dims, dims[1:])]
+        bs = [_ints(rng, (n, o), bits, True) for o in dims[1:]]
+        dot = x[0, :64].double() @ ws[0][0].double()
+        wrapped += int(dot.abs().max() >= 2 ** 31)
+        scheds = tuple(
+            tuple(((0 if edge else 7) + (j + l) % 2,
+                   FxpFormat(bits, bits - 1 if edge else bits - 6),
+                   ACTS[(j + l) % len(ACTS)] if l < len(dims) - 2
+                   else "none")
+                  for l in range(len(dims) - 1))
+            for j in range(n))
+        x, ws, bs = x.to(dev), [w.to(dev) for w in ws], [b.to(dev) for b in bs]
+        if e:
+            got = fxp_model.fxp_mlp_fleet_cuda(x, ws, bs, scheds)
+            want = fxp_model.fxp_mlp_fleet_plain(x, ws, bs, scheds)
+        else:
+            args = (x[0], [w[0] for w in ws], [b[0] for b in bs], scheds[0])
+            got = fxp_model.fxp_mlp_model_cuda(*args)
+            want = fxp_model.fxp_mlp_model_plain(*args)
+        assert torch.equal(got, want), (e, m, dims)
+    if bits == 16 and edge:
+        assert wrapped, "no case wrapped the int32 dot"
 
 
 @pytest.mark.parametrize("kind", ["poly", "rbf"])
@@ -356,13 +443,42 @@ def test_flash_attention_kernel_matches_plain(dev, dtype, atol, row_rtol):
                         rel = float((diff.amax(-1) / want.float().abs()
                                      .amax(-1).clamp_min(1e-30)).max())
                         assert rel <= row_rtol, (causal, dh, bh, s, group, rel)
-    with pytest.raises(ValueError, match="head dims"):
-        fa.flash_attention_cuda(*(torch.zeros(1, 8, 48, device=dev)
+    with pytest.raises(ValueError, match="head dims up to"):
+        fa.flash_attention_cuda(*(torch.zeros(1, 8, 129, device=dev)
                                   for _ in range(3)))
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
+    with pytest.raises(TypeError, match="float tensors"):
         fa.flash_attention_cuda(*(torch.zeros(1, 8, 64, device=dev,
-                                              dtype=torch.float16)
+                                              dtype=torch.int32)
                                   for _ in range(3)))
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 3e-2),
+                                        (torch.float16, 2.0 ** -8)])
+def test_flash_attention_padded_head_dims_and_float16(dev, dtype, atol):
+    """Head dims between the kernel's instances (56, 80, 112: deepseek-v3,
+    hubert, zamba2) are zero-padded to the next instance and sliced back;
+    float16 runs the float32 instance and rounds its output once (within
+    one float16 ulp below 8 in magnitude)."""
+    from repro_torch.compile.lowerings.common import require_full_float32
+    from repro_torch.kernels import flash_attention as fa
+
+    require_full_float32(dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    dims = (56, 80, 112) + ((32, 64, 128) if dtype == torch.float16 else ())
+    for dh in dims:
+        for s in (7, 65, 300):
+            for causal in (True, False):
+                q = torch.randn(56, s, dh, generator=g, device=dev).to(dtype)
+                k, v = (torch.randn(8, s, dh, generator=g, device=dev)
+                        .to(dtype) for _ in range(2))
+                before = fa.flash_attention_cuda.launches
+                got = ops.flash_attention(q, k, v, causal)
+                assert fa.flash_attention_cuda.launches == before + 1
+                want = fa.flash_attention_plain(q, k, v, causal)
+                assert got.dtype == dtype and got.shape == q.shape
+                err = float((got.float() - want.float()).abs().max())
+                assert err <= atol, (dh, s, causal, err)
 
 
 def test_lm_forward_on_card_launches_kernel_per_layer(dev):

@@ -131,3 +131,37 @@ def test_flash_attention_gqa_matches_reference_kernel(causal, group):
     np.testing.assert_allclose(plain.numpy(), want, atol=2e-5)
     ref = tops.flash_attention(tq, tk, tv, causal=causal, impl="ref")
     np.testing.assert_allclose(ref.numpy(), want, atol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh,padded", [(56, 64), (80, 128), (112, 128),
+                                       (20, 32), (64, 64)])
+def test_head_dim_padding_is_exact_through_the_plain_version(causal, dh,
+                                                             padded):
+    """The CUDA wrapper zero-pads dh to the kernel's next instance and keeps
+    the true 1/sqrt(dh) scale (``pad_head_dim``): through the plain version,
+    the padded attention sliced back to dh equals the unpadded one, and the
+    padded output columns are zero.  The sums only gain exact zeros, so the
+    bound is float32 rounding (2e-6)."""
+    q, k, v = _port(_qkv(dh, 6, 37, dh))
+    k, v = k[:3], v[:3]  # G 2, as the grouped kernel takes them
+    pq, pk, pv, scale = tfa.pad_head_dim(q, k, v)
+    assert pq.shape == (6, 37, padded) and pk.shape == (3, 37, padded)
+    assert scale == float(np.float32(1.0 / np.sqrt(dh)))
+    got = tfa.flash_attention_plain(pq, pk, pv, causal, scale)
+    want = tfa.flash_attention_plain(q, k, v, causal)
+    np.testing.assert_allclose(got[..., :dh].numpy(), want.numpy(), rtol=0,
+                               atol=2e-6)
+    assert not got[..., dh:].any()
+    # and the unpadded plain version is the reference's oracle
+    ref = jref.flash_attention_ref(*(jnp.asarray(t.numpy()) for t in
+                                     (q, tfa.expand_kv(k, 2),
+                                      tfa.expand_kv(v, 2))), causal)
+    np.testing.assert_allclose(want.numpy(), np.asarray(ref), rtol=0,
+                               atol=2e-5)
+
+
+def test_head_dim_above_the_largest_instance_raises():
+    q = torch.zeros(1, 4, tfa.HEAD_DIMS[-1] + 1)
+    with pytest.raises(ValueError, match="head dims up to"):
+        tfa.pad_head_dim(q, q, q)

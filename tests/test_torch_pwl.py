@@ -135,7 +135,8 @@ def test_kernel_arithmetic_matches_reference_on_host(host_pwl, variant):
 @pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
 def test_plain_narrow_floats_compute_in_float32(dtype):
     """Like the reference, the plain version takes any float dtype, computes
-    in float32 and casts back (the CUDA kernel takes float32 only)."""
+    in float32 and casts back (the CUDA kernel does the same for float16
+    and bfloat16; tests/test_torch_cuda.py holds it to this version)."""
     x = _inputs()[:, :64]
     xt = torch.from_numpy(x).to(getattr(torch, dtype))
     xj = jnp.asarray(x).astype(getattr(jnp, dtype))
