@@ -11,8 +11,8 @@ Phases, each of which raises on failure:
 2. Build every CUDA kernel of the main paths from ``src/repro_torch/kernels/
    csrc`` (nine sources, one ``nvcc`` each, in parallel) and print the
    build time and ``ptxas`` resource lines (by instance for the kernels
-   redesigned for Hopper: flash_attention, fxp_svm_model, fxp_mlp_model and
-   fxp_mlp_fleet), and, where the toolkit's ``cuobjdump`` exists, the count
+   redesigned for Hopper: flash_attention, fxp_svm_model, fxp_mlp_model,
+   fxp_mlp_fleet, fxp_svm_fleet and fxp_layer), and, where the toolkit's ``cuobjdump`` exists, the count
    of tensor-core MMA instructions in the SASS: HMMA in each
    flash_attention instance, IMMA in each MLP megakernel instance (a bf16
    flash instance without HMMA, or an 8- or 16-bit MLP instance without
@@ -24,6 +24,11 @@ Phases, each of which raises on failure:
    int32-wrapping sums and batches 1..65536:
    * ``fxp_layer`` (561x64, 64x6, 561x6 layers, every activation, shifts 0
      and width-1) and ``fxp_mlp_model`` (561->64->6);
+   * ``fxp_layer``'s narrow route: N in {1, 6, 10, 31, 32, 33} x K in
+     {1, 8, 300, 561} at every activation, batches 1..65536, A a row slice
+     (not 16-byte aligned), and at N 6 and 32 the largest K whose weights
+     fit the narrow route beside the first K past it (the tile loop); at
+     least one case's int32 dot must wrap;
    * the MLP megakernels' tensor-core body at every container width: K not
      a multiple of 32 (561, 8, 33), N not a multiple of 8 (6, 10), widths
      at the routing predicate's limit (weights streamed), 8 layers, batches
@@ -42,7 +47,11 @@ Phases, each of which raises on failure:
      for all and one per model, ragged and full batches, and full-range
      values whose int32 sums wrap;
    * ``fxp_svm_fleet``: poly and rbf, E = 2 (D6 shapes) and E = 4 (D5
-     shapes, 3298 rows), each model its own formats, q(gamma) and q(coef0);
+     shapes, 3298 rows), each model its own formats, q(gamma), q(coef0)
+     and degree; on the cluster body, E in {1, 2, 4, 8} x S in {1, 31, 33,
+     300, 1696} x batches {1, 31, 3298, 65536} (D6 width where the plain
+     version is cheap, D5 width elsewhere), and each slot of an E = 4
+     launch at path D's shape against ``fxp_svm_model`` of that model;
    * ``pwl_activation``: the four variants on random values and on +-0,
      +-inf, NaN, subnormals and the segment edges 1.0, 2.375 and 5.0, on
      the (3089, 64) hidden layer, ragged shapes and an unaligned tensor, in
@@ -116,9 +125,12 @@ Phases, each of which raises on failure:
    served targets; each recorded kernel's device time from a
    torch.profiler trace besides (below ~0.04 ms the CUDA-event loop
    measures the host's launch cost), and fxp_svm_model's at fxp16 rbf
-   at every timed batch; each kernel and its plain version
-   at batches 1, 64, 3089 and 65536 (the new kernels at 3089 or 3298 and
-   65536, beside eight fxp_mlp_model launches), beside the bound;
+   at every timed batch, fxp_layer's at the logistic head (fxp16, 3089 and
+   65536 rows) and at the SVM per-layer route's decision stage (3089 x 300
+   x 6 and 65536 rows); each kernel and its plain version
+   at batches 1, 64, 3089 and 65536 (the fleet kernels at 3089 or 3298 and
+   65536, fxp_svm_fleet also at a 64-row serving round, beside eight
+   fxp_mlp_model and four fxp_svm_model launches), beside the bound;
    ``predict`` end to end and by stage (pageable and pinned rows); the
    host time of ``FleetStack.predict_device`` beside the time until the
    card is done (equal times would mean a hidden synchronization); and the
@@ -185,13 +197,21 @@ FLASH_FP16_ATOL = 2.0 ** -8
 FLASH_PADDED_DIMS = (56, 80, 112)
 SVM_LENGTHS = (1, 31, 33, 300, 1696)  # 1696: the fit predicate's limit
 SVM_BATCHES = (1, 31, 3089, 65536)
+SVM_FLEET_SIZES = (1, 2, 4, 8)
+SVM_FLEET_BATCHES = (1, 31, 3298, 65536)  # 3298: the D5 test split
+# fxp_layer around its narrow route (N <= 32): N at 1, the main paths' 6
+# and 10 classes, and the bucket edges; K at 1, D5's 8, the SVM decision
+# stage's 300 and D6's 561; batches 1..65536
+LAYER_NS = (1, 6, 10, 31, 32, 33)
+LAYER_KS = (1, 8, 300, 561)
+LAYER_BATCHES = (1, 7, 31, 64, 3089, 65536)
 LM_ARCH = "qwen2-0.5b"  # src/repro_torch/configs/qwen2_0_5b.py, full width
 LM_BATCH, LM_SEQ = 4, 2048  # the bf16 prefill
 LM_DECODE_BATCH, LM_DECODE_STEPS = 2, 12  # the float32 decode-vs-forward check
 LM_GEN_BATCH, LM_GEN_TOKENS = 4, 32  # generate on each served target
 # the kernels redesigned for Hopper: their ptxas lines by instance
 REDESIGNED = ("flash_attention", "fxp_svm_model", "fxp_mlp_model",
-              "fxp_mlp_fleet")
+              "fxp_mlp_fleet", "fxp_svm_fleet", "fxp_layer")
 # tensor-core MMA in the SASS: (library, instance name part, opcode); each
 # instance whose name holds the part must issue the opcode
 TENSOR_CORE_SASS = (("flash_attention", "bfloat16", "HMMA"),
@@ -370,6 +390,8 @@ class KernelCheck:
         self.max_abs_err = {n: 0 for n in self.NAMES}
         self.wrapped = 0  # SVM cases whose x . sv^T wrapped int32
         self.mlp_wrapped = 0  # MLP cases whose first int32 dot wrapped
+        self.layer_wrapped = 0  # fxp_layer cases whose int32 dot wrapped
+        self.layer_routes = {"narrow": 0, "tile": 0}
         self.flash_err = {}  # dtype -> max abs err of flash_attention
         self.flash_row_rel = 0.0  # bf16: max per-row relative error
 
@@ -636,7 +658,11 @@ class KernelCheck:
         degree, dec_shift = 1 + rng.randint(0, 3), rng.randint(0, min(bits, 31))
         return fmt, out_fmt, qgamma, qcoef0, degree, dec_shift
 
-    def svm_fleet_case(self, rng, bits, e, m, f, s, c, kind, regime):
+    def svm_fleet_case(self, rng, bits, e, m, f, s, c, kind, regime,
+                       slots=False):
+        """E stacked SVMs, each its own formats, q(gamma), q(coef0) and
+        degree, against the plain version; with ``slots``, each slot also
+        against ``fxp_svm_model_cuda`` of that model alone."""
         K = self.K
         params = []
         for _ in range(e):  # each model its own formats and constants
@@ -650,20 +676,94 @@ class KernelCheck:
             _ints(rng, (e, c), bits, "full"))
         got = K.model.fxp_svm_fleet_cuda(x, sv, dual, icept, kind, params)
         want = K.model.fxp_svm_fleet_plain(x, sv, dual, icept, kind, params)
-        self._compare("fxp_svm_fleet", got, want,
-                      f"w{bits} {kind} E={e} {m}x{f} S={s} C={c} q(gamma) "
-                      f"{[p[2] for p in params]} {regime}")
+        what = (f"w{bits} {kind} E={e} {m}x{f} S={s} C={c} q(gamma) "
+                f"{[p[2] for p in params]} degrees {[p[4] for p in params]} "
+                f"{regime}")
+        self._compare("fxp_svm_fleet", got, want, what)
+        if slots:
+            for i, p in enumerate(params):
+                solo = K.model.fxp_svm_model_cuda(x[i], sv[i], dual[i],
+                                                  icept[i], kind, *p)
+                self._compare("fxp_svm_fleet", got[i], solo,
+                              f"{what}: slot {i} against fxp_svm_model")
 
-    def layer_case(self, rng, bits, m, k, n, act, shift, frac, regime):
-        K = self.K
+    def svm_fleet_cases(self, rng, bits):
+        """The fleet on the cluster body: E in SVM_FLEET_SIZES x S in
+        SVM_LENGTHS x batches SVM_FLEET_BATCHES (D6 width where the plain
+        version is cheap, D5 width elsewhere), poly and rbf in turn; and
+        each slot of an E = 4 launch at path D's shape against the single
+        model's kernel."""
+        j = 0
+        for e in SVM_FLEET_SIZES:
+            for s in SVM_LENGTHS:
+                for m in SVM_FLEET_BATCHES:
+                    f = 561 if s <= N_PROTOTYPES and m <= 31 else 8
+                    c = 6 if f == 561 else 10
+                    self.svm_fleet_case(rng, bits, e, m, f, s, c,
+                                        ("poly", "rbf")[j % 2],
+                                        "full" if m == 31 else "mid")
+                    j += 1
+        for kind in ("poly", "rbf"):
+            self.svm_fleet_case(rng, bits, 4, 3298, 8, N_PROTOTYPES, 10, kind,
+                                "mid", slots=True)
+
+    def layer_case(self, rng, bits, m, k, n, act, shift, frac, regime,
+                   offset=0):
+        """``offset`` rows dropped from the front of A: a row slice whose
+        start is not 16-byte aligned.  Counts the cases whose int32 dot
+        wrapped (first 64 rows, float64: exact at 8 and 16 bits) and the
+        route each shape takes."""
+        K, torch = self.K, self.torch
         fmt = K.fxp.FxpFormat(bits, frac)
         a, b, bias = self._cuda(
-            _ints(rng, (m, k), bits, regime), _ints(rng, (k, n), bits, regime),
+            _ints(rng, (m + offset, k), bits, regime),
+            _ints(rng, (k, n), bits, regime),
             _ints(rng, (n,), bits, "full" if regime == "mid" else regime))
+        a = a[offset:]
         got = K.layer.fxp_layer_cuda(a, b, bias, fmt, act, shift)
         want = K.layer.fxp_layer_plain(a, b, bias, fmt, act, shift)
+        dot = a[:64].to(torch.float64) @ b.to(torch.float64)
+        self.layer_wrapped += int(dot.abs().max() >= 2 ** 31)
+        route = "narrow" if K.layer.narrow_plan(k, n) else "tile"
+        self.layer_routes[route] += 1
         self._compare("fxp_layer", got, want,
-                      f"w{bits} {m}x{k}x{n} {act} shift {shift} {regime}")
+                      f"w{bits} {m}x{k}x{n} {act} shift {shift} {regime} "
+                      f"offset {offset} ({route})")
+
+    def layer_narrow_cases(self, rng, bits):
+        """fxp_layer around its narrow route: N in LAYER_NS x K in LAYER_KS
+        at every activation (batches, regimes and shifts 0 / width - 1 in
+        turn), row slices of A, and the largest K whose weights fit the
+        narrow route beside the first K past it, at N 6 and 32."""
+        acts = self.K.layer.LAYER_ACTIVATIONS
+        regimes = ("mid", "full", "edge")
+        i = 0
+        for n in LAYER_NS:
+            for k in LAYER_KS:
+                for act in acts:
+                    m = LAYER_BATCHES[i % len(LAYER_BATCHES)]
+                    regime = regimes[i % len(regimes)]
+                    shift = {"mid": _mid_shift(bits, k), "full": bits - 1,
+                             "edge": 0}[regime]
+                    frac = bits - 6 if regime == "mid" else bits - 1 - i % 2
+                    self.layer_case(rng, bits, m, k, n, act, shift, frac,
+                                    regime)
+                    i += 1
+        for k, n in ((561, 6), (300, 10), (8, 1), (561, 31)):
+            for m, regime in ((3089, "mid"), (7, "full")):
+                shift = _mid_shift(bits, k) if regime == "mid" else bits - 1
+                frac = bits - 6 if regime == "mid" else bits - 1
+                self.layer_case(rng, bits, m, k, n, acts[(k + m) % len(acts)],
+                                shift, frac, regime, offset=1)
+        for n in (6, 32):
+            k_fit = max(k for k in range(1, 8192)
+                        if self.K.layer.narrow_plan(k, n))
+            for k in (k_fit, k_fit + 1):
+                for m, regime in ((100, "mid"), (33, "full")):
+                    shift = _mid_shift(bits, k) if regime == "mid" else 0
+                    frac = bits - 6 if regime == "mid" else bits - 1
+                    self.layer_case(rng, bits, m, k, n, "exact", shift, frac,
+                                    regime)
 
     def model_case(self, rng, bits, m, dims, act, shifts, fracs, regime):
         K = self.K
@@ -777,6 +877,10 @@ class KernelCheck:
                                       "full" if m == 31 else "mid")
             # the MLP megakernels' edges (tensor cores at 8 and 16 bits)
             self.mlp_cases(rng, bits)
+            # fxp_layer's narrow route and its edges; the SVM fleet on the
+            # cluster body
+            self.layer_narrow_cases(rng, bits)
+            self.svm_fleet_cases(rng, bits)
             # the fleet kernels: E in {2, 8}, uniform and per-model
             # schedules, ragged and full batches, int32-wrapping sums
             for e in (2, 8):
@@ -795,6 +899,8 @@ class KernelCheck:
             raise AssertionError("no SVM case wrapped the int32 dot")
         if not self.mlp_wrapped:
             raise AssertionError("no MLP case wrapped the int32 dot")
+        if not self.layer_wrapped:
+            raise AssertionError("no fxp_layer case wrapped the int32 dot")
         torch = self.torch
         for variant in self.K.pwl.PWL_VARIANTS:
             for dtype in (None, torch.float16, torch.bfloat16):
@@ -840,8 +946,9 @@ class KernelCheck:
             f"bf16: max abs err {self.flash_err}; bf16 rows within "
             f"{FLASH_BF16_ROW_RTOL} of their largest value: max "
             f"{self.flash_row_rel:.4e}) (max abs err {self.max_abs_err}; "
-            f"{self.wrapped} SVM cases and {self.mlp_wrapped} MLP cases "
-            f"wrapped the int32 dot)")
+            f"{self.wrapped} SVM cases, {self.mlp_wrapped} MLP cases and "
+            f"{self.layer_wrapped} fxp_layer cases wrapped the int32 dot; "
+            f"fxp_layer routes {self.layer_routes})")
 
 
 # --------------------------------------------------------------------------
@@ -1507,20 +1614,26 @@ def cuda_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters, host_ms
 
 
-def device_ms(torch, fn, iters=20):
+def device_ms(torch, fn, iters=20, attempts=3):
     """Device time per call of ``fn`` (ms): the sum of its kernels' device
     time in a torch.profiler trace of ``iters`` calls.  Below ~0.04 ms a
-    CUDA-event loop measures the host's launch cost instead."""
+    CUDA-event loop measures the host's launch cost instead.  A trace that
+    now and then holds no device event is taken again (0.0 after
+    ``attempts`` empty traces)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
+    total = 0
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total:
+            break
     return total / 1e3 / iters
 
 
@@ -1606,7 +1719,8 @@ def time_mlp(torch, K, T, arts, x_big, n_test):
                     T.time("fxp_layer", tag, m, kern, plain,
                            _nbytes(qx, w, b, out), 2 * m * w.numel(),
                            T.dev.int_peak(bits), record, "fxp_layer.cu",
-                           K.layer.REPLACES)
+                           K.layer.REPLACES,
+                           profile=tag == "fxp16" and m >= n_test)
 
 
 def path_steps(torch, tree, x):
@@ -1688,6 +1802,21 @@ def time_tree_svm(torch, K, T, arts, tree_model, x_big, n_test):
                        _nbytes(qx, svt, out), 2 * m * f * s,
                        T.dev.int_peak(bits), tag == "fxp16" and m == n_test,
                        "fxp_qmatmul.cu", K.qm.REPLACES)
+                if tag != "fxp16" or m < n_test:
+                    continue
+                # the per-layer route's decision stage: fxp_layer on the
+                # (m, 300) kernel values and the (300, 6) duals
+                kv = K.kref.svm_kernel_values(
+                    out, qx, sv, "rbf", fmt, spec["qgamma"], spec["qcoef0"],
+                    spec["degree"])
+                dec = (spec["out_fmt"], "none", spec["dec_shift"])
+                kern = lambda: K.layer.fxp_layer_cuda(kv, dual, b, *dec)
+                plain = lambda: K.layer.fxp_layer_plain(kv, dual, b, *dec)
+                out = kern()
+                T.time("fxp_layer", f"{tag} svm-dec", m, kern, plain,
+                       _nbytes(kv, dual, b, out), 2 * m * s * c,
+                       T.dev.int_peak(bits), False, "fxp_layer.cu",
+                       K.layer.REPLACES, profile=True)
 
 
 def time_predict(art, x_big, what):
@@ -1802,7 +1931,7 @@ def time_slice(torch, K, T, arts_d, d6, d5):
     params = tuple((sp["fmt"], sp["out_fmt"], sp["qgamma"], sp["qcoef0"],
                     sp["degree"], sp["dec_shift"]) for sp in specs)
     (s_, f_), c_ = sv.shape[1:], dual.shape[2]
-    for m in (len(d5.x_test), max(TIMED_BATCHES)):
+    for m in (64, len(d5.x_test), max(TIMED_BATCHES)):
         xf = torch.from_numpy(np.resize(d5.x_test, (m, f_))).cuda()
         qx = K.fxp.quantize(xf, specs[0]["fmt"]).expand(4, m, f_).contiguous()
         kern = lambda: K.model.fxp_svm_fleet_cuda(qx, sv, dual, icept, "rbf",
@@ -1810,12 +1939,21 @@ def time_slice(torch, K, T, arts_d, d6, d5):
         plain = lambda: K.model.fxp_svm_fleet_plain(qx, sv, dual, icept,
                                                     "rbf", params)
         out = kern()
-        T.time("fxp_svm_fleet", "fxp32 E=4", m, kern, plain,
-               _nbytes(qx, sv, dual, icept, out),
-               2 * 4 * m * (f_ * s_ + s_ * c_), T.dev.int_peak(32),
-               m == len(d5.x_test), "fxp_svm_fleet.cu",
-               K.model.SVM_FLEET_REPLACES,
-               shape=f"4 D5 rbf SVMs (fxp32, S={s_}) x {m} rows")
+        ms = T.time("fxp_svm_fleet", "fxp32 E=4", m, kern, plain,
+                    _nbytes(qx, sv, dual, icept, out),
+                    2 * 4 * m * (f_ * s_ + s_ * c_), T.dev.int_peak(32),
+                    m == len(d5.x_test), "fxp_svm_fleet.cu",
+                    K.model.SVM_FLEET_REPLACES,
+                    shape=f"4 D5 rbf SVMs (fxp32, S={s_}) x {m} rows",
+                    profile=True)
+        solo = lambda: [K.model.fxp_svm_model_cuda(
+            qx[e], sv[e], dual[e], icept[e], "rbf", *params[e])
+            for e in range(4)]
+        solo_ms, solo_host = cuda_ms(torch, solo, 50 if m <= 3298 else 5)
+        log(f"  4 x fxp_svm_model at {m} rows: {solo_ms:.4f} ms "
+            f"({solo_host:.4f} ms host; profiler device "
+            f"{device_ms(torch, solo):.4f}) against one fxp_svm_fleet "
+            f"launch {ms:.4f} ms")
 
 
 def time_predict_device(torch, K, arts_d, d6):
@@ -2099,6 +2237,7 @@ def main() -> int:
     from repro_torch.kernels import (build, flash_attention, fxp_layer,
                                      fxp_model, fxp_qmatmul, pwl_activation,
                                      tree_ensemble, tune)
+    from repro_torch.kernels import ref as kernels_ref
     from repro_torch.lm import model as lm_model
     from repro_torch.models.svm import _pick_prototypes
 
@@ -2107,6 +2246,7 @@ def main() -> int:
         layer=fxp_layer, model=fxp_model, qm=fxp_qmatmul, te=tree_ensemble,
         pwl=pwl_activation, serve=serve, pick_prototypes=_pick_prototypes,
         fa=flash_attention, lm_model=lm_model, configs=configs, tune=tune,
+        kref=kernels_ref,
         launchers={"fxp_layer": fxp_layer.fxp_layer_cuda,
                    "fxp_mlp_model": fxp_model.fxp_mlp_model_cuda,
                    "fxp_qmatmul": fxp_qmatmul.fxp_qmatmul_cuda,

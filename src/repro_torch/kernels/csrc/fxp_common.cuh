@@ -15,9 +15,14 @@
 #pragma once
 
 #include <cstdint>
+#include <cstring>
 
 #if defined(__CUDACC__)
 #include <cuda_runtime.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
 #define FXP_DEVICE __device__ __forceinline__
 #define FXP_HOST_DEVICE __host__ __device__ __forceinline__
 #else
@@ -57,15 +62,18 @@ FXP_HOST_DEVICE Epilogue epilogue_from(const long long* p) {
   return e;
 }
 
+// value-preserving two's-complement reinterpretations (no overflow UB; a
+// register move on the card)
 FXP_DEVICE int64_t u2s(uint64_t u) {
-  // value-preserving uint64 -> int64 reinterpretation, no overflow UB
-  if (u <= (uint64_t)9223372036854775807LL) return (int64_t)u;
-  return (int64_t)(u - (uint64_t)9223372036854775807LL - 1u) +
-         (-9223372036854775807LL - 1);
+  int64_t s;
+  memcpy(&s, &u, sizeof s);
+  return s;
 }
 
 FXP_DEVICE int32_t u2s32(uint32_t u) {
-  return (int32_t)u2s((uint64_t)u - ((u >> 31) ? ((uint64_t)1 << 32) : 0u));
+  int32_t s;
+  memcpy(&s, &u, sizeof s);
+  return s;
 }
 
 FXP_DEVICE int64_t shl(int64_t v, int m) {
@@ -73,14 +81,11 @@ FXP_DEVICE int64_t shl(int64_t v, int m) {
 }
 
 // wrap v into the two's-complement range of `bits`: the overflow behaviour
-// of the traced wide integer dtype
+// of the traced wide integer dtype (keep the low `bits` bits, sign-extend)
 FXP_DEVICE int64_t wrap(int64_t v, int bits) {
-  uint64_t mask, u;
   if (bits >= 64) return v;
-  mask = (((uint64_t)1 << bits) - 1u);
-  u = (uint64_t)v & mask;
-  if (u & ((uint64_t)1 << (bits - 1))) u |= ~mask;
-  return u2s(u);
+  const int s = 64 - bits;
+  return shl(v, s) >> s;
 }
 
 FXP_DEVICE int32_t sat(int64_t v, int32_t qmin, int32_t qmax) {
@@ -96,11 +101,11 @@ FXP_DEVICE int64_t mul_wrap(int64_t a, int64_t b) {
 // _rshift_round: floor-shift + remainder, round-to-nearest, ties away from
 // zero; exact for every representable input including dtype extremes
 FXP_DEVICE int64_t rshr(int64_t x, int m) {
-  int64_t half, floor_q, rem;
   if (m == 0) return x;
-  half = (int64_t)1 << (m - 1);
-  floor_q = x >> m;
-  rem = x - shl(floor_q, m);
+  const int64_t half = (int64_t)1 << (m - 1);
+  const int64_t floor_q = x >> m;
+  // x - (floor_q << m): the low m bits of x, in [0, 2^m)
+  const int64_t rem = (int64_t)((uint64_t)x & (((uint64_t)1 << m) - 1u));
   return floor_q + ((rem > half - (x >= 0)) ? 1 : 0);
 }
 
@@ -132,8 +137,8 @@ FXP_DEVICE int32_t qdiv(int32_t a, int32_t b, int m,
 // qexp: exp(x) = 2^(x*log2e) = 2^k * 2^f with a cubic 2^f polynomial; every
 // product wraps at the wide width wb, exactly like the traced op (for 8-bit
 // containers the Horner products wrap at 16 bits)
-FXP_DEVICE int32_t qexp(int32_t x, const Epilogue& e) {
-  const int m = e.m, tb = e.tb, wb = e.wb;
+FXP_DEVICE int32_t qexp_w(int32_t x, const Epilogue& e, int tb, int wb) {
+  const int m = e.m;
   int64_t y = rshr(wrap(mul_wrap((int64_t)x, e.log2e_q), wb), m);
   int64_t k = y >> m;
   int64_t f = y - shl(k, m);
@@ -153,6 +158,12 @@ FXP_DEVICE int32_t qexp(int32_t x, const Epilogue& e) {
   out = (k_cl >= 0) ? up : (acc >> s_dn);
   if (k_i32 >= e.ib) out = (int64_t)e.qmax;
   return sat(out, e.qmin, e.qmax);
+}
+
+// qexp in e's own format; a caller that knows the container at compile time
+// may call qexp_w with tb = e.tb and wb = e.wb as constants instead
+FXP_DEVICE int32_t qexp(int32_t x, const Epilogue& e) {
+  return qexp_w(x, e, e.tb, e.wb);
 }
 
 // sigmoid variants — constants quantized on the host
@@ -242,5 +253,71 @@ FXP_DEVICE int32_t layer_epilogue(uint32_t acc, int32_t bias,
     default: return h;
   }
 }
+
+#if defined(__CUDACC__)
+
+// What the current device holds at once of `kernel` launched with `threads`
+// threads and `smem` bytes of dynamic shared memory: blocks (SMs x blocks
+// per SM) when `cluster` is 1, else thread block clusters of `cluster`
+// blocks along x (cudaOccupancyMaxActiveClusters).  Queried once per
+// (device, kernel, threads, smem, cluster) and cached, the kernel's
+// shared-memory limit raised where needed, so that a launch makes no
+// occupancy query of its own.  A configuration the card cannot hold even
+// once is refused with cudaErrorInvalidConfiguration.
+template <typename Kernel>
+cudaError_t launch_slots(Kernel kernel, int threads, int smem, int* slots,
+                         int cluster = 1) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, const void*, int, int, int>, int> cache;
+  static std::map<std::pair<int, const void*>, int> limit;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_tuple(dev, fn, threads, smem, cluster);
+  const auto hit = cache.find(key);
+  if (hit != cache.end()) {
+    *slots = hit->second;
+    return cudaSuccess;
+  }
+  int& set = limit[std::make_pair(dev, fn)];
+  if (smem > set) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    set = smem;
+  }
+  int n = 0;
+  if (cluster == 1) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+    if (err != cudaSuccess) return err;
+    n = sms * per_sm;
+  } else {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)cluster);
+    cfg.blockDim = dim3((unsigned)threads);
+    cfg.dynamicSmemBytes = (size_t)smem;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaOccupancyMaxActiveClusters(&n, fn, &cfg);
+    if (err != cudaSuccess) return err;
+  }
+  if (n < 1) return cudaErrorInvalidConfiguration;
+  *slots = n;
+  cache[key] = n;
+  return cudaSuccess;
+}
+
+#endif  // __CUDACC__
 
 }  // namespace fxp

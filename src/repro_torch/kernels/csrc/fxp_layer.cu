@@ -3,20 +3,35 @@
 //
 // Replaces the Pallas kernel repro/kernels/fxp_layer.py::fxp_layer_pallas.
 // That kernel walks a sequential K grid axis with an int32 accumulator held
-// in VMEM; here each block owns one 32x32 output tile and walks K in a loop
-// (fxp_tile.cuh), staging 32x32 tiles of A and B through shared memory.
-// Each thread keeps four int32 accumulators (four rows of one column) in
-// registers and wraps them at 32 bits through uint32_t, as the TPU's int32
-// accumulator does.  The last step runs the shared epilogue (fxp_common.cuh)
-// on the tile and stores it in the output container.  Ragged M, N and K
-// edges are masked here (zero-filled loads, guarded stores), so the host
-// pads nothing.
+// in VMEM.  Here the launch picks one of two routes by the layer's shape
+// alone (K, N: never the data, so the choice is deterministic):
 //
-// Bound on the H100: integer multiply-adds on the CUDA cores (tensor-core
-// integer MMA takes only 8-bit operands, and the 16- and 32-bit containers
-// are the paper's formats); at the logistic shape (N = 6) the bytes of A
-// dominate instead.  This first version is simple and exact: no
-// double-buffering, no tensor cores, a 32-wide N tile even for N = 6.
+// * Narrow (N <= 32 and the K x N weights fit the narrow plan's shared
+//   memory; fxp_layer_narrow.cuh): every layer the main paths launch, the
+//   logistic and linear-SVM heads (561 x 6), the SVM per-layer route's
+//   decision stage (300 x 6, 300 x 10) and an MLP's last layer (64 x 6).
+//   Bound on the H100: the bytes of A (at 3089 rows of 561 fxp16 features,
+//   3.47 MB: 1.04 us at 3.35 TB/s; the products take less at the int32
+//   rate).  The first version ran these as 32 x 32 tiles that walked K in
+//   serial steps behind block barriers with 26 of 32 columns zeros, a
+//   latency chain 30x its bound (PERF.md, Findings).  The narrow kernel
+//   streams the rows instead: persistent blocks stage W once, each warp
+//   keeps three chunks of its rows in flight (16-byte cp.async into a ring
+//   in shared memory) while its lanes split K over the fourth, and a
+//   reduce-scatter butterfly of uint32 partials leaves each full sum on one
+//   lane, which runs the epilogue.
+// * Wide (N > 32, e.g. the per-layer MLP route's 561 x 64, or weights past
+//   the narrow plan's shared memory): each block owns one 32 x 32 output
+//   tile and walks K in a loop (fxp_tile.cuh, shared with fxp_qmatmul),
+//   staging 32 x 32 tiles of A and B through shared memory; four uint32
+//   accumulators a thread (four rows of one column).  Bound: integer
+//   multiply-adds on the CUDA cores.
+//
+// Both wrap their sums at 32 bits through uint32_t, as the TPU's int32
+// accumulator does, run the shared epilogue (fxp_common.cuh) and store in
+// the output container.  Ragged M, N and K edges are masked here, so the
+// host pads nothing, and A may start at any element (a row slice).
+#include "fxp_layer_narrow.cuh"
 #include "fxp_tile.cuh"
 
 namespace {
@@ -34,7 +49,7 @@ fxp_layer_kernel(const T* __restrict__ a, const T* __restrict__ b,
   const int row0 = blockIdx.x * kBM;
   const int col0 = blockIdx.y * kBN;
   uint32_t acc[kTM];
-  fxp::tile_dot<T, false>(a, b, M, K, N, row0, col0, s, acc);
+  fxp::tile_dot<T>(a, b, M, K, N, row0, col0, s, acc);
 
   const int c = col0 + threadIdx.x % kBN;
   if (c >= N) return;
@@ -48,14 +63,76 @@ fxp_layer_kernel(const T* __restrict__ a, const T* __restrict__ b,
 }
 
 template <typename T>
-int launch(const void* a, const void* b, const void* bias, void* out, int M,
-           int K, int N, const fxp::Epilogue& e, cudaStream_t stream) {
+int launch_wide(const void* a, const void* b, const void* bias, void* out,
+                int M, int K, int N, const fxp::Epilogue& e,
+                cudaStream_t stream) {
   const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
   if (grid.y > 65535u) return (int)cudaErrorInvalidConfiguration;
   fxp_layer_kernel<T><<<grid, fxp::kTileThreads, 0, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(b),
       static_cast<const T*>(bias), static_cast<T*>(out), M, K, N, e);
   return (int)cudaGetLastError();
+}
+
+// The current device's SM count, queried once per device.
+cudaError_t device_sms(int* sms) {
+  static std::mutex mu;
+  static std::map<int, int> cache;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto hit = cache.find(dev);
+  if (hit != cache.end()) {
+    *sms = hit->second;
+    return cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) cache[dev] = *sms;
+  return err;
+}
+
+template <typename T, int NB>
+int launch_narrow(const void* a, const void* b, const void* bias, void* out,
+                  int M, int K, int N, const fxp::NarrowPlan& plan,
+                  const fxp::Epilogue& e, cudaStream_t stream) {
+  auto kernel = fxp::fxp_layer_narrow_kernel<T, NB>;
+  const int smem = fxp::narrow_block_smem(plan, (int)sizeof(T));
+  int slots = 0, sms = 0;
+  cudaError_t err =
+      fxp::launch_slots(kernel, fxp::kNarrowThreads, smem, &slots);
+  if (err == cudaSuccess) err = device_sms(&sms);
+  if (err != cudaSuccess) return (int)err;
+  const int groups = (M + plan.rows - 1) / plan.rows;
+  const int grid = fxp::narrow_blocks(groups, sms, slots);
+  kernel<<<grid, fxp::kNarrowThreads, smem, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b),
+      static_cast<const T*>(bias), static_cast<T*>(out), M, K, N, plan.k_pad,
+      (plan.smem + 15) / 16 * 16, e);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* a, const void* b, const void* bias, void* out, int M,
+           int K, int N, const fxp::Epilogue& e, cudaStream_t stream) {
+  fxp::NarrowPlan plan;
+  if (!fxp::narrow_plan(K, N, &plan))
+    return launch_wide<T>(a, b, bias, out, M, K, N, e, stream);
+  switch (plan.nb) {
+#define FXP_NARROW_CASE(nb)                                                  \
+  case nb:                                                                   \
+    return launch_narrow<T, nb>(a, b, bias, out, M, K, N, plan, e, stream);
+    FXP_NARROW_CASE(1)
+    FXP_NARROW_CASE(2)
+    FXP_NARROW_CASE(4)
+    FXP_NARROW_CASE(6)
+    FXP_NARROW_CASE(8)
+    FXP_NARROW_CASE(10)
+    FXP_NARROW_CASE(16)
+    FXP_NARROW_CASE(32)
+#undef FXP_NARROW_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace

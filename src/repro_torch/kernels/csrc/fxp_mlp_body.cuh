@@ -66,13 +66,6 @@
 #include <cstddef>
 #include <type_traits>
 
-#if defined(__CUDACC__)
-#include <map>
-#include <mutex>
-#include <tuple>
-#include <utility>
-#endif
-
 #include "fxp_common.cuh"
 
 namespace fxp {
@@ -243,47 +236,6 @@ FXP_HOST_DEVICE int mlp_blocks_per_model(int tiles, int blocks, int groups,
 }
 
 #if defined(__CUDACC__)
-
-// Blocks of `threads` threads and `smem` bytes of dynamic shared memory
-// that the current device holds at once (SMs x blocks per SM), for
-// `kernel`: queried once per (device, kernel, threads, smem) and cached,
-// the kernel's shared-memory limit raised where needed, so that a launch
-// makes no occupancy query of its own.
-template <typename Kernel>
-cudaError_t mlp_launch_slots(Kernel kernel, int threads, int smem,
-                             int* slots) {
-  static std::mutex mu;
-  static std::map<std::tuple<int, const void*, int, int>, int> cache;
-  static std::map<std::pair<int, const void*>, int> limit;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const void* fn = reinterpret_cast<const void*>(kernel);
-  std::lock_guard<std::mutex> lock(mu);
-  const auto key = std::make_tuple(dev, fn, threads, smem);
-  const auto hit = cache.find(key);
-  if (hit != cache.end()) {
-    *slots = hit->second;
-    return cudaSuccess;
-  }
-  int& set = limit[std::make_pair(dev, fn)];
-  if (smem > set) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    set = smem;
-  }
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      threads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  *slots = sms * per_sm;
-  cache[key] = *slots;
-  return cudaSuccess;
-}
 
 // ---------------------------------------------------------------------------
 // 32-bit container: the CUDA-core body

@@ -96,7 +96,7 @@ int launch_mma(const void* x, void* out, int M, int E, FleetParams& p,
   const int threads = p.plan.groups * kThreads;
   int slots = 0;
   const cudaError_t err =
-      fxp::mlp_launch_slots(kernel, threads, p.plan.total, &slots);
+      fxp::launch_slots(kernel, threads, p.plan.total, &slots);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (M + fxp::kMmaBM - 1) / fxp::kMmaBM;
   const dim3 grid(

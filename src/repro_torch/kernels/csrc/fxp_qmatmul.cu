@@ -32,7 +32,7 @@ fxp_qmatmul_kernel(const T* __restrict__ a, const T* __restrict__ b,
   const int row0 = blockIdx.x * kBM;
   const int col0 = blockIdx.y * kBN;
   uint32_t acc[kTM];
-  fxp::tile_dot<T, false>(a, b, M, K, N, row0, col0, s, acc);
+  fxp::tile_dot<T>(a, b, M, K, N, row0, col0, s, acc);
 
   const int c = col0 + threadIdx.x % kBN;
   if (c >= N) return;

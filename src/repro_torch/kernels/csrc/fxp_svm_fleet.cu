@@ -8,52 +8,66 @@
 // it takes one model per grid step and picks its static branch with
 // lax.switch.
 //
-// Here the grid is (ceil(M / kBM), E) and blockIdx.y picks the model.  Each
-// block runs exactly the single-model megakernel's body (fxp_svm_body.cuh)
-// on its model's slices of the stacked operands, with its SvmParams read
-// from an (E, kSvmFields) int64 table in device memory, so slot e equals
-// model e's own fxp_svm_model launch bit for bit.  The kernel kind (poly or
-// rbf) and the container width are shared by the fleet; everything else may
-// differ per model.  Shared memory per block is the single model's.
+// Here every model runs the single-model kernel's cluster body
+// (fxp_svm_body.cuh): the grid is (G x ceil(M / 32), E) in clusters of G
+// blocks along x (svm_plan: G = min(8, ceil(S / 64))), and blockIdx.y picks
+// the model.  A cluster owns 32 rows of one model and splits its support
+// vectors; the blocks' uint32 partials of the decision meet in distributed
+// shared memory, exact mod 2^32 for any G.  Each block copies its model's
+// SvmParams from an (E, kSvmFields) int64 table in device memory into
+// shared memory once, and offsets x, sv, dual, icept and out by e, so slot
+// e computes exactly what model e's own fxp_svm_model launch computes, bit
+// for bit.  The kernel kind (poly or rbf) and the container width are
+// shared by the fleet; everything else may differ per model.  Shared memory
+// per block is the single model's.
 //
 // Bound on the H100: integer multiply-adds on the CUDA cores for the 16- and
-// 32-bit containers, 2 * E * M * (F * S + S * C) operations.
+// 32-bit containers, 2 * E * M * (F * S + S * C) operations.  At path D's
+// fleet (4 D5 rbf SVMs at fxp32: F = 8, S = 300, C = 10, 3298 rows) the
+// first version ran one block per 32 rows and model (416 blocks, under one
+// wave), its stages in series: norms, ten 32-column tile-loop chunks with
+// 3/4 of each staged tile zeros, 40 kernel values a thread, then a decision
+// walk of all 300 vectors in one dependent chain a thread.  The cluster
+// body spreads the 300 vectors over 5 blocks (520 x 4 blocks of 128
+// threads): each block walks 64 vectors in 4x4 micro-tiles, stops its dot
+// at F (one 8-feature step at F = 8), runs the kernel values as a pass of
+// their own and the decision in four chains.  What sets the pace now is the
+// fxp32 rbf algebra (the 64-bit qexp) and each block's chain of global loads
+// and barriers (PERF.md, Findings; tools/svm_ablation.py times each phase).
 #include "fxp_svm_body.cuh"
 
 namespace {
 
-using fxp::kBM;
 constexpr int kMaxModels = 65535;  // gridDim.y
 
 template <typename T>
-__global__ void __launch_bounds__(fxp::kTileThreads)
+__global__ void __launch_bounds__(fxp::kSvmThreads, fxp::kSvmMinBlocks)
 fxp_svm_fleet_kernel(const T* __restrict__ x, const T* __restrict__ sv,
                      const T* __restrict__ dual, const T* __restrict__ icept,
                      T* __restrict__ out, int M, int F, int S, int C,
-                     int kind, const long long* __restrict__ params) {
+                     int n_chunks, int cap, int kind,
+                     const long long* __restrict__ params) {
+  __shared__ fxp::SvmParams p;
   const size_t e = blockIdx.y;
-  const fxp::SvmParams p =
-      fxp::svm_params_from(params + e * fxp::kSvmFields, kind);
-  fxp::svm_block<T>(x + e * M * F, sv + e * S * F, dual + e * S * C,
-                    icept + e * C, out + e * M * C, M, F, S, C,
-                    blockIdx.x * kBM, p);
+  if (threadIdx.x == 0)
+    p = fxp::svm_params_from(params + e * fxp::kSvmFields, kind);
+  __syncthreads();
+  fxp::svm_cluster_body<T>(x + e * M * F, sv + e * S * F, dual + e * S * C,
+                           icept + e * C, out + e * M * C, M, F, S, C,
+                           n_chunks, cap, p);
 }
 
 template <typename T>
 int launch(const void* x, const void* sv, const void* dual, const void* icept,
            void* out, int M, int F, int S, int C, int E, int kind,
            const long long* params, cudaStream_t stream) {
-  const size_t smem = fxp::svm_smem_bytes(S);
-  auto kernel = fxp_svm_fleet_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((M + kBM - 1) / kBM, E);
-  kernel<<<grid, fxp::kTileThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(sv),
-      static_cast<const T*>(dual), static_cast<const T*>(icept),
-      static_cast<T*>(out), M, F, S, C, kind, params);
-  return (int)cudaGetLastError();
+  fxp::SvmPlan plan;
+  if (!fxp::svm_plan(S, &plan)) return (int)cudaErrorInvalidValue;
+  return (int)fxp::svm_cluster_launch(
+      fxp_svm_fleet_kernel<T>, plan, M, E, stream, static_cast<const T*>(x),
+      static_cast<const T*>(sv), static_cast<const T*>(dual),
+      static_cast<const T*>(icept), static_cast<T*>(out), M, F, S, C,
+      plan.n_chunks, plan.cap, kind, params);
 }
 
 }  // namespace

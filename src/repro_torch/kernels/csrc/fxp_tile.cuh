@@ -1,4 +1,6 @@
-// The integer tile loop shared by fxp_layer, fxp_qmatmul and fxp_svm_model.
+// The integer tile loop shared by fxp_qmatmul and fxp_layer's wide route
+// (N > 32, or a K x N whose weights do not fit the narrow kernel's shared
+// memory; fxp_layer.cu).
 //
 // One block of kTileThreads threads owns a kBM x kBN output tile of A @ B
 // and walks K in kBK-wide steps, staging both operand tiles through shared
@@ -6,11 +8,9 @@
 // computes column t % kBN for the kTM rows (t / kBN) * kTM ... + kTM - 1,
 // with one uint32_t accumulator per row that wraps at 32 bits, as the TPU
 // kernels' int32 accumulator does.  This replaces the sequential K grid axis
-// of the Pallas kernels, whose accumulator lives in VMEM scratch.
-//
-// B is read either as a (K, N) row-major matrix or, with kTransB, as its
-// transpose stored (N, K) row-major (the SVM's un-transposed support
-// vectors); both loads are coalesced along the stored rows.
+// of the Pallas kernels, whose accumulator lives in VMEM scratch.  B is a
+// (K, N) row-major matrix; both operand loads are coalesced along the
+// stored rows.
 #pragma once
 
 #include "fxp_common.cuh"
@@ -28,7 +28,7 @@ struct TileSmem {
 
 // acc[t] = sum_k A[row0 + (tid / kBN) * kTM + t][k] * B[k][col0 + tid % kBN]
 // modulo 2^32.  Every thread of the block must call it (it synchronizes).
-template <typename T, bool kTransB>
+template <typename T>
 __device__ __forceinline__ void tile_dot(const T* __restrict__ a,
                                          const T* __restrict__ b, int M, int K,
                                          int N, int row0, int col0,
@@ -46,15 +46,9 @@ __device__ __forceinline__ void tile_dot(const T* __restrict__ a,
       s.a[r][c] = (gr < M && gc < K) ? (int32_t)a[(size_t)gr * K + gc] : 0;
     }
     for (int i = tid; i < kBK * kBN; i += kTileThreads) {
-      if (kTransB) {  // b is (N, K): neighbouring threads walk k
-        const int n = i / kBK, kk = i % kBK;
-        const int gn = col0 + n, gk = k0 + kk;
-        s.b[kk][n] = (gn < N && gk < K) ? (int32_t)b[(size_t)gn * K + gk] : 0;
-      } else {  // b is (K, N): neighbouring threads walk n
-        const int kk = i / kBN, n = i % kBN;
-        const int gk = k0 + kk, gn = col0 + n;
-        s.b[kk][n] = (gk < K && gn < N) ? (int32_t)b[(size_t)gk * N + gn] : 0;
-      }
+      const int kk = i / kBN, n = i % kBN;  // neighbouring threads walk n
+      const int gk = k0 + kk, gn = col0 + n;
+      s.b[kk][n] = (gk < K && gn < N) ? (int32_t)b[(size_t)gk * N + gn] : 0;
     }
     __syncthreads();
 #pragma unroll 8

@@ -4,9 +4,15 @@ Replaces the Pallas kernel ``repro/kernels/fxp_layer.py::fxp_layer_pallas``.
 Two versions of the same function live here:
 
 * :func:`fxp_layer_cuda` launches the hand-written Hopper kernel
-  (``csrc/fxp_layer.cu``): one block per 32x32 output tile, the TPU's
-  sequential K grid axis turned into a loop over shared-memory tiles, an
-  int32 accumulator that wraps at 32 bits, and the shared integer epilogue
+  (``csrc/fxp_layer.cu``), which picks its route by shape alone.  A layer
+  of at most 32 outputs whose weights fit :func:`narrow_plan` (every layer
+  the main paths launch: 561x6, 300x6, 300x10, 64x6) streams its rows
+  through persistent blocks that stage W once, a warp's lanes splitting K
+  and a shuffle butterfly summing their uint32 partials
+  (``csrc/fxp_layer_narrow.cuh``).  Any other layer runs one block per
+  32x32 output tile, the TPU's sequential K grid axis turned into a loop
+  over shared-memory tiles (``csrc/fxp_tile.cuh``).  Both wrap the int32
+  accumulator at 32 bits and run the shared integer epilogue
   (``csrc/fxp_common.cuh``).  It counts its launches in
   ``fxp_layer_cuda.launches``.
 * :func:`fxp_layer_plain` computes the same thing in PyTorch ops — an exact
@@ -23,7 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,7 +41,7 @@ from repro_torch.core.fixedpoint import FxpFormat
 from . import build
 
 __all__ = ["fxp_layer_plain", "fxp_layer_cuda", "epilogue_params",
-           "epilogue_plain",
+           "epilogue_plain", "narrow_plan", "NARROW_SMEM",
            "LAYER_ACTIVATIONS", "REPLACES"]
 
 # "none" = linear output layer (logits); the rest are Qn.m sigmoid variants.
@@ -45,6 +51,30 @@ REPLACES = "src/repro/kernels/fxp_layer.py:78"  # fxp_layer_pallas
 # Must match fxp::Act and fxp::Epilogue in csrc/fxp_common.cuh.
 _ACT_CODES = {"none": 0, "exact": 1, "rational": 2, "pwl2": 3, "pwl4": 4}
 EPILOGUE_FIELDS = 21
+
+# csrc/fxp_layer_narrow.cuh: the instances of the narrow route (N rounded
+# up), K staged in whole chunks, and one block's shared memory for W.
+_NARROW_BUCKETS = (1, 2, 4, 6, 8, 10, 16, 32)
+NARROW_K_CHUNK = 128
+NARROW_SMEM = 98_304
+
+
+def narrow_plan(k: int, n: int) -> Optional[Tuple[int, int, int, int, int]]:
+    """The narrow kernel's plan for a K x N layer, as ``narrow_plan`` in
+    ``csrc/fxp_layer_narrow.cuh`` computes it: (NB, rows a warp owns, W's
+    row stride in words, K padded to whole chunks, shared-memory bytes), or
+    None when the layer takes the tile loop (N > 32, or W past
+    ``NARROW_SMEM``)."""
+    nb = next((b for b in _NARROW_BUCKETS if b >= n), 0) if n >= 1 else 0
+    if k < 1 or not nb:
+        return None
+    vec = 4 if nb % 4 == 0 else 2 if nb % 2 == 0 else 1
+    stride = nb if (nb // vec) % 2 else nb + vec
+    k_pad = -(-k // NARROW_K_CHUNK) * NARROW_K_CHUNK
+    smem = 4 * (k_pad * stride + nb)
+    if smem > NARROW_SMEM:
+        return None
+    return nb, (4 if nb <= 10 else 32 // nb), stride, k_pad, smem
 
 
 @functools.lru_cache(maxsize=256)

@@ -27,8 +27,9 @@ models in one launch.
 * :func:`fxp_mlp_fleet_cuda` and :func:`fxp_svm_fleet_cuda` launch
   ``csrc/fxp_mlp_fleet.cu`` and ``csrc/fxp_svm_fleet.cu``: a grid of
   (batch blocks, E models) whose blocks run exactly the single-model bodies
-  (``csrc/fxp_mlp_body.cuh``, ``csrc/fxp_svm_body.cuh``) on their model's
-  slices, so slot e equals model e's own launch bit for bit.  Each model's
+  (``csrc/fxp_mlp_body.cuh``; the SVM's cluster body,
+  ``csrc/fxp_svm_body.cuh``, in clusters along the batch axis) on their
+  model's slices, so slot e equals model e's own launch bit for bit.  Each model's
   schedule or SVM parameters are a row of a small int64 table in device
   memory (:func:`mlp_fleet_table`, :func:`svm_fleet_table`, built once per
   fleet and device and cached), so per-model schedules cost nothing.
@@ -36,10 +37,11 @@ models in one launch.
   ``*_plain`` functions are the same functions in PyTorch ops.
 
 :func:`mlp_fits_smem` and :func:`svm_fits_smem` are the routing predicates
-that replace ``mlp_fits_vmem`` and ``svm_fits_vmem``: each counts what its
-kernel keeps in shared memory (the MLP's two activation buffers; the SVM's
-kernel-value tile, squared norms and operand tiles) against one block's
-227 KB.  ``REPRO_MEGAKERNEL_VMEM`` overrides the budget under the reference
+that replace ``mlp_fits_vmem`` and ``svm_fits_vmem``: each counts what the
+first version of its kernel kept in shared memory (the MLP's two activation
+buffers; the SVM's kernel-value tile, squared norms and operand tiles)
+against one block's 227 KB, and the redesigned kernels take every model
+those counts admit.  ``REPRO_MEGAKERNEL_VMEM`` overrides the budget under the reference
 package's name; ``0`` forces the per-layer route in both packages.
 :func:`mlp_fleet_fits_smem` and :func:`svm_fleet_fits_smem` replace the
 fleet predicates: one block runs one model, so a fleet fits whenever one of
@@ -217,21 +219,21 @@ fxp_mlp_model_cuda.launches = 0
 # kernel-SVM megakernel
 # --------------------------------------------------------------------------
 def svm_smem_bytes(n_sv: int, bm: int = MODEL_BLOCK_M) -> int:
-    """Shared memory of one block of the single-block SVM body
-    (``csrc/fxp_svm_body.cuh``, which the fleet kernel runs): the (bm, S)
-    int32 kernel-value tile, the S + bm int32 squared norms, and the two
-    int32 operand tiles of the shared tile loop (``csrc/fxp_tile.cuh``).
-    The features and classes stream through the tile and L1/L2.  The
-    single-model kernel splits the support vectors over a cluster and needs
-    less per block (at most 61 KB at S = 1696); the routing predicates keep
-    this count, so the megakernel takes exactly the models it took
-    before."""
+    """The SVM megakernels' routing count: what the first, single-block
+    SVM body held in one block's shared memory — the (bm, S) int32
+    kernel-value tile, the S + bm int32 squared norms and two 32 x 33 int32
+    operand tiles.  Both kernels now run the cluster body
+    (``csrc/fxp_svm_body.cuh``), which splits the support vectors over a
+    cluster of up to 8 blocks and needs less per block (``svm_plan``: at
+    most 61 KB at S = 1696); the predicates keep this count, so the
+    megakernel and the fleet take exactly the models they took before."""
     return 4 * (bm * int(n_sv) + int(n_sv) + bm) + 2 * 4 * TILE * (TILE + 1)
 
 
 def svm_fits_smem(n_sv: int, bm: int = MODEL_BLOCK_M) -> bool:
     """Whether the SVM megakernel takes a model of ``n_sv`` support vectors
-    (at every container width: the tiles are int32)."""
+    (at every container width: the tiles are int32): S <= 1696 at the
+    default budget (:func:`svm_smem_bytes`)."""
     return svm_smem_bytes(n_sv, bm) <= smem_budget()
 
 
@@ -342,8 +344,9 @@ def mlp_fleet_fits_smem(n_models: int, widths: Sequence[int], bits: int,
 def svm_fleet_fits_smem(n_models: int, n_sv: int,
                         bm: int = MODEL_BLOCK_M) -> bool:
     """Whether the fleet kernel takes ``n_models`` stacked kernel SVMs of
-    ``n_sv`` support vectors (one block runs one model:
-    :func:`svm_fits_smem`)."""
+    ``n_sv`` support vectors: a cluster runs rows of one model with the
+    single model's shared memory, so a fleet fits whenever one of its
+    models does (:func:`svm_fits_smem`), up to the grid's model axis."""
     return 1 <= int(n_models) <= MAX_MODELS and svm_fits_smem(n_sv, bm)
 
 

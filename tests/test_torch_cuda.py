@@ -335,6 +335,62 @@ def test_fxp_svm_fleet_kernel_matches_plain(dev, bits, kind):
         assert torch.equal(got, want), (e, m, f)
 
 
+@pytest.mark.parametrize("n", [1, 6, 10, 31, 32, 33])
+@pytest.mark.parametrize("bits", [8, 16, 32])
+def test_fxp_layer_narrow_route_matches_plain(dev, bits, n):
+    """The narrow route's shapes (N <= 32; 33 takes the tile loop) at K 1,
+    8, 300 and 561, every activation in turn, A a row slice (not 16-byte
+    aligned), full-range sums that wrap; and the largest K whose weights
+    fit the narrow route beside the first K past it."""
+    rng = np.random.RandomState(bits * 3 + n)
+    k_fit = max([k for k in range(1, 8192) if fxp_layer.narrow_plan(k, n)]
+                or [561])
+    cases = [(k, m, full) for k in (1, 8, 300, 561)
+             for m, full in ((1, True), (37, False), (3089, True))]
+    cases += [(k_fit, 65, False), (k_fit + 1, 65, False)]
+    for i, (k, m, full) in enumerate(cases):
+        act = ACTS[i % len(ACTS)]
+        fmt = FxpFormat(bits, bits - 1 if full else bits - 6)
+        shift = bits - 1 if full else 7
+        a = _ints(rng, (m + 1, k), bits, full).to(dev)[1:]
+        b = _ints(rng, (k, n), bits, full).to(dev)
+        bias = _ints(rng, (n,), bits, True).to(dev)
+        got = fxp_layer.fxp_layer_cuda(a, b, bias, fmt, act, shift)
+        want = fxp_layer.fxp_layer_plain(a, b, bias, fmt, act, shift)
+        assert torch.equal(got, want), (k, m, act)
+
+
+@pytest.mark.parametrize("kind", ["poly", "rbf"])
+@pytest.mark.parametrize("bits", [8, 16, 32])
+def test_fxp_svm_fleet_cluster_slots_match_model_kernel(dev, bits, kind):
+    """The fleet on the cluster body: E in {1, 2, 4, 8} x S around the
+    cluster split, each model its own parameters; the fleet equals its
+    plain version and each slot equals ``fxp_svm_model_cuda`` of that
+    model."""
+    rng = np.random.RandomState(bits * 5 + (kind == "rbf"))
+    for i, (e, s) in enumerate((e, s) for e in (1, 2, 4, 8)
+                               for s in (1, 31, 33, 300, 1696)):
+        m = (1, 31, 3298)[i % 3]
+        x = _ints(rng, (e, m, 8), bits, False).to(dev)
+        sv = _ints(rng, (e, s, 8), bits, False).to(dev)
+        dual = _ints(rng, (e, s, 10), bits, False).to(dev)
+        icept = _ints(rng, (e, 10), bits, True).to(dev)
+        params = []
+        for j in range(e):
+            frac = bits - 6 - j % 2
+            params.append((FxpFormat(bits, frac), FxpFormat(bits, frac - 1),
+                           int(rng.randint(1, 2 ** min(frac, bits - 2))),
+                           int(rng.randint(-2 ** frac, 2 ** frac)),
+                           1 + j % 3, frac // 2 + j % 2))
+        got = fxp_model.fxp_svm_fleet_cuda(x, sv, dual, icept, kind, params)
+        want = fxp_model.fxp_svm_fleet_plain(x, sv, dual, icept, kind, params)
+        assert torch.equal(got, want), (e, s, m)
+        for j, p in enumerate(params):
+            solo = fxp_model.fxp_svm_model_cuda(x[j], sv[j], dual[j],
+                                                icept[j], kind, *p)
+            assert torch.equal(got[j], solo), (e, s, m, j)
+
+
 def test_service_fleet_on_card_matches_host(dev):
     from repro_torch.serve import BatchingPolicy, InferenceService
 

@@ -189,3 +189,85 @@ def test_cuda_elementwise_helpers_match_plain(host_ops, bits, frac):
     np.testing.assert_array_equal(
         want[:600].numpy(),
         tfx.qsq_norm(torch.from_numpy(q).to(fmt.dtype), fmt).numpy())
+
+
+HELPERS_HARNESS = r"""
+#include "fxp_common.cuh"
+extern "C" void helpers(const long long* x, const int* m, int n,
+                        long long* rshr_out, long long* wrap_out,
+                        long long* shl_out) {
+  for (int i = 0; i < n; ++i) {
+    rshr_out[i] = fxp::rshr(x[i], m[i]);
+    wrap_out[i] = fxp::wrap(x[i], m[i] + 1);
+    shl_out[i] = fxp::shl(x[i], m[i]);
+  }
+}
+extern "C" void qexp_const(const int32_t* x, int n, const long long* epi,
+                           int32_t* out) {
+  const fxp::Epilogue e = fxp::epilogue_from(epi);
+  for (int i = 0; i < n; ++i)  // the container's widths as constants
+    out[i] = e.tb == 32 ? fxp::qexp_w(x[i], e, 32, 64)
+           : e.tb == 16 ? fxp::qexp_w(x[i], e, 16, 32)
+                        : fxp::qexp_w(x[i], e, 8, 16);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_helpers(tmp_path_factory):
+    lib = _host_build(tmp_path_factory, "helpers", HELPERS_HARNESS)
+    lib.helpers.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] + [
+        ctypes.c_void_p] * 3
+    lib.qexp_const.argtypes = [ctypes.c_void_p, ctypes.c_int] + [
+        ctypes.c_void_p] * 2
+    return lib
+
+
+def test_64bit_helpers_match_integer_semantics(host_helpers):
+    """``rshr`` (round-to-nearest shift, ties away from zero), ``wrap``
+    (two's-complement wrap to a width) and ``shl`` (shift mod 2^64) against
+    Python integers, on int64 extremes, their neighbours and random values
+    of every magnitude, at every shift and width."""
+    rng = np.random.RandomState(64)
+    n = 60000
+    x = rng.randint(-2 ** 63, 2 ** 63 - 1, n, dtype=np.int64)
+    x[::3] >>= rng.randint(0, 63, x[::3].size)
+    edges = [-2 ** 63, -2 ** 63 + 1, -1, 0, 1, 2 ** 63 - 2, 2 ** 63 - 1]
+    x[:len(edges) * 64] = np.repeat(edges, 64)
+    m = rng.randint(0, 64, n).astype(np.int32)
+    m[:len(edges) * 64] = np.tile(np.arange(64), len(edges))
+    outs = [np.empty(n, np.int64) for _ in range(3)]
+    host_helpers.helpers(x.ctypes.data, m.ctypes.data, n,
+                         *(o.ctypes.data for o in outs))
+
+    def signed(v, bits=64):
+        v %= 2 ** bits
+        return v - 2 ** bits if v >= 2 ** (bits - 1) else v
+
+    for i, (xi, mi) in enumerate(zip(x.tolist(), m.tolist())):
+        if mi == 0:
+            want = xi
+        else:
+            q, rem = xi >> mi, xi - ((xi >> mi) << mi)
+            want = q + (1 if rem > (1 << (mi - 1)) - (xi >= 0) else 0)
+        assert outs[0][i] == want, ("rshr", xi, mi)
+        assert outs[1][i] == signed(xi, mi + 1), ("wrap", xi, mi + 1)
+        assert outs[2][i] == signed(xi << mi), ("shl", xi, mi)
+
+
+@pytest.mark.parametrize("bits,frac", FORMATS,
+                         ids=[f"w{b}m{m}" for b, m in FORMATS])
+def test_qexp_with_constant_widths_matches_plain(host_helpers, bits, frac):
+    """``qexp_w`` with the container's widths as compile-time constants (the
+    SVM body's fxp32 algebra) equals the plain ``qexp`` on every container
+    value class: extremes, small magnitudes and random values."""
+    fmt = tfx.FxpFormat(bits, frac)
+    a, _ = _container_edges(fmt, seed=bits * 32 + frac)
+    small = np.arange(-4 * fmt.scale, 4 * fmt.scale + 1, max(1, fmt.scale // 64))
+    x = np.clip(np.concatenate([a, small]), fmt.qmin, fmt.qmax).astype(np.int32)
+    epi = np.ascontiguousarray(fxp_layer.epilogue_params(frac, fmt, "none"))
+    out = np.empty(x.size, np.int32)
+    host_helpers.qexp_const(x.ctypes.data, x.size, epi.ctypes.data,
+                            out.ctypes.data)
+    want = tfx.qexp(torch.from_numpy(x).to(fmt.dtype), fmt)
+    np.testing.assert_array_equal(out, want.to(torch.int32).numpy())

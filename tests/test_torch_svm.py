@@ -11,7 +11,10 @@
   sends the paper's D5 and D6 SVMs to the megakernel.
 * The CUDA megakernel's split of the decision sum over a cluster's blocks,
   modelled in plain torch for any split into G slices, against
-  ``fxp_svm_model_plain``.
+  ``fxp_svm_model_plain``; the same for every slot of a fleet of models
+  with their own parameters (the fleet kernel runs the same cluster body),
+  against ``fxp_svm_fleet_plain``; and the cluster's launch plan, compiled
+  for the host, for every support-vector count the predicates admit.
 """
 
 import jax.numpy as jnp
@@ -233,3 +236,108 @@ def test_split_decision_stage_is_bit_exact(bits, n_sv, kind):
         slices = tuple(zip(edges, edges[1:]))
         got = _split_decision(k, dual, icept, out_fmt, frac, slices)
         assert torch.equal(got, want), (g, slices)
+
+
+@pytest.mark.parametrize("kind", ["poly", "rbf"])
+@pytest.mark.parametrize("bits", [8, 16, 32])
+def test_fleet_split_decision_is_bit_exact(bits, kind):
+    """The fleet kernel runs the cluster body on every model: slot e splits
+    model e's support vectors over the cluster exactly as model e's own
+    launch does.  E = 3 models, each with its own formats, q(gamma),
+    q(coef0), degree and dec_shift, each split into G slices: every split
+    equals the slot of ``fxp_svm_fleet_plain`` and ``fxp_svm_model_plain``
+    of that model, with duals at qmin/qmax so that the partial sums wrap at
+    16 and 32 bits."""
+    rng = np.random.RandomState(bits * 13 + len(kind))
+    e_models, n_sv = 3, 130
+    qmin, qmax = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
+    mag = None if kind == "poly" else bits // 4
+    qx, sv = (torch.from_numpy(_ints(rng, shape, bits, mag))
+              for shape in ((e_models, M, F), (e_models, n_sv, F)))
+    dual = torch.from_numpy(np.where(rng.rand(e_models, n_sv, C) < 0.5, qmin,
+                                     qmax).astype(NP[bits]))
+    icept = torch.from_numpy(_ints(rng, (e_models, C), bits))
+    params = []
+    for e in range(e_models):
+        frac = bits // 4 + 2 - e % 2
+        fmt, out_fmt = tfx.FxpFormat(bits, frac), tfx.FxpFormat(bits, frac - 1)
+        if kind == "poly":  # model 0's kernel values at the extremes
+            qgamma = qmax if e == 0 else int(rng.randint(1, qmax))
+            qcoef0 = int(rng.randint(-(2 ** frac), 2 ** frac))
+        else:
+            qgamma, qcoef0 = 1 + e, 0
+        params.append((fmt, out_fmt, qgamma, qcoef0, 1 + e, frac - e % 2))
+    fleet = tmodel.fxp_svm_fleet_plain(qx, sv, dual, icept, kind, params)
+    wrapped = 0
+    for e, (fmt, out_fmt, qgamma, qcoef0, degree, dec) in enumerate(params):
+        want = tmodel.fxp_svm_model_plain(qx[e], sv[e], dual[e], icept[e],
+                                          kind, *params[e])
+        assert torch.equal(fleet[e], want), e
+        dot = tfx.rshift_round_saturate(
+            tfx.imatmul(qx[e], sv[e].T, torch.int32), fmt)
+        k = tref.svm_kernel_values(dot, qx[e], sv[e], kind, fmt, qgamma,
+                                   qcoef0, degree)
+        true = k.to(torch.float64) @ dual[e].to(torch.float64)
+        wrapped += int(float(true.abs().max()) >= 2 ** 31)
+        for g in (1, 2, 3, 5, 8):
+            edges = [i * n_sv // g for i in range(g + 1)]
+            slices = tuple(zip(edges, edges[1:]))
+            got = _split_decision(k, dual[e], icept[e], out_fmt, dec, slices)
+            assert torch.equal(got, want), (e, g, slices)
+    assert bits == 8 or kind == "rbf" or wrapped  # poly sums wrap
+
+
+SVM_PLAN_HARNESS = r"""
+#include "fxp_svm_body.cuh"
+extern "C" int plan(int S, int* out) {
+  fxp::SvmPlan p;
+  if (!fxp::svm_plan(S, &p)) return 0;
+  out[0] = p.n_chunks; out[1] = p.g; out[2] = p.cap; out[3] = p.smem;
+  return 1;
+}
+extern "C" void rank_chunks(int rank, int g, int n_chunks, int* out) {
+  fxp::svm_rank_chunks(rank, g, n_chunks, out, out + 1);
+}
+"""
+
+
+def test_cluster_plan_splits_every_admitted_model(tmp_path_factory,
+                                                  monkeypatch):
+    """The cluster body's plan (``svm_plan`` in ``csrc/fxp_svm_body.cuh``,
+    compiled for the host): for every S the routing predicate admits, a
+    cluster of at most 8 blocks whose ranks own contiguous, non-empty runs
+    of 64-vector chunks covering all S vectors, within one block's shared
+    memory; the fleet admits what the single model admits, whatever E."""
+    import ctypes
+
+    from test_torch_epilogue import _host_build
+    from repro_torch.kernels.tune import SMEM_PER_BLOCK
+
+    monkeypatch.delenv("REPRO_MEGAKERNEL_VMEM", raising=False)
+    lib = _host_build(tmp_path_factory, "svm_plan", SVM_PLAN_HARNESS)
+    lib.plan.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.rank_chunks.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    admitted = 0
+    for s in range(1, 1800):
+        if not tmodel.svm_fits_smem(s):
+            assert s > 1696
+            continue
+        admitted += 1
+        assert tmodel.svm_fleet_fits_smem(4, s)
+        out = (ctypes.c_int * 4)()
+        assert lib.plan(s, out) == 1, s
+        n_chunks, g, cap, smem = out
+        assert n_chunks == -(-s // 64) and g == min(8, n_chunks)
+        assert cap % 64 == 0 and g * cap >= s and smem <= SMEM_PER_BLOCK
+        covered = 0
+        for rank in range(g):
+            rc = (ctypes.c_int * 2)()
+            lib.rank_chunks(rank, g, n_chunks, rc)
+            begin, end = rc
+            assert begin == covered and end > begin, (s, rank)
+            n_local = min(s, end * 64) - begin * 64
+            assert 1 <= n_local <= cap
+            covered = end
+        assert covered == n_chunks
+    assert admitted == 1696
+    assert not tmodel.svm_fleet_fits_smem(0, 300)
