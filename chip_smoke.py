@@ -12,11 +12,13 @@ Phases, each of which raises on failure:
    csrc`` (nine sources, one ``nvcc`` each, in parallel) and print the
    build time and ``ptxas`` resource lines (by instance for the kernels
    redesigned for Hopper: flash_attention, fxp_svm_model, fxp_mlp_model,
-   fxp_mlp_fleet, fxp_svm_fleet and fxp_layer), and, where the toolkit's ``cuobjdump`` exists, the count
+   fxp_mlp_fleet, fxp_svm_fleet, fxp_layer, fxp_qmatmul and
+   tree_ensemble), and, where the toolkit's ``cuobjdump`` exists, the count
    of tensor-core MMA instructions in the SASS: HMMA in each
-   flash_attention instance, IMMA in each MLP megakernel instance (a bf16
-   flash instance without HMMA, or an 8- or 16-bit MLP instance without
-   IMMA, fails).  Then the data: D6 ("har") and
+   flash_attention instance, IMMA in each MLP megakernel instance and in
+   each instance of the integer tile (fxp_qmatmul, fxp_layer's wide route;
+   a bf16 flash instance without HMMA, or an 8- or 16-bit MLP instance or
+   a tile instance without IMMA, fails).  Then the data: D6 ("har") and
    D5 ("pendigits") from their seeds, and the D6 tree trained by the port's
    CART (``max_depth=12``).
 3. Each kernel against its plain PyTorch version on the card, bit for bit,
@@ -27,7 +29,7 @@ Phases, each of which raises on failure:
    * ``fxp_layer``'s narrow route: N in {1, 6, 10, 31, 32, 33} x K in
      {1, 8, 300, 561} at every activation, batches 1..65536, A a row slice
      (not 16-byte aligned), and at N 6 and 32 the largest K whose weights
-     fit the narrow route beside the first K past it (the tile loop); at
+     fit the narrow route beside the first K past it (the wide route); at
      least one case's int32 dot must wrap;
    * the MLP megakernels' tensor-core body at every container width: K not
      a multiple of 32 (561, 8, 33), N not a multiple of 8 (6, 10), widths
@@ -35,14 +37,23 @@ Phases, each of which raises on failure:
      1..65536 around the 16-row tile, fleets of 2 and 8 whose slices start
      off a 16-byte boundary (M 3089, K 561), a logistic fleet (561 -> 6),
      full-range and edge values; at least one case's int32 dot must wrap;
-   * ``fxp_qmatmul``: (M,561)x(561,300) and (M,8)x(8,300);
+   * ``fxp_qmatmul`` on the int8 tensor-core tile, at every container
+     width: M in {1, 7, 64, 3089, 65536} x K in {8, 33, 561} x N in {6,
+     300, 301}, the regimes in turn (all three at M 7), A a row slice every
+     other case; K 40000 with full-range values (an s32 partial wraps); at
+     least one case's int32 dot must wrap at 16 and at 32 bits;
+   * ``fxp_layer``'s wide route (the same tile) at 561x64 on row slices of
+     A that are not 16-byte aligned, M 7, 3089 and 65536;
    * ``fxp_svm_model``: poly and rbf at the D6 shapes (S=300, F=561, C=6)
      and the D5 shapes (S=300, F=8, C=10), nonzero random q(gamma) and
      q(coef0), degrees 1-3; and the cluster's split of the support vectors
      at S in {1, 31, 33, 300, 1696} (1696: the fit predicate's limit) x
      batches {1, 31, 3089, 65536};
    * ``tree_ensemble``: the trained D6 tree on float rows with NaN and
-     +-inf values, and on fxp16/fxp32 rows;
+     +-inf values, and on int8, int16 and int32 containers (int32 rows in
+     [2^24, 2^31), where the cast rounds, among them), batches 1..65536,
+     with the node table in shared memory and, the budget lowered to 0
+     nodes, in device memory;
    * ``fxp_mlp_fleet``: E in {2, 8} stacked 561->64->6 MLPs, one schedule
      for all and one per model, ragged and full batches, and full-range
      values whose int32 sums wrap;
@@ -126,14 +137,19 @@ Phases, each of which raises on failure:
    torch.profiler trace besides (below ~0.04 ms the CUDA-event loop
    measures the host's launch cost), and fxp_svm_model's at fxp16 rbf
    at every timed batch, fxp_layer's at the logistic head (fxp16, 3089 and
-   65536 rows) and at the SVM per-layer route's decision stage (3089 x 300
-   x 6 and 65536 rows); each kernel and its plain version
+   65536 rows), at the SVM per-layer route's decision stage (3089 x 300
+   x 6 and 65536 rows) and on its wide route at the per-layer MLP's first
+   layer (561 x 64, fxp16, auto8 and fxp32), fxp_qmatmul's and
+   tree_ensemble's at 3089 and 65536 rows (the tree on the container the
+   lowering passes it); each kernel and its plain version
    at batches 1, 64, 3089 and 65536 (the fleet kernels at 3089 or 3298 and
    65536, fxp_svm_fleet also at a 64-row serving round, beside eight
    fxp_mlp_model and four fxp_svm_model launches), beside the bound;
    ``predict`` end to end and by stage (pageable and pinned rows); the
    host time of ``FleetStack.predict_device`` beside the time until the
-   card is done (equal times would mean a hidden synchronization); and the
+   card is done (equal times would mean a hidden synchronization); the
+   device activities of one fxp16 tree predict beside the route of the
+   first tree lowering (a float32 cast before the kernel); and the
    first serving record: 8 D6 MLP endpoints, 8 client threads each sending
    500 one-row requests one at a time, fleet off and on.
 
@@ -205,18 +221,26 @@ SVM_FLEET_BATCHES = (1, 31, 3298, 65536)  # 3298: the D5 test split
 LAYER_NS = (1, 6, 10, 31, 32, 33)
 LAYER_KS = (1, 8, 300, 561)
 LAYER_BATCHES = (1, 7, 31, 64, 3089, 65536)
+# fxp_qmatmul on the int8 tensor-core tile (csrc/fxp_tile.cuh): K at D5's
+# 8, one past a k32 step and D6's 561; N at the 6 classes, the 300
+# prototypes and one past them
+QMATMUL_KS = (8, 33, 561)
+QMATMUL_NS = (6, 300, 301)
 LM_ARCH = "qwen2-0.5b"  # src/repro_torch/configs/qwen2_0_5b.py, full width
 LM_BATCH, LM_SEQ = 4, 2048  # the bf16 prefill
 LM_DECODE_BATCH, LM_DECODE_STEPS = 2, 12  # the float32 decode-vs-forward check
 LM_GEN_BATCH, LM_GEN_TOKENS = 4, 32  # generate on each served target
 # the kernels redesigned for Hopper: their ptxas lines by instance
 REDESIGNED = ("flash_attention", "fxp_svm_model", "fxp_mlp_model",
-              "fxp_mlp_fleet", "fxp_svm_fleet", "fxp_layer")
+              "fxp_mlp_fleet", "fxp_svm_fleet", "fxp_layer", "fxp_qmatmul",
+              "tree_ensemble")
 # tensor-core MMA in the SASS: (library, instance name part, opcode); each
 # instance whose name holds the part must issue the opcode
 TENSOR_CORE_SASS = (("flash_attention", "bfloat16", "HMMA"),
                     ("fxp_mlp_model", "mma_kernel", "IMMA"),
-                    ("fxp_mlp_fleet", "mma_kernel", "IMMA"))
+                    ("fxp_mlp_fleet", "mma_kernel", "IMMA"),
+                    ("fxp_qmatmul", "fxp_qmatmul_kernel", "IMMA"),
+                    ("fxp_layer", "fxp_layer_kernel", "IMMA"))
 
 
 def log(*args):
@@ -293,6 +317,13 @@ class Device:
         product at 16 bits (split bytes), the CUDA cores at 32 bits."""
         return {8: INT8_TENSOR_OPS_PER_S, 16: INT8_TENSOR_OPS_PER_S / 4,
                 32: self.int32_ops_per_s}[bits]
+
+    def tile_peak(self, bits: int) -> float:
+        """Peak rate of a container width's products on the integer tile of
+        fxp_qmatmul and fxp_layer's wide route: every width on the int8
+        tensor cores, one, four or ten int8 MMAs a product (byte planes
+        whose pairs i + j <= 3 survive mod 2^32)."""
+        return INT8_TENSOR_OPS_PER_S / {8: 1, 16: 4, 32: 10}[bits]
 
     def bound(self, nbytes: int, ops: int, peak: float):
         """(bound_ms, bound_by): the larger of bytes over the memory rate and
@@ -392,6 +423,9 @@ class KernelCheck:
         self.mlp_wrapped = 0  # MLP cases whose first int32 dot wrapped
         self.layer_wrapped = 0  # fxp_layer cases whose int32 dot wrapped
         self.layer_routes = {"narrow": 0, "tile": 0}
+        # fxp_qmatmul cases whose int32 dot wrapped, by container width
+        self.qmatmul_wrapped = {8: 0, 16: 0, 32: 0}
+        self.tree_routes = {"smem": 0, "global": 0}
         self.flash_err = {}  # dtype -> max abs err of flash_attention
         self.flash_row_rel = 0.0  # bf16: max per-row relative error
 
@@ -778,16 +812,70 @@ class KernelCheck:
         self._compare("fxp_mlp_model", got, want,
                       f"w{bits} {m}x{dims} {act} shifts {shifts} {regime}")
 
-    def qmatmul_case(self, rng, bits, m, k, n, regime):
-        K = self.K
+    def qmatmul_case(self, rng, bits, m, k, n, regime, offset=0):
+        """``offset`` rows dropped from the front of A (a row slice at any
+        alignment).  Counts the cases whose int32 dot wrapped (first 64
+        rows, float64)."""
+        K, torch = self.K, self.torch
         frac = {"mid": bits - 6, "full": bits - 2, "edge": bits - 1}[regime]
         fmt = K.fxp.FxpFormat(bits, frac)
-        a, b = self._cuda(_ints(rng, (m, k), bits, regime),
+        a, b = self._cuda(_ints(rng, (m + offset, k), bits, regime),
                           _ints(rng, (k, n), bits, regime))
+        a = a[offset:]
         got = K.qm.fxp_qmatmul_cuda(a, b, fmt)
         want = K.qm.fxp_qmatmul_plain(a, b, fmt)
+        dot = a[:64].to(torch.float64) @ b.to(torch.float64)
+        self.qmatmul_wrapped[bits] += int(dot.abs().max() >= 2 ** 31)
         self._compare("fxp_qmatmul", got, want,
-                      f"w{bits} {m}x{k}x{n} m={frac} {regime}")
+                      f"w{bits} {m}x{k}x{n} m={frac} {regime} offset {offset}")
+
+    def qmatmul_cases(self, rng, bits):
+        """The tensor-core tile: M in BATCHES x K in QMATMUL_KS x N in
+        QMATMUL_NS, the regimes in turn and all three at M 7, A a row slice
+        every other case; a K past the point where one s32 partial of
+        full-range 16-bit values would overflow (the accumulators wrap)."""
+        regimes = ("mid", "full", "edge")
+        i = 0
+        for m in BATCHES:
+            for k in QMATMUL_KS:
+                for n in QMATMUL_NS:
+                    for regime in (regimes if m == 7 else (regimes[i % 3],)):
+                        self.qmatmul_case(rng, bits, m, k, n, regime,
+                                          offset=i % 2)
+                        i += 1
+        self.qmatmul_case(rng, bits, 5, 40000, 9, "full")
+
+    def tree_cases(self, tree, x_rows):
+        """The tree on float rows with non-finite values and on every
+        integer container (int32 rows in [2^24, 2^31) among them, where
+        the cast rounds), with the node table in shared memory and, the
+        budget lowered to 0 nodes, in device memory."""
+        torch, fxp, te = self.torch, self.K.fxp, self.K.te
+        rows = np.resize(x_rows, (max(BATCHES), x_rows.shape[1]))
+        flt = torch.from_numpy(non_finite_rows(rows, tree)).cuda()
+        finite = torch.from_numpy(rows).cuda()
+        cases = [(tree, flt, "flt")]
+        for fmt in (fxp.FxpFormat(8, 4), fxp.FXP16, fxp.FXP32,
+                    fxp.FxpFormat(32, 28)):
+            cases.append((tree.quantized(fmt), fxp.quantize(finite, fmt),
+                          str(fmt)))
+        rng = np.random.RandomState(7)
+        big = (rng.randint(2 ** 24, 2 ** 31 - 1, rows.shape)
+               * rng.choice([-1, 1], rows.shape)).astype(np.int32)
+        cases.append((tree.quantized(fxp.FxpFormat(32, 28)),
+                      torch.from_numpy(big).cuda(), "int32 in [2^24, 2^31)"))
+        budget = te.TABLE_SMEM_NODES
+        try:
+            for route, limit in (("smem", budget), ("global", 0)):
+                te.TABLE_SMEM_NODES = limit
+                for t, x, what in cases:
+                    if te.table_in_smem(t.n_nodes) != (route == "smem"):
+                        raise AssertionError(f"tree table route: {route}")
+                    for m in BATCHES:
+                        self.tree_case(t, x[:m], f"{what} batch {m} {route}")
+                        self.tree_routes[route] += 1
+        finally:
+            te.TABLE_SMEM_NODES = budget
 
     def svm_case(self, rng, bits, m, f, s, c, kind, regime):
         K, torch = self.K, self.torch
@@ -850,12 +938,8 @@ class KernelCheck:
                                        ("edge", (0, bits - 1))):
                     self.model_case(rng, bits, 64, (561, 64, 6), act, shifts,
                                     (bits - 1, 0), regime)
-            # the SVM per-layer route's first stage, D6 and D5 widths
-            for k in (561, 8):
-                for regime in regimes:
-                    self.qmatmul_case(rng, bits, 7, k, N_PROTOTYPES, regime)
-                for m in BATCHES:
-                    self.qmatmul_case(rng, bits, m, k, N_PROTOTYPES, "mid")
+            # the SVM per-layer route's first stage on the tensor-core tile
+            self.qmatmul_cases(rng, bits)
             # the SVM megakernel at the D6 and D5 shapes
             for f, c in ((561, 6), (8, 10)):
                 for kind in ("poly", "rbf"):
@@ -880,6 +964,15 @@ class KernelCheck:
             # fxp_layer's narrow route and its edges; the SVM fleet on the
             # cluster body
             self.layer_narrow_cases(rng, bits)
+            # fxp_layer's wide route (the tile shared with fxp_qmatmul) on
+            # a row slice of A that is not 16-byte aligned
+            for j, m in enumerate((7, 3089, 65536)):
+                regime = ("mid", "full", "edge")[j]
+                shift = {"mid": _mid_shift(bits, 561), "full": bits - 1,
+                         "edge": 0}[regime]
+                self.layer_case(rng, bits, m, 561, 64, acts[j + 1], shift,
+                                bits - 6 if regime == "mid" else bits - 1,
+                                regime, offset=1 + j)
             self.svm_fleet_cases(rng, bits)
             # the fleet kernels: E in {2, 8}, uniform and per-model
             # schedules, ragged and full batches, int32-wrapping sums
@@ -901,24 +994,17 @@ class KernelCheck:
             raise AssertionError("no MLP case wrapped the int32 dot")
         if not self.layer_wrapped:
             raise AssertionError("no fxp_layer case wrapped the int32 dot")
+        if not (self.qmatmul_wrapped[16] and self.qmatmul_wrapped[32]):
+            raise AssertionError(f"fxp_qmatmul cases that wrapped the int32 "
+                                 f"dot, by width: {self.qmatmul_wrapped}")
         torch = self.torch
         for variant in self.K.pwl.PWL_VARIANTS:
             for dtype in (None, torch.float16, torch.bfloat16):
                 for shape in ((3089, 64), (7, 13), (5, 3, 2)):
                     self.pwl_case(rng, shape, variant, dtype=dtype)
                 self.pwl_case(rng, (4097,), variant, offset=1, dtype=dtype)
-        # the tree on float rows with non-finite values, and quantized rows
-        torch, fxp = self.torch, self.K.fxp
-        rows = np.resize(x_rows, (max(BATCHES), x_rows.shape[1]))
-        flt = torch.from_numpy(non_finite_rows(rows, tree)).cuda()
-        finite = torch.from_numpy(rows).cuda()
-        for m in BATCHES:
-            self.tree_case(tree, flt[:m], f"flt batch {m}")
-        for fmt in (fxp.FXP16, fxp.FXP32):
-            qt = tree.quantized(fmt)
-            qx = fxp.quantize(finite, fmt).to(torch.float32)
-            for m in BATCHES:
-                self.tree_case(qt, qx[:m], f"{fmt} batch {m}")
+        # the tree on float rows with non-finite values and on containers
+        self.tree_cases(tree, x_rows)
         # flash_attention: float32 and bf16, causal and full, every head
         # dim, ragged and tile-aligned S, one head and the LM's 56
         torch = self.torch
@@ -948,7 +1034,9 @@ class KernelCheck:
             f"{self.flash_row_rel:.4e}) (max abs err {self.max_abs_err}; "
             f"{self.wrapped} SVM cases, {self.mlp_wrapped} MLP cases and "
             f"{self.layer_wrapped} fxp_layer cases wrapped the int32 dot; "
-            f"fxp_layer routes {self.layer_routes})")
+            f"fxp_layer routes {self.layer_routes}; fxp_qmatmul cases that "
+            f"wrapped the int32 dot by width {self.qmatmul_wrapped}; "
+            f"tree_ensemble table routes {self.tree_routes})")
 
 
 # --------------------------------------------------------------------------
@@ -968,7 +1056,7 @@ def plain_labels(torch, K, art, model, x):
             spec["feature"], spec["threshold"], spec["left"], spec["right"],
             spec["leaf_class"], spec["max_depth"], model.tree.n_classes,
             model.tree.n_features)
-        qx = K.fxp.quantize(xt, spec["in_fmt"]).to(torch.float32)
+        qx = K.fxp.quantize(xt, spec["in_fmt"])
         return K.te.tree_ensemble_plain(tree, qx).cpu().numpy()
     if family == "svm":
         qx = K.fxp.quantize(xt, spec["fmt"])
@@ -1723,9 +1811,32 @@ def time_mlp(torch, K, T, arts, x_big, n_test):
                            profile=tag == "fxp16" and m >= n_test)
 
 
+def time_layer_wide(torch, K, T, arts, x_big, n_test):
+    """fxp_layer's wide route (the integer tile shared with fxp_qmatmul) at
+    the per-layer MLP route's first layer, 561 x 64, with its activation."""
+    for tag in ("fxp16", "auto8", "fxp32"):
+        spec = arts[("mlp", tag)].extras["emit_spec"]
+        bits = spec["in_fmt"].total_bits
+        w = torch.from_numpy(spec["ws"][0]).cuda()
+        b = torch.from_numpy(spec["bs"][0]).cuda()
+        layer = (spec["out_fmts"][0], spec["acts"][0], spec["shifts"][0])
+        for m in (n_test, max(TIMED_BATCHES)):
+            qx = K.fxp.quantize(torch.from_numpy(x_big[:m]).cuda(),
+                                spec["in_fmt"])
+            kern = lambda: K.layer.fxp_layer_cuda(qx, w, b, *layer)
+            plain = lambda: K.layer.fxp_layer_plain(qx, w, b, *layer)
+            out = kern()
+            T.time("fxp_layer", f"{tag} 561x64", m, kern, plain,
+                   _nbytes(qx, w, b, out), 2 * m * w.numel(),
+                   T.dev.tile_peak(bits), False, "fxp_layer.cu",
+                   K.layer.REPLACES, profile=True)
+
+
 def path_steps(torch, tree, x):
-    """Node compares the rows ``x`` (on the card) need: the depth of the
-    leaf each row reaches."""
+    """Node compares the rows ``x`` (on the card; float32 or a container,
+    cast as the kernel casts) need: the depth of the leaf each row
+    reaches."""
+    x = x.to(torch.float32)
     feat = torch.from_numpy(tree.feature.astype(np.int64)).to(x.device)
     thr = torch.from_numpy(tree.threshold.astype(np.float32)).to(x.device)
     left = torch.from_numpy(tree.left.astype(np.int64)).to(x.device)
@@ -1753,21 +1864,28 @@ def time_tree_svm(torch, K, T, arts, tree_model, x_big, n_test):
             spec["feature"], spec["threshold"], spec["left"], spec["right"],
             spec["leaf_class"], spec["max_depth"], tree_model.tree.n_classes,
             tree_model.tree.n_features)
-        node_bytes = 20 * tree.n_nodes  # five 4-byte node arrays
+        node_bytes = 16 * tree.n_nodes  # one 16-byte record a node
         for m in TIMED_BATCHES:
             x = torch.from_numpy(x_big[:m]).cuda()
-            if spec is not None:
-                x = K.fxp.quantize(x, spec["in_fmt"]).to(torch.float32)
+            if spec is not None:  # the container, as the lowering passes it
+                x = K.fxp.quantize(x, spec["in_fmt"])
             kern = lambda: K.te.tree_ensemble_cuda(tree, x)
             plain = lambda: K.te.tree_ensemble_plain(tree, x)
             out = kern()
-            # the scan reads whole rows (F finiteness tests each), then
-            # one compare per node on each row's path
-            ops = m * x.shape[1] + path_steps(torch, tree, x)
+            steps = path_steps(torch, tree, x)
+            if spec is None:
+                # float32 rows are read whole (F finiteness tests each),
+                # then one compare per node on each row's path
+                ops, row_bytes = m * x.shape[1] + steps, _nbytes(x)
+            else:
+                # a container: the features on the path, one 32-byte
+                # sector each
+                ops, row_bytes = steps, 32 * steps
             T.time("tree_ensemble", tag, m, kern, plain,
-                   _nbytes(x, out) + node_bytes, ops, FP32_OPS_PER_S,
-                   tag == "fxp16" and m == n_test, "tree_ensemble.cu",
-                   K.te.REPLACES)
+                   row_bytes + _nbytes(out) + node_bytes, ops,
+                   FP32_OPS_PER_S, tag == "fxp16" and m == n_test,
+                   "tree_ensemble.cu", K.te.REPLACES,
+                   profile=m >= n_test)
         if tag == "flt":
             continue
         # fxp_svm_model (rbf and poly) and the per-layer fxp_qmatmul
@@ -1800,8 +1918,8 @@ def time_tree_svm(torch, K, T, arts, tree_model, x_big, n_test):
                 out = kern()
                 T.time("fxp_qmatmul", tag, m, kern, plain,
                        _nbytes(qx, svt, out), 2 * m * f * s,
-                       T.dev.int_peak(bits), tag == "fxp16" and m == n_test,
-                       "fxp_qmatmul.cu", K.qm.REPLACES)
+                       T.dev.tile_peak(bits), tag == "fxp16" and m == n_test,
+                       "fxp_qmatmul.cu", K.qm.REPLACES, profile=m >= n_test)
                 if tag != "fxp16" or m < n_test:
                     continue
                 # the per-layer route's decision stage: fxp_layer on the
@@ -1871,6 +1989,30 @@ def predict_breakdown(torch, K, art, x_big, batches, pinned=False):
                           for name, t in times.items())
         log(f"  predict stages, mlp {art.target.number_format}, batch {m}, "
             f"{'pinned' if pinned else 'pageable'} rows (ms): {parts}")
+
+
+def tree_predict_kernels(torch, K, art, x):
+    """The device work of one quantized tree predict, beside the route of
+    the port's first tree lowering (quantize, cast to float32, the kernel on
+    the float rows), which the kernel's container input replaced."""
+    spec = art.extras["emit_spec"]
+    tree = K.trees.TreeArrays(
+        spec["feature"], spec["threshold"], spec["left"], spec["right"],
+        spec["leaf_class"], spec["max_depth"], 0, x.shape[1])
+    xt = torch.from_numpy(x).cuda()
+    routes = (
+        ("predict", lambda: art.predict(x)),
+        ("quantize + kernel on the container", lambda: K.te.tree_ensemble_cuda(
+            tree, K.fxp.quantize_with_stats(xt, spec["in_fmt"])[0])),
+        ("quantize + cast + kernel on float32 rows (the first lowering)",
+         lambda: K.te.tree_ensemble_cuda(tree, K.fxp.quantize_with_stats(
+             xt, spec["in_fmt"])[0].to(torch.float32))))
+    for what, fn in routes:
+        fn()
+        prof = _kernel_profile(torch, fn)
+        log(f"  tree {art.target.number_format} {what}, {len(x)} rows: "
+            f"{prof['launches']} kernel launches, "
+            f"{sum(prof['by_kind'].values()):.4f} ms device")
 
 
 def _stacked(torch, arrays):
@@ -2173,6 +2315,7 @@ def timing(torch, K, dev, d6, d5, check, arts_a, arts_b, arts_d, tree_model,
     time_lm(torch, K, T, lm)
     time_mlp(torch, K, T, arts_a, x_big, n_test)
     time_tree_svm(torch, K, T, arts_b, tree_model, x_big, n_test)
+    time_layer_wide(torch, K, T, arts_a, x_big, n_test)
     time_slice(torch, K, T, arts_d, d6, d5)
     time_predict_device(torch, K, arts_d, d6)
     predict_breakdown(torch, K, arts_a[("mlp", "fxp16")], x_big,
@@ -2188,6 +2331,8 @@ def timing(torch, K, dev, d6, d5, check, arts_a, arts_b, arts_d, tree_model,
     for key in (("tree", "D6", "fxp16"), ("tree", "D6", "flt"),
                 ("svm-rbf", "D6", "fxp16"), ("svm-poly", "D6", "fxp16")):
         time_predict(arts_b[key], x_big, " ".join(key[::2]))
+    tree_predict_kernels(torch, K, arts_b[("tree", "D6", "fxp16")],
+                         d6.x_test)
     return [T.records[n] for n in KernelCheck.NAMES]
 
 

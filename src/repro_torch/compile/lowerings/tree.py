@@ -12,9 +12,9 @@ The counterpart of :mod:`repro.compile.lowerings.tree`.  Backend routing:
   layout's footprint.
 
 Fixed-point targets quantize thresholds at compile time and inputs at call
-time; on ``cuda`` the quantized inputs are cast to float32, as the
-reference's ``pallas`` route does, and compared with the float32-cast
-thresholds (exact for |q| < 2^24).
+time; on ``cuda`` the kernel takes the quantized container and casts each
+feature it reads to float32, as the reference's ``pallas`` body does, and
+compares it with the float32-cast thresholds (exact for |q| < 2^24).
 """
 
 from __future__ import annotations
@@ -98,7 +98,7 @@ class TreeLowering(Lowering):
             else:
                 def predict(x):
                     qx, stats = qx_with_stats(as_input(x, device), fmt)
-                    return ops.tree_predict(tree, qx.to(torch.float32)), stats
+                    return ops.tree_predict(tree, qx), stats
         else:
             predict_raw = _LAYOUT_FNS[target.tree_layout]
             if fmt is None:

@@ -30,8 +30,9 @@ SOURCES = ("fxp_layer", "fxp_mlp_model", "fxp_qmatmul", "fxp_svm_model",
            "tree_ensemble", "pwl_activation", "fxp_mlp_fleet", "fxp_svm_fleet",
            "flash_attention")
 _CSRC = Path(__file__).resolve().with_name("csrc")
-_HEADERS = ("fxp_common.cuh", "fxp_tile.cuh", "fxp_layer_narrow.cuh",
-            "fxp_mlp_body.cuh", "fxp_svm_body.cuh", "pwl.cuh")
+_HEADERS = ("fxp_common.cuh", "fxp_mma.cuh", "fxp_tile.cuh",
+            "fxp_layer_narrow.cuh", "fxp_mlp_body.cuh", "fxp_svm_body.cuh",
+            "pwl.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC")
 # Report registers, shared memory and spills per kernel; does not change

@@ -21,11 +21,15 @@
 //   reduce-scatter butterfly of uint32 partials leaves each full sum on one
 //   lane, which runs the epilogue.
 // * Wide (N > 32, e.g. the per-layer MLP route's 561 x 64, or weights past
-//   the narrow plan's shared memory): each block owns one 32 x 32 output
-//   tile and walks K in a loop (fxp_tile.cuh, shared with fxp_qmatmul),
-//   staging 32 x 32 tiles of A and B through shared memory; four uint32
-//   accumulators a thread (four rows of one column).  Bound: integer
-//   multiply-adds on the CUDA cores.
+//   the narrow plan's shared memory): each block owns one 64 x 64 output
+//   tile of the integer tile shared with fxp_qmatmul (fxp_tile.cuh): every
+//   container width on the int8 tensor cores through byte planes, a
+//   three-stage cp.async ring of realigned rows, the dots handed to this
+//   file's epilogue from a shared-memory scratch so that the stores
+//   coalesce.  Bound: the int8 MMAs (four a product at 16 bits; at 3089
+//   rows of 561 x 64 fxp16, 0.00045 ms) under the bytes of A (1.04 us).
+//   The first version ran 32 x 32 tiles of int32 multiply-adds on the CUDA
+//   cores, bound by their shared-memory loads.
 //
 // Both wrap their sums at 32 bits through uint32_t, as the TPU's int32
 // accumulator does, run the shared epilogue (fxp_common.cuh) and store in
@@ -36,39 +40,39 @@
 
 namespace {
 
-using fxp::kBM;
-using fxp::kBN;
-using fxp::kTM;
+template <typename T>
+struct LayerEpilogue {
+  T* out;
+  const T* bias;
+  int N;
+  fxp::Epilogue e;
+  __device__ __forceinline__ void operator()(int r, int c, uint32_t v) const {
+    out[(size_t)r * N + c] = (T)fxp::layer_epilogue(v, (int32_t)bias[c], e);
+  }
+};
 
 template <typename T>
-__global__ void __launch_bounds__(fxp::kTileThreads)
+__global__ void __launch_bounds__(fxp::kTileThreads, 2)
 fxp_layer_kernel(const T* __restrict__ a, const T* __restrict__ b,
                  const T* __restrict__ bias, T* __restrict__ out, int M, int K,
                  int N, const fxp::Epilogue e) {
-  __shared__ fxp::TileSmem s;
-  const int row0 = blockIdx.x * kBM;
-  const int col0 = blockIdx.y * kBN;
-  uint32_t acc[kTM];
-  fxp::tile_dot<T>(a, b, M, K, N, row0, col0, s, acc);
-
-  const int c = col0 + threadIdx.x % kBN;
-  if (c >= N) return;
-  const int rg = threadIdx.x / kBN;
-  const int32_t bb = (int32_t)bias[c];
-#pragma unroll
-  for (int t = 0; t < kTM; ++t) {
-    const int r = row0 + rg * kTM + t;
-    if (r < M) out[(size_t)r * N + c] = (T)fxp::layer_epilogue(acc[t], bb, e);
-  }
+  int row0, col0;
+  fxp::tile_origin(N, &row0, &col0);
+  const LayerEpilogue<T> epi{out, bias, N, e};
+  fxp::tile_mma<T>(a, b, M, K, N, row0, col0, epi);
 }
 
 template <typename T>
 int launch_wide(const void* a, const void* b, const void* bias, void* out,
                 int M, int K, int N, const fxp::Epilogue& e,
                 cudaStream_t stream) {
-  const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
-  if (grid.y > 65535u) return (int)cudaErrorInvalidConfiguration;
-  fxp_layer_kernel<T><<<grid, fxp::kTileThreads, 0, stream>>>(
+  const long long blocks = fxp::tile_blocks(M, N);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  auto kernel = fxp_layer_kernel<T>;
+  const cudaError_t err = fxp::tile_prepare<T>(kernel);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)blocks, fxp::kTileThreads,
+           fxp::TileLayout<sizeof(T)>::kSmem, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(b),
       static_cast<const T*>(bias), static_cast<T*>(out), M, K, N, e);
   return (int)cudaGetLastError();

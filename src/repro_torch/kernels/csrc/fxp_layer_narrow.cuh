@@ -5,10 +5,10 @@
 //
 // Such a layer moves its rows of A once and does little else: at 65536
 // rows of 561 fxp16 features and N = 6 it reads 73.5 MB (22 us at 3.35
-// TB/s) for 220 M multiply-adds (13 us at the int32 rate).  The tile loop
-// (fxp_tile.cuh) runs it as a latency chain instead: 32-wide N tiles that
-// multiply zeros on 26 of 32 columns, and K walked in serial 32-deep steps
-// behind two block barriers each.  This kernel streams the rows:
+// TB/s) for 220 M multiply-adds (13 us at the int32 rate).  The first
+// version's tile loop ran it as a latency chain instead: 32-wide N tiles
+// that multiplied zeros on 26 of 32 columns, and K walked in serial 32-deep
+// steps behind two block barriers each.  This kernel streams the rows:
 //
 //   * Persistent blocks of 8 warps, as many as the card holds at once but
 //     no more than the row groups need (narrow_blocks).  Each block stages
@@ -43,8 +43,8 @@
 // 40 partials.  Products run on the CUDA cores at every width.
 //
 // On an NVIDIA H100 80GB HBM3 at 700 W (tools/kernel_compare.py, device
-// time): 561 x 6 at fxp16 takes 0.0076 ms for 3089 rows (the tile loop
-// took 0.0309; bound 0.00105) and 0.059 ms for 65536 rows (0.204; bound
+// time): 561 x 6 at fxp16 takes 0.0076 ms for 3089 rows (the first tile
+// loop took 0.0309; bound 0.00105) and 0.059 ms for 65536 rows (0.204; bound
 // 0.0221), so the small batch is a few latencies and the large one is
 // bound by instructions, not bytes: 96 IMADs, 28 shared loads and the copy
 // bookkeeping per 4 rows x 128 k.  Chunks of 256 k, rings of 3 or 6
@@ -98,8 +98,8 @@ FXP_HOST_DEVICE constexpr int narrow_stride(int nb) {
 // The narrow route's plan for a K x N layer: instance NB, rows R a group,
 // W's row stride and padded rows (K rounded up to a whole chunk) in shared
 // memory, and the block's dynamic shared memory in bytes (W, then NB bias
-// words).  False (the tile loop's route) when K < 1, N is out of [1, 32],
-// or W does not fit kNarrowSmemMax.
+// words).  False (the wide route, fxp_tile.cuh) when K < 1, N is out of
+// [1, 32], or W does not fit kNarrowSmemMax.
 struct NarrowPlan {
   int nb, rows, stride, k_pad, smem;
 };

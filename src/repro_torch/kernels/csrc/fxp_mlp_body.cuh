@@ -18,7 +18,9 @@
 //   2^16 per product, K <= 3632), and multiplication mod 2^32 is a ring
 //   homomorphism, so (hh << 16) + ((hl + lh) << 8) + ll in uint32_t is the
 //   Pallas kernel's wrapping int32 dot bit for bit.  An 8-bit container is
-//   one s8.s8 MMA.
+//   one s8.s8 MMA.  The MMA, ldmatrix, cp.async and byte-split helpers live
+//   in fxp_mma.cuh, shared with the integer tile of fxp_qmatmul
+//   (fxp_tile.cuh).
 //   - Activations live in shared memory across the layers (the megakernel):
 //     at 16 bits as two byte planes, high and low, written split by the
 //     input unpack and by each layer's epilogue, so the A fragments are one
@@ -67,6 +69,7 @@
 #include <type_traits>
 
 #include "fxp_common.cuh"
+#include "fxp_mma.cuh"
 
 namespace fxp {
 
@@ -310,68 +313,15 @@ __device__ __forceinline__ void mlp_block_cuda_cores(
 // ---------------------------------------------------------------------------
 // 8- and 16-bit containers: the tensor-core body
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t mlp_smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared, of which the first n are read (n in 0..16) and
-// the rest zero-filled.
-__device__ __forceinline__ void mlp_cp_async16(uint32_t dst, const void* src,
-                                               int n) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(n));
-}
-
 // The barrier of warp group g alone (barrier 0 is __syncthreads).
 __device__ __forceinline__ void mlp_group_sync(int g) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(g + 1), "n"(kMlpThreads)
                : "memory");
 }
 
-// c += a . b for one m16n8k32 tile with int8 operands of the given
-// signedness and s32 accumulators that wrap (no .satfinite).
-#define FXP_MMA_K32(NAME, AT, BT)                                            \
-  __device__ __forceinline__ void NAME(uint32_t(&c)[4], const uint32_t(&a)[4], \
-                                       const uint32_t(&b)[2]) {             \
-    asm("mma.sync.aligned.m16n8k32.row.col.s32." AT "." BT ".s32 "           \
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"            \
-        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])                     \
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1])); \
-  }
-FXP_MMA_K32(mma_s8s8, "s8", "s8")
-FXP_MMA_K32(mma_s8u8, "s8", "u8")
-FXP_MMA_K32(mma_u8s8, "u8", "s8")
-FXP_MMA_K32(mma_u8u8, "u8", "u8")
-#undef FXP_MMA_K32
-
-// Four 16-bit values (two words) -> their high bytes and their low bytes,
-// each as one word of four int8 values in the same order.
-__device__ __forceinline__ uint32_t hi_bytes(uint2 v) {
-  return __byte_perm(v.x, v.y, 0x7531);
-}
-__device__ __forceinline__ uint32_t lo_bytes(uint2 v) {
-  return __byte_perm(v.x, v.y, 0x6420);
-}
-
 template <typename T>
 __device__ __forceinline__ uint32_t container_bits(T v) {
   return sizeof(T) == 1 ? (uint32_t)(uint8_t)v : (uint32_t)(uint16_t)v;
-}
-
-__device__ __forceinline__ void mlp_ldsm_x4(const unsigned char* p,
-                                            uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(mlp_smem_u32(p)));
-}
-
-__device__ __forceinline__ void mlp_ldsm_x4_trans(const unsigned char* p,
-                                                  uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(mlp_smem_u32(p)));
 }
 
 // One k32 step's operands of a warp's 16 x 8 output tile, as loaded.
@@ -435,9 +385,9 @@ __device__ __forceinline__ void mma_load(MmaFrag<int16_t>& f,
   // B rows (k) lane
   const int m = lane >> 3;
   const unsigned char* a = xa + ((lane & 7) + 8 * (m & 1)) * xs + (m >> 1) * 16;
-  mlp_ldsm_x4(a, f.hi);
-  mlp_ldsm_x4(a + kMmaBM * xs, f.lo);
-  mlp_ldsm_x4_trans(wb + lane * ws, f.b);
+  ldsm_x4(a, f.hi);
+  ldsm_x4(a + kMmaBM * xs, f.lo);
+  ldsm_x4_trans(wb + lane * ws, f.b);
 }
 
 // Where the weights of output column n start in a staged block of row
@@ -518,7 +468,7 @@ __device__ __forceinline__ void mlp_stage_weights(unsigned char* dst, int ws,
     for (int t = tid; t < kc * chunks; t += threads) {
       const int r = t / chunks, c = t - r * chunks;
       const int k = k0 + r;
-      mlp_cp_async16(mlp_smem_u32(dst + r * ws + c * 16),
+      cp_async16(smem_u32(dst + r * ws + c * 16),
                      W + (size_t)(k < K ? k : 0) * N + n0 + c * 8,
                      k < K ? 16 : 0);
     }
@@ -587,7 +537,7 @@ __device__ __forceinline__ void mlp_issue_rows(unsigned char* raw,
   for (int c = gtid; c < chunks; c += kMlpThreads) {
     const char* src = base + 16 * c;
     const long long left = end - src;
-    mlp_cp_async16(mlp_smem_u32(raw + 16 * c), src, left < 16 ? (int)left : 16);
+    cp_async16(smem_u32(raw + 16 * c), src, left < 16 ? (int)left : 16);
   }
   asm volatile("cp.async.commit_group;\n" ::);
 }

@@ -4,54 +4,60 @@
 // Replaces the Pallas kernel
 // repro/kernels/fxp_qmatmul.py::fxp_qmatmul_pallas (body _kernel), whose
 // grid walks K sequentially into an int32 VMEM accumulator.  Here each block
-// owns one 32x32 output tile and runs the tile loop shared with fxp_layer
-// (fxp_tile.cuh): operand tiles staged through shared memory, one uint32_t
-// accumulator per output that wraps at 32 bits like the TPU's int32
-// accumulator, then one rounded shift by m and saturation into the
-// container.  Ragged M, N and K edges are masked here.
+// owns one 64 x 64 output tile and runs the integer tile shared with
+// fxp_layer's wide route (fxp_tile.cuh): every container width on the int8
+// tensor cores through byte planes (one MMA a product at 8 bits, four at
+// 16, ten at 32), a three-stage cp.async ring of realigned rows, and a
+// uint32 dot that wraps at 32 bits like the TPU's int32 accumulator.  The
+// epilogue is one rounded shift by m and saturation into the container,
+// stored row-major from a shared-memory scratch so that the stores
+// coalesce.  Ragged M, N and K edges are masked here.
 //
-// Bound on the H100: integer multiply-adds on the CUDA cores at the SVM's
-// shape ((M, 561) x (561, 300): 2*M*561*300 operations against
-// (M*(561 + 300) + 561*300) container elements moved), since tensor-core
-// integer MMA takes only 8-bit operands.  Simple and exact first: no
-// double-buffering and no tensor cores for the 8-bit container.
+// Bound on the H100 at the SVM's shape, (M, 561) x (561, 300): the int8
+// MMAs, 4 x 2 M 561 300 operations at 16 bits (0.0021 ms at M = 3089 and
+// 1,979 Top/s), above the container bytes moved (M (561 + 300) + 561 x 300
+// elements, 0.0017 ms); at 8 bits the bytes (0.00084 ms); at 32 bits the ten
+// MMAs a product (0.0053 ms).  The first version ran this as 32 x 32 tiles
+// of int32 multiply-adds on the CUDA cores, bound by its shared-memory loads
+// at 3.5x the CUDA cores' multiply-add bound (PERF.md, Findings).  At small
+// K (D5, K = 8) one stage of zero-padded k is exact and the output bytes
+// bound the launch.
 #include "fxp_tile.cuh"
 
 namespace {
 
-using fxp::kBM;
-using fxp::kBN;
-using fxp::kTM;
+template <typename T>
+struct QmatmulEpilogue {
+  T* out;
+  int N, shift;
+  int32_t qmin, qmax;
+  __device__ __forceinline__ void operator()(int r, int c, uint32_t v) const {
+    out[(size_t)r * N + c] =
+        (T)fxp::requant((int64_t)fxp::u2s32(v), shift, qmin, qmax);
+  }
+};
 
 template <typename T>
-__global__ void __launch_bounds__(fxp::kTileThreads)
+__global__ void __launch_bounds__(fxp::kTileThreads, 2)
 fxp_qmatmul_kernel(const T* __restrict__ a, const T* __restrict__ b,
                    T* __restrict__ out, int M, int K, int N, int shift,
                    int32_t qmin, int32_t qmax) {
-  __shared__ fxp::TileSmem s;
-  const int row0 = blockIdx.x * kBM;
-  const int col0 = blockIdx.y * kBN;
-  uint32_t acc[kTM];
-  fxp::tile_dot<T>(a, b, M, K, N, row0, col0, s, acc);
-
-  const int c = col0 + threadIdx.x % kBN;
-  if (c >= N) return;
-  const int rg = threadIdx.x / kBN;
-#pragma unroll
-  for (int t = 0; t < kTM; ++t) {
-    const int r = row0 + rg * kTM + t;
-    if (r < M)
-      out[(size_t)r * N + c] =
-          (T)fxp::requant((int64_t)fxp::u2s32(acc[t]), shift, qmin, qmax);
-  }
+  int row0, col0;
+  fxp::tile_origin(N, &row0, &col0);
+  const QmatmulEpilogue<T> e{out, N, shift, qmin, qmax};
+  fxp::tile_mma<T>(a, b, M, K, N, row0, col0, e);
 }
 
 template <typename T>
 int launch(const void* a, const void* b, void* out, int M, int K, int N,
            int shift, int32_t qmin, int32_t qmax, cudaStream_t stream) {
-  const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
-  if (grid.y > 65535u) return (int)cudaErrorInvalidConfiguration;
-  fxp_qmatmul_kernel<T><<<grid, fxp::kTileThreads, 0, stream>>>(
+  const long long blocks = fxp::tile_blocks(M, N);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  auto kernel = fxp_qmatmul_kernel<T>;
+  const cudaError_t err = fxp::tile_prepare<T>(kernel);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)blocks, fxp::kTileThreads,
+           fxp::TileLayout<sizeof(T)>::kSmem, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(out),
       M, K, N, shift, qmin, qmax);
   return (int)cudaGetLastError();
@@ -60,8 +66,9 @@ int launch(const void* a, const void* b, void* out, int M, int K, int N,
 }  // namespace
 
 // a: (M, K), b: (K, N), out: (M, N), all contiguous in the `bits`-wide
-// container; out = saturate(round_shift(a @ b, shift)) into
-// [-2^(bits-1), 2^(bits-1) - 1].  Returns the CUDA error code of the launch.
+// container (a may start at any element); out = saturate(round_shift(a @ b,
+// shift)) into [-2^(bits-1), 2^(bits-1) - 1].  Returns the CUDA error code of
+// the launch.
 extern "C" int fxp_qmatmul_launch(const void* a, const void* b, void* out,
                                   int M, int K, int N, int bits, int shift,
                                   void* stream) {

@@ -10,8 +10,10 @@ Two versions of the same function live here:
   through persistent blocks that stage W once, a warp's lanes splitting K
   and a shuffle butterfly summing their uint32 partials
   (``csrc/fxp_layer_narrow.cuh``).  Any other layer runs one block per
-  32x32 output tile, the TPU's sequential K grid axis turned into a loop
-  over shared-memory tiles (``csrc/fxp_tile.cuh``).  Both wrap the int32
+  64x64 output tile of the integer tile shared with ``fxp_qmatmul``
+  (``csrc/fxp_tile.cuh``: the int8 tensor cores through byte planes, the
+  TPU's sequential K grid axis turned into a cp.async ring of stages).
+  Both wrap the int32
   accumulator at 32 bits and run the shared integer epilogue
   (``csrc/fxp_common.cuh``).  It counts its launches in
   ``fxp_layer_cuda.launches``.
@@ -63,8 +65,8 @@ def narrow_plan(k: int, n: int) -> Optional[Tuple[int, int, int, int, int]]:
     """The narrow kernel's plan for a K x N layer, as ``narrow_plan`` in
     ``csrc/fxp_layer_narrow.cuh`` computes it: (NB, rows a warp owns, W's
     row stride in words, K padded to whole chunks, shared-memory bytes), or
-    None when the layer takes the tile loop (N > 32, or W past
-    ``NARROW_SMEM``)."""
+    None when the layer takes the wide route, the integer tile of
+    ``csrc/fxp_tile.cuh`` (N > 32, or W past ``NARROW_SMEM``)."""
     nb = next((b for b in _NARROW_BUCKETS if b >= n), 0) if n >= 1 else 0
     if k < 1 or not nb:
         return None

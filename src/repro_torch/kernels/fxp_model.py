@@ -65,7 +65,7 @@ from . import build
 from .fxp_layer import (LAYER_ACTIVATIONS, _check_cuda, epilogue_params,
                         epilogue_plain, fxp_layer_plain)
 from .ref import svm_kernel_values
-from .tune import MODEL_BLOCK_M, SMEM_PER_BLOCK, TILE
+from .tune import MODEL_BLOCK_M, SMEM_PER_BLOCK
 
 __all__ = ["fxp_mlp_model_plain", "fxp_mlp_model_cuda", "LayerSchedule",
            "LAYER_ACTIVATIONS", "MAX_LAYERS", "smem_budget", "mlp_smem_bytes",
@@ -75,7 +75,7 @@ __all__ = ["fxp_mlp_model_plain", "fxp_mlp_model_cuda", "LayerSchedule",
            "mlp_fleet_fits_smem", "mlp_fleet_table", "fxp_mlp_fleet_plain",
            "fxp_mlp_fleet_cuda", "MLP_FLEET_REPLACES", "svm_fleet_fits_smem",
            "svm_fleet_table", "fxp_svm_fleet_plain", "fxp_svm_fleet_cuda",
-           "SVM_FLEET_REPLACES"]
+           "SVM_FLEET_REPLACES", "SVM_ROUTING_OPERAND_TILE"]
 
 # One entry per layer: (requantization shift, output format, activation).
 LayerSchedule = Tuple[Tuple[int, FxpFormat, str], ...]
@@ -218,16 +218,23 @@ fxp_mlp_model_cuda.launches = 0
 # --------------------------------------------------------------------------
 # kernel-SVM megakernel
 # --------------------------------------------------------------------------
+# The side of the first SVM body's two square int32 operand tiles (32 x 33
+# with padding), frozen into the routing count below: no kernel runs this
+# tile now, and the count keeps the models the predicates admit.
+SVM_ROUTING_OPERAND_TILE = 32
+
+
 def svm_smem_bytes(n_sv: int, bm: int = MODEL_BLOCK_M) -> int:
     """The SVM megakernels' routing count: what the first, single-block
     SVM body held in one block's shared memory — the (bm, S) int32
     kernel-value tile, the S + bm int32 squared norms and two 32 x 33 int32
-    operand tiles.  Both kernels now run the cluster body
+    operand tiles (:data:`SVM_ROUTING_OPERAND_TILE`).  Both kernels now run the cluster body
     (``csrc/fxp_svm_body.cuh``), which splits the support vectors over a
     cluster of up to 8 blocks and needs less per block (``svm_plan``: at
     most 61 KB at S = 1696); the predicates keep this count, so the
     megakernel and the fleet take exactly the models they took before."""
-    return 4 * (bm * int(n_sv) + int(n_sv) + bm) + 2 * 4 * TILE * (TILE + 1)
+    t = SVM_ROUTING_OPERAND_TILE
+    return 4 * (bm * int(n_sv) + int(n_sv) + bm) + 2 * 4 * t * (t + 1)
 
 
 def svm_fits_smem(n_sv: int, bm: int = MODEL_BLOCK_M) -> bool:

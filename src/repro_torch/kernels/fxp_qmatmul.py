@@ -5,10 +5,14 @@ Replaces the Pallas kernel ``repro/kernels/fxp_qmatmul.py::fxp_qmatmul_pallas``
 ``x . sv^T`` in the kernel-domain format.  Two versions of the same function:
 
 * :func:`fxp_qmatmul_cuda` launches ``csrc/fxp_qmatmul.cu``: one block per
-  32x32 output tile, the tile loop shared with ``fxp_layer``
-  (``csrc/fxp_tile.cuh``), an int32 accumulator that wraps at 32 bits, one
-  rounded shift by ``fmt.frac_bits`` and saturation.  It counts its
-  launches in ``fxp_qmatmul_cuda.launches``.
+  64x64 output tile of the integer tile shared with ``fxp_layer``'s wide
+  route (``csrc/fxp_tile.cuh``), on the int8 tensor cores at every
+  container width (a value split into byte planes: one ``mma.sync`` a
+  product at 8 bits, four at 16, ten at 32, recombined exactly mod 2^32),
+  an int32 dot that wraps at 32 bits as the Pallas accumulator does, one
+  rounded shift by ``fmt.frac_bits`` and saturation.  A may be a row slice
+  at any alignment.  It counts its launches in
+  ``fxp_qmatmul_cuda.launches``.
 * :func:`fxp_qmatmul_plain` is the same function in PyTorch ops on any
   device: the exact product wrapped to int32
   (:func:`repro_torch.core.fixedpoint.imatmul`) and the single-format

@@ -201,8 +201,9 @@ def pwl_activation(x: torch.Tensor, variant: str = "pwl4",
 
 def tree_predict(tree: TreeArrays, x: torch.Tensor,
                  impl: str = "cuda") -> torch.Tensor:
-    """Decision-tree inference in one dispatch.  x (B, F) float32 -> (B,)
-    int32 class ids."""
+    """Decision-tree inference in one dispatch.  x (B, F) float32 rows or
+    the quantized container (int8, int16, int32; the ``cuda`` route casts
+    each feature it reads to float32 itself) -> (B,) int32 class ids."""
     _tick()
     route = _route(impl, x)
     if route == "ref":

@@ -4,9 +4,8 @@ The counterpart of :mod:`repro.kernels.tune`.  The CUDA kernels run with
 fixed block sizes, ``constexpr`` in their sources; the JSON
 disk cache and the timed sweeps of the TPU autotuner are not ported yet.
 ``MODEL_BLOCK_M`` must match ``kMlpBM`` in ``csrc/fxp_mlp_body.cuh`` and
-``kBM`` in ``csrc/fxp_tile.cuh``, and ``TILE`` the tile of
-``csrc/fxp_tile.cuh``: the megakernels' fit predicates size their shared
-memory from them.
+``kSvmRows`` in ``csrc/fxp_svm_body.cuh``: the megakernels' fit predicates
+size their shared memory from it.
 """
 
 from __future__ import annotations
@@ -14,13 +13,11 @@ from __future__ import annotations
 import torch
 
 __all__ = ["pow2ceil", "batch_bucket", "device_key", "MODEL_BLOCK_M",
-           "TILE", "SMEM_PER_BLOCK"]
+           "SMEM_PER_BLOCK"]
 
 # fxp_mlp_model, fxp_svm_model: batch rows per block (the whole model for
 # those rows in one block).
 MODEL_BLOCK_M = 32
-# The shared tile loop's square tile (kBM = kBN = kBK in csrc/fxp_tile.cuh).
-TILE = 32
 # Shared memory one Hopper block may use (227 KB, opt-in above 48 KB).
 SMEM_PER_BLOCK = 232_448
 

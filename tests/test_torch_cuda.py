@@ -99,6 +99,114 @@ def test_fxp_qmatmul_kernel_matches_plain(dev, bits, full):
         assert torch.equal(got, fxp_qmatmul.fxp_qmatmul_plain(a, b, fmt))
 
 
+def _regime_ints(rng, shape, bits, regime):
+    """mid: a few units; full: the whole container; edge: only the
+    container's extremes, 0 and -1."""
+    if regime == "edge":
+        lo, hi = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
+        return torch.from_numpy(rng.choice([lo, hi, 0, -1], size=shape)
+                                .astype(NP[bits]))
+    return _ints(rng, shape, bits, regime == "full")
+
+
+@pytest.mark.parametrize("bits", [8, 16, 32])
+def test_fxp_qmatmul_tensor_core_tile_matches_plain(dev, bits):
+    """The tile on the int8 tensor cores (one, four or ten MMAs a product):
+    M in {1, 7, 64, 3089, 65536} x K in {8, 33, 561} x N in {6, 300, 301},
+    the regimes in turn, A a row slice (not 16-byte aligned) every other
+    case; at 16 and 32 bits some int32 dot must wrap.  Then a K past the
+    point where one s32 partial of full-range 16-bit values would overflow:
+    the accumulators must wrap, not saturate."""
+    rng = np.random.RandomState(bits + 200)
+    regimes = ("mid", "full", "edge")
+    wrapped, i = 0, 0
+    for m in (1, 7, 64, 3089, 65536):
+        for k in (8, 33, 561):
+            for n in (6, 300, 301):
+                regime, offset = regimes[i % 3], i % 2
+                frac = {"mid": bits - 6, "full": bits - 2,
+                        "edge": bits - 1}[regime]
+                fmt = FxpFormat(bits, frac)
+                a = _regime_ints(rng, (m + offset, k), bits, regime).to(dev)
+                a = a[offset:]
+                b = _regime_ints(rng, (k, n), bits, regime).to(dev)
+                got = fxp_qmatmul.fxp_qmatmul_cuda(a, b, fmt)
+                want = fxp_qmatmul.fxp_qmatmul_plain(a, b, fmt)
+                assert torch.equal(got, want), (m, k, n, regime, offset)
+                dot = a[:64].to(torch.float64) @ b.to(torch.float64)
+                wrapped += int(dot.abs().max() >= 2 ** 31)
+                i += 1
+    assert bits == 8 or wrapped, "no case wrapped the int32 dot"
+    fmt = FxpFormat(bits, bits - 1)
+    a = _regime_ints(rng, (5, 40000), bits, "full").to(dev)
+    b = _regime_ints(rng, (40000, 9), bits, "full").to(dev)
+    assert torch.equal(fxp_qmatmul.fxp_qmatmul_cuda(a, b, fmt),
+                       fxp_qmatmul.fxp_qmatmul_plain(a, b, fmt))
+
+
+@pytest.mark.parametrize("bits", [8, 16, 32])
+def test_fxp_layer_wide_route_on_row_slice_matches_plain(dev, bits):
+    """fxp_layer's wide route (the tile shared with fxp_qmatmul) on row
+    slices of A at odd offsets: the per-layer MLP's 561 x 64, and ragged K
+    and N around the stage and the 64-wide tile, every activation in
+    turn."""
+    rng = np.random.RandomState(bits + 300)
+    shapes = ((1, 561, 64), (7, 561, 64), (3089, 561, 64), (65536, 561, 64),
+              (65, 33, 301), (64, 8, 40), (100, 129, 65))
+    for i, (m, k, n) in enumerate(shapes):
+        assert fxp_layer.narrow_plan(k, n) is None
+        full = i % 2 == 1
+        act = ACTS[i % len(ACTS)]
+        fmt = FxpFormat(bits, bits - 1 if full else bits - 6)
+        shift = bits - 1 if full else 7
+        offset = 1 + 2 * (i % 2)
+        a = _ints(rng, (m + offset, k), bits, full).to(dev)[offset:]
+        b = _ints(rng, (k, n), bits, full).to(dev)
+        bias = _ints(rng, (n,), bits, True).to(dev)
+        before = fxp_layer.fxp_layer_cuda.launches
+        got = fxp_layer.fxp_layer_cuda(a, b, bias, fmt, act, shift)
+        assert fxp_layer.fxp_layer_cuda.launches == before + 1
+        want = fxp_layer.fxp_layer_plain(a, b, bias, fmt, act, shift)
+        assert torch.equal(got, want), (m, k, n, act)
+
+
+@pytest.mark.parametrize("route", ["smem", "global"])
+def test_tree_ensemble_containers_and_table_routes(dev, route, monkeypatch):
+    """The kernel on float32 rows with non-finite values and on each
+    integer container (int32 values in [2^24, 2^31), where the cast
+    rounds, included), with the node table in shared memory and, with the
+    budget lowered to 0 nodes, in device memory."""
+    if route == "global":
+        monkeypatch.setattr(tree_ensemble, "TABLE_SMEM_NODES", 0)
+    rng = np.random.RandomState(5)
+    x = rng.randn(3000, 40).astype(np.float32)
+    y = ((x[:, 0] > 0).astype(np.int32) + (x[:, 7] > 0.5)
+         + (x[:, 30] < -1)).astype(np.int32)
+    tree = train_decision_tree(x, y, 4, max_depth=10).tree
+    assert tree_ensemble.table_in_smem(tree.n_nodes) == (route == "smem")
+    rows = rng.randn(4099, 40).astype(np.float32)
+    rows[0, 5], rows[1, 39], rows[2, int(tree.feature[0])] = np.nan, np.inf, \
+        -np.inf
+    rows[3, [1, 2]] = -np.inf
+    rows[40, 7], rows[41, 0] = -np.inf, np.nan
+    cases = [(tree, torch.from_numpy(rows).to(dev))]
+    for bits, frac in ((8, 4), (16, 8), (32, 10), (32, 28)):
+        fmt = FxpFormat(bits, frac)
+        qx = quantize(torch.from_numpy(np.nan_to_num(rows, posinf=5.0,
+                                                     neginf=-5.0)), fmt)
+        cases.append((tree.quantized(fmt), qx.to(dev)))
+    big = torch.from_numpy(rng.randint(2 ** 24, 2 ** 31 - 1, (300, 40))
+                           * rng.choice([-1, 1], (300, 40))).to(torch.int32)
+    cases.append((tree.quantized(FxpFormat(32, 28)), big.to(dev)))
+    for t, xs in cases:
+        for m in (1, 31, 33, 700, xs.shape[0]):
+            before = tree_ensemble.tree_ensemble_cuda.launches
+            got = ops.tree_predict(t, xs[:m])
+            assert tree_ensemble.tree_ensemble_cuda.launches == before + 1
+            assert torch.equal(got, tree_ensemble.tree_ensemble_plain(
+                t, xs[:m])), (xs.dtype, m)
+
+
 @pytest.mark.parametrize("full", [False, True], ids=["mid", "full"])
 @pytest.mark.parametrize("kind", ["poly", "rbf"])
 @pytest.mark.parametrize("bits", [8, 16, 32])
