@@ -66,7 +66,11 @@ Phases, each of which raises on failure:
    * ``pwl_activation``: the four variants on random values and on +-0,
      +-inf, NaN, subnormals and the segment edges 1.0, 2.375 and 5.0, on
      the (3089, 64) hidden layer, ragged shapes and an unaligned tensor, in
-     float32, float16 and bfloat16 (bit for bit in each);
+     float32, float16 and bfloat16 (bit for bit in each); with the fused
+     bias (-0, +-inf and NaN among its values) at widths 1, 6, 7, 33, 64,
+     561 and 4864 that cross the kernel's 16-byte vectors, rows 1..65536
+     (4864: 1, 4 and 8192) and an unaligned view; and ``silu_pwl4`` at
+     path E's decode (4, 4864) and bf16 prefill (8192, 4864) gate shapes;
    * ``flash_attention`` (not bit for bit: the two sum in other orders):
      float32 within 2e-5 and bfloat16 within 3e-2 of its plain version
      (scores materialized in float32, full float32 products), and in
@@ -100,10 +104,15 @@ Phases, each of which raises on failure:
       kernel-SVM predict (the megakernel route), one fxp_layer launch per
       quantized svm-linear predict; the forced per-layer SVM route gives the
       same labels with one fxp_qmatmul and one fxp_layer launch.
+   F. (after B) C emission: every quantized artifact of A and B emits
+      its freestanding fixed-point C, built by the host's C compiler (in
+      parallel) and replayed on the test rows; its labels must equal the
+      ``cuda`` artifact's on every row.  The measured C sections are
+      printed beside the artifact's flash and SRAM model.
    C. the flt D6 MLP with a pwl2, pwl4 or rational sigmoid on ``cuda``:
-      one pwl_activation launch per predict, labels equal to the plain
-      route's (the same model on ``ref``) on every row whose float64 top-2
-      gap is at least 1e-4.
+      one pwl_activation launch per predict (the hidden layer's bias added
+      in it), labels equal to the plain route's (the same model on
+      ``ref``) on every row whose float64 top-2 gap is at least 1e-4.
    D. the serving plane: one ``InferenceService`` on the card hosting 8 D6
       MLPs (auto16, each calibrated on its own 2000 train rows), 2 D6
       logistic models (fxp16), 4 D5 rbf SVMs (fxp32) and the D6 tree
@@ -123,7 +132,12 @@ Phases, each of which raises on failure:
       (batch 2, 12 steps); an
       ``InferenceService`` serves it at ``flt`` and at fxp8/qnm with an
       int8 KV cache and the pwl4 gate, ``generate`` (batch 4, 32 tokens)
-      launches no flash_attention, and its tokens are serve_step's argmax.
+      launches no flash_attention, and its tokens are serve_step's argmax;
+      at the pwl4 gate every layer's gate is one pwl_activation launch
+      (silu_pwl4) per step and per forward, and the artifact's logits
+      through that route are within 1e-4 of the op-by-op gate's in float32
+      and, in bf16, no further from the float32 logits than 1.5x the
+      op-by-op gate.
    In A, B and D, labels equal the plain versions' on the card (in D, each
    member's own predict); in A and B the rows where ``ref`` and ``cuda``
    differ are printed as information.
@@ -151,7 +165,17 @@ Phases, each of which raises on failure:
    device activities of one fxp16 tree predict beside the route of the
    first tree lowering (a float32 cast before the kernel); and the
    first serving record: 8 D6 MLP endpoints, 8 client threads each sending
-   500 one-row requests one at a time, fleet off and on.
+   500 one-row requests one at a time, fleet off and on.  pwl_activation's
+   record is path C's hidden layer with the fused bias (beside the unfused
+   pair); path E's pwl4 gate is timed at its decode and prefill shapes
+   beside the op-by-op gate, a bf16 prefill forward at the pwl4 gate and
+   one fxp8/qnm/int8-KV/pwl4 decode step are profiled with the gate
+   through the kernel and op by op (launches, device activities, the
+   kernel's device time a layer against its bytes bound), decode ms/token
+   of that artifact is taken with the two routes in turns, and path C's
+   predict is profiled (device time by kernel, activities, launches)
+   beside its lowering with the bias added outside the kernel at 1, 64,
+   3089 and 65536 rows.
 
 The lines before the last are a JSON ``{"kernels": [...]}`` record and the
 ``nvidia-smi`` name/power-limit line; the last line is
@@ -160,6 +184,7 @@ The lines before the last are a JSON ``{"kernels": [...]}`` record and the
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -198,6 +223,12 @@ N_PROTOTYPES = 300
 N_FIT_ROWS = 2000
 TREE_DEPTH = 12  # benchmarks/common.py:40
 FLASH_LENGTHS = (1, 7, 63, 64, 65, 129, 2048)  # around the 64-wide tiles
+# pwl_activation's fused bias: widths that cross the 4- and 8-value
+# vectors of its 16-byte loads (1, D5-like 6 and 7, 33), path C's hidden
+# layer (64), D6's 561 and qwen2-0.5b's d_ff (4864, at the LM's rows), at
+# batches 1..65536
+PWL_BIAS_COLS = (1, 6, 7, 33, 64, 561, 4864)
+PWL_BIAS_ROWS = (1, 7, 3089, 65536)
 # (BH, group G): one head, and qwen2-0.5b's 14 heads x batch 4, ungrouped
 # and with its 2 KV heads (G = 7, as path E launches it)
 FLASH_HEADS = ((1, 1), (56, 1), (56, 7))
@@ -426,6 +457,7 @@ class KernelCheck:
         # fxp_qmatmul cases whose int32 dot wrapped, by container width
         self.qmatmul_wrapped = {8: 0, 16: 0, 32: 0}
         self.tree_routes = {"smem": 0, "global": 0}
+        self.pwl_bias_cases = 0  # pwl_activation cases with the fused bias
         self.flash_err = {}  # dtype -> max abs err of flash_attention
         self.flash_row_rel = 0.0  # bf16: max per-row relative error
 
@@ -561,6 +593,55 @@ class KernelCheck:
         want = K.pwl.pwl_activation_plain(x, variant)
         self._compare_bits("pwl_activation", got, want,
                            f"{variant} {x.dtype} {shape} offset {offset}")
+
+    def pwl_bias_case(self, rng, dtype, variant, rows, cols, offset=0):
+        """The fused bias: ``variant(x + b)``, x (rows, cols) with the edges
+        in its first values (a view ``offset`` values past a 16-byte
+        boundary when offset > 0), b (cols,) with -0, +-inf and NaN first;
+        bit for bit against the plain version's ``pwl(x + b)``."""
+        K = self.K
+        flat = (rng.randn(rows * cols + offset) * 4).astype(np.float32)
+        edges = pwl_edges()
+        flat[offset:offset + min(rows * cols, edges.size)] = \
+            edges[:rows * cols]
+        b = (rng.randn(cols) * 2).astype(np.float32)
+        b[:4] = np.asarray([-0.0, np.inf, -np.inf, np.nan], np.float32)[:cols]
+        x, b = self._cuda(flat, b)
+        x = x.to(dtype)[offset:].view(rows, cols)
+        b = b.to(dtype)
+        got = K.pwl.pwl_activation_cuda(x, variant, bias=b)
+        want = K.pwl.pwl_activation_plain(x, variant, bias=b)
+        self._compare_bits("pwl_activation", got, want,
+                           f"{variant} {x.dtype} ({rows}, {cols}) + bias "
+                           f"offset {offset}")
+        self.pwl_bias_cases += 1
+
+    def pwl_cases(self, rng):
+        """The four variants without a bias (random values and the edges,
+        ragged shapes, an unaligned tensor), with the fused bias at widths
+        that cross the 16-byte vectors (C 1..4864, rows 1..65536, an
+        unaligned view), and silu_pwl4 at path E's gate shapes: decode (4,
+        4864) and the bf16 prefill (4 x 2048, 4864)."""
+        torch = self.torch
+        for variant in self.K.pwl.PWL_VARIANTS:
+            for dtype in (None, torch.float16, torch.bfloat16):
+                for shape in ((3089, 64), (7, 13), (5, 3, 2)):
+                    self.pwl_case(rng, shape, variant, dtype=dtype)
+                self.pwl_case(rng, (4097,), variant, offset=1, dtype=dtype)
+        for variant in self.K.pwl.PWL_VARIANTS:
+            for dtype in (torch.float32, torch.float16, torch.bfloat16):
+                for cols in PWL_BIAS_COLS:
+                    rows_list = ((1, 4, LM_BATCH * LM_SEQ) if cols > 561
+                                 else PWL_BIAS_ROWS)
+                    for rows in rows_list:
+                        self.pwl_bias_case(rng, dtype, variant, rows, cols)
+                    self.pwl_bias_case(rng, dtype, variant, 7, cols, offset=1)
+        d_ff = self.K.configs.get_config(LM_ARCH).d_ff
+        for dtype in (None, torch.bfloat16):
+            self.pwl_case(rng, (LM_GEN_BATCH, d_ff), "silu_pwl4",
+                          dtype=dtype)
+        self.pwl_case(rng, (LM_BATCH * LM_SEQ, d_ff), "silu_pwl4",
+                      dtype=torch.bfloat16)
 
     def mlp_fleet_case(self, rng, bits, e, m, hetero, regime):
         K = self.K
@@ -997,12 +1078,7 @@ class KernelCheck:
         if not (self.qmatmul_wrapped[16] and self.qmatmul_wrapped[32]):
             raise AssertionError(f"fxp_qmatmul cases that wrapped the int32 "
                                  f"dot, by width: {self.qmatmul_wrapped}")
-        torch = self.torch
-        for variant in self.K.pwl.PWL_VARIANTS:
-            for dtype in (None, torch.float16, torch.bfloat16):
-                for shape in ((3089, 64), (7, 13), (5, 3, 2)):
-                    self.pwl_case(rng, shape, variant, dtype=dtype)
-                self.pwl_case(rng, (4097,), variant, offset=1, dtype=dtype)
+        self.pwl_cases(rng)
         # the tree on float rows with non-finite values and on containers
         self.tree_cases(tree, x_rows)
         # flash_attention: float32 and bf16, causal and full, every head
@@ -1036,7 +1112,9 @@ class KernelCheck:
             f"{self.layer_wrapped} fxp_layer cases wrapped the int32 dot; "
             f"fxp_layer routes {self.layer_routes}; fxp_qmatmul cases that "
             f"wrapped the int32 dot by width {self.qmatmul_wrapped}; "
-            f"tree_ensemble table routes {self.tree_routes})")
+            f"tree_ensemble table routes {self.tree_routes}; "
+            f"pwl_activation cases with the fused bias "
+            f"{self.pwl_bias_cases})")
 
 
 # --------------------------------------------------------------------------
@@ -1294,6 +1372,59 @@ def main_path_tree_svm(torch, K, d6, d5, tree_model):
     return arts, launches
 
 
+def emit_c_phase(K, arts_a, arts_b, d6, d5):
+    """Phase 4F: C emission.  Every quantized artifact of paths A and B
+    emits its freestanding fixed-point C (the paper's deliverable), built
+    by the host's C compiler (``-std=c99 -ffreestanding -Werror``, and a
+    hosted replay binary), the builds in parallel; the binary replays the
+    test rows (quantized on the host) and must give the artifact's ``cuda``
+    labels on every row.  Prints the measured sections beside the
+    artifact's flash and SRAM model (the paper's Tables IV-VI).  Nothing of
+    it runs on the card."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    E = K.emit
+    cc = E.find_cc()
+    if cc is None:
+        raise AssertionError("phase 4F: no C compiler (cc, gcc, clang) on "
+                             "this host")
+    jobs = [(f"D6 {kind} {tag}", art, d6)
+            for (kind, tag), art in arts_a.items()]
+    jobs += [(f"{dname} {kind} {tag}", art, d6 if dname == "D6" else d5)
+             for (kind, dname, tag), art in arts_b.items()
+             if art.target.is_quantized]
+
+    def build_and_replay(job):
+        what, art, ds = job
+        t0 = time.perf_counter()
+        src = art.emit_c()
+        with E.CRunner(src, E.input_format(E.spec_of(art)), cc=cc) as run:
+            labels, _ = run.predict(ds.x_test)
+            return labels, run.sizes(), len(src), time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        results = list(pool.map(build_and_replay, jobs))
+    t_build = time.perf_counter() - t0
+    log(f"phase 4F: C emission of {len(jobs)} quantized artifacts of paths "
+        f"A and B with {cc}: emitted, built and replayed in {t_build:.1f} s")
+    log(f"  {'artifact':26s} {'C chars':>8s} {'text':>7s} {'rodata':>8s} "
+        f"{'data':>5s} {'bss':>6s} {'flash':>8s} {'model flash':>11s} "
+        f"{'model sram':>10s}")
+    for (what, art, ds), (labels, sec, n_chars, _) in zip(jobs, results):
+        want = art.predict(ds.x_test)
+        if not np.array_equal(labels, want):
+            raise AssertionError(f"phase 4F {what}: the compiled C gives "
+                                 f"{int((labels != want).sum())} labels "
+                                 f"other than the cuda artifact's")
+        mem = art.memory_report()
+        log(f"  {what:26s} {n_chars:8d} {sec['text']:7d} {sec['rodata']:8d} "
+            f"{sec['data']:5d} {sec['bss']:6d} {sec['flash']:8d} "
+            f"{mem['flash']:11d} {mem['sram']:10d}")
+    log(f"  every C label equals the cuda artifact's on all "
+        f"{sum(len(ds.x_test) for _, _, ds in jobs)} test rows")
+
+
 def _np_pwl(variant, h):
     """The float PWL sigmoids in float64 numpy (the flt yardstick)."""
     if variant == "pwl2":
@@ -1514,6 +1645,52 @@ def _decode_logits(torch, M, cfg, params, tok, max_len):
     return torch.stack(out, 1)
 
 
+@contextlib.contextmanager
+def gate_route(K, kernel):
+    """The route of the LM's SiLU gate: the port's own (True: on the card, a
+    pwl4 gate is one silu_pwl4 launch of pwl_activation) or, patched in,
+    the op-by-op PyTorch route that preceded it (False), the yardstick the
+    kernel route is held to and timed beside."""
+    layers = K.lm_layers
+    route = layers.gated_silu
+    if not kernel:
+        layers.gated_silu = lambda x, gate="exact": \
+            x * layers.get_sigmoid(gate)(x)
+    try:
+        yield
+    finally:
+        layers.gated_silu = route
+
+
+def check_gate_route(torch, K, cfg, params, tok, fwd):
+    """Path E's pwl4 gate through the kernel against the op-by-op route, at
+    the served artifact's weights: in float32 the two forwards within 1e-4
+    (relative to the largest logit); in bf16 the kernel route (``fwd``) no
+    further from the float32 logits than 1.5x the op-by-op route."""
+    M = K.lm_model
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = _tree_map(lambda t: t.to(torch.float32) if t.is_floating_point()
+                    else t, params)
+    with gate_route(K, False):
+        eager = M.forward(params, {"tokens": tok}, cfg)
+        eager32 = M.forward(p32, {"tokens": tok}, cfg32)
+    with gate_route(K, True):
+        fused32 = M.forward(p32, {"tokens": tok}, cfg32)
+    rel32 = _rel_err(fused32, eager32)
+    rel_k, rel_o = _rel_err(fwd, eager32), _rel_err(eager, eager32)
+    if not rel32 <= 1e-4:
+        raise AssertionError(f"pwl4 gate: float32 kernel route {rel32} from "
+                             f"the op-by-op route, over 1e-4")
+    if not rel_k <= 1.5 * rel_o:
+        raise AssertionError(f"pwl4 gate: bf16 kernel route {rel_k} from the "
+                             f"float32 logits, over 1.5 x the op-by-op "
+                             f"route's {rel_o}")
+    return (f"; pwl4 gate through the kernel: float32 within {rel32:.3e} of "
+            f"the op-by-op gate (bound 1e-4), bf16 {rel_k:.3e} from the "
+            f"float32 logits against the op-by-op gate's {rel_o:.3e} (bound "
+            f"1.5x)")
+
+
 def main_path_lm(torch, K):
     """Main path E: qwen2-0.5b at its published widths, seeded weights.
 
@@ -1628,11 +1805,16 @@ def main_path_lm(torch, K):
             art = svc.register(name, K.tc.LMModel(cfg, params), target).artifact
             t_reg = time.perf_counter() - t0
             svc.generate(name, start, 2)  # warm-up: allocations
+            gated = art.extras["cfg"].gate_sigmoid == "pwl4"
+            # the pwl4 gate: one silu_pwl4 launch per layer and step
+            per_step = {"pwl_activation": cfg.n_layers} if gated else {}
             before = launch_counts(K)
             t0 = time.perf_counter()
             seqs = svc.generate(name, start, LM_GEN_TOKENS)
             ms_tok = (time.perf_counter() - t0) * 1e3 / LM_GEN_TOKENS
-            expect_launches(K, before, {}, f"generate at {name}")
+            expect_launches(K, before, {k: v * LM_GEN_TOKENS
+                                        for k, v in per_step.items()},
+                            f"generate at {name}")
             if (seqs.shape != (LM_GEN_BATCH, LM_GEN_TOKENS + 1)
                     or seqs.dtype != np.int32 or seqs.min() < 0
                     or seqs.max() >= cfg.vocab_size
@@ -1649,15 +1831,18 @@ def main_path_lm(torch, K):
                                      f"argmax of serve_step's logits")
             before = launch_counts(K)
             fwd = M.forward(ap, {"tokens": seq_t[:, :-1]}, acfg)
-            expect_launches(K, before, {"flash_attention": cfg.n_layers},
+            expect_launches(K, before, {"flash_attention": cfg.n_layers,
+                                        **per_step},
                             f"prefill of the {name} artifact")
+            gate_note = check_gate_route(torch, K, acfg, ap, seq_t[:, :-1],
+                                         fwd) if gated else ""
             rel_g = _rel_err(dec, fwd)
             agree = float((fwd.argmax(-1).to(torch.int32)
                            == seq_t[:, 1:]).float().mean())
             if not rel_g < 0.25:
                 raise AssertionError(f"generate at {name}: serve_step logits "
                                      f"against prefill, rel err {rel_g}")
-            serving[name] = dict(ms_per_token=ms_tok,
+            serving[name] = dict(ms_per_token=ms_tok, artifact=art,
                                  flash_bytes=art.memory_report()["flash"],
                                  quantized_bytes=art.extras["quantized_bytes"],
                                  register_s=t_reg, rel=rel_g, agree=agree)
@@ -1668,7 +1853,7 @@ def main_path_lm(torch, K):
                 f"{ms_tok:.2f} ms/token, no flash_attention launch; decode "
                 f"logits within {rel_g:.3e} of the prefill's, which picks "
                 f"the same token at {agree:.1%} of the steps; sample "
-                f"{seqs[0, :8].tolist()}")
+                f"{seqs[0, :8].tolist()}{gate_note}")
         stats = {n: svc.stats()[n] for n in targets}
     finally:
         svc.close()
@@ -2029,16 +2214,23 @@ def time_slice(torch, K, T, arts_d, d6, d5):
     b0 = torch.from_numpy(mlp.biases[0]).cuda()
     for m in (len(d6.x_test), max(TIMED_BATCHES)):
         x = torch.from_numpy(np.resize(d6.x_test, (m, 561))).cuda()
-        h = x @ w0 + b0
+        acc = x @ w0
         for v in ("pwl4", "rational"):
-            kern = lambda: K.pwl.pwl_activation_cuda(h, v)
-            plain = lambda: K.pwl.pwl_activation_plain(h, v)
+            # path C's hidden layer: the bias add in the kernel's launch
+            kern = lambda: K.pwl.pwl_activation_cuda(acc, v, bias=b0)
+            plain = lambda: K.pwl.pwl_activation_plain(acc, v, bias=b0)
             out = kern()
-            T.time("pwl_activation", v, m, kern, plain, _nbytes(h, out),
-                   8 * h.numel(), FP32_OPS_PER_S,
+            T.time("pwl_activation", f"{v}+bias", m, kern, plain,
+                   _nbytes(acc, b0, out), 9 * acc.numel(), FP32_OPS_PER_S,
                    v == "pwl4" and m == len(d6.x_test), "pwl_activation.cu",
-                   K.pwl.REPLACES,
-                   shape=f"{v} on the D6 MLP's ({m}, 64) hidden layer")
+                   K.pwl.REPLACES, profile=True,
+                   shape=f"{v}(acc + bias) on the D6 MLP's ({m}, 64) hidden "
+                         f"layer (path C)")
+            unfused = lambda: K.pwl.pwl_activation_cuda(acc + b0, v)
+            ms, host = cuda_ms(torch, unfused, 200 if m <= 3298 else 20)
+            log(f"  {'':14s} the unfused pair (bias add, then the kernel "
+                f"without bias): {ms:.4f} ms, host {host:.4f}, profiler "
+                f"device {device_ms(torch, unfused):.4f}")
     specs = [arts_d[f"mlp{s}"].extras["emit_spec"] for s in range(8)]
     ws = [_stacked(torch, [sp["ws"][i] for sp in specs]) for i in range(2)]
     bs = [_stacked(torch, [sp["bs"][i] for sp in specs]) for i in range(2)]
@@ -2183,8 +2375,10 @@ def serving_record(torch, K, arts_d, rows):
 
 
 def _kernel_profile(torch, fn):
-    """Device time by kernel kind (ms) and the number of kernel launches of
-    one call of ``fn``, from torch.profiler's CUDA activity."""
+    """Device time by kernel kind and by name (ms), the number of kernel
+    launches (the host's launch calls) and of device activities (kernels
+    and copies, and their count by name) of one call of ``fn``, from
+    torch.profiler's CPU and CUDA activity."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2192,26 +2386,34 @@ def _kernel_profile(torch, fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    by_kind = {"flash_attention": 0.0, "float32 GEMM": 0.0, "bf16 GEMM": 0.0,
-               "other": 0.0}
-    launches = 0
+    by_kind = {"flash_attention": 0.0, "pwl_activation": 0.0,
+               "float32 GEMM": 0.0, "bf16 GEMM": 0.0, "other": 0.0}
+    launches = activities = 0
+    names, device_ms = {}, {}
     for e in prof.key_averages():
         if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx", "cuLaunchKernel",
                      "cudaLaunchKernelExC"):
             launches += e.count
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
+        activities += e.count
+        names[e.key] = e.count
+        device_ms[e.key] = e.self_device_time_total / 1e3
         name = e.key
         ms = e.self_device_time_total / 1e3
         if "flash_attention_kernel" in name:
             by_kind["flash_attention"] += ms
+        elif "pwl_activation_kernel" in name:
+            by_kind["pwl_activation"] += ms
         elif "f32f32" in name or ("gemm" in name and "f32" in name):
             by_kind["float32 GEMM"] += ms
         elif any(t in name for t in ("gemm", "nvjet", "cutlass", "xmma")):
             by_kind["bf16 GEMM"] += ms
         else:
             by_kind["other"] += ms
-    return {"by_kind": by_kind, "launches": launches}
+    return {"by_kind": by_kind, "launches": launches,
+            "activities": activities, "names": names,
+            "device_ms": device_ms}
 
 
 def time_lm(torch, K, T, lm):
@@ -2307,17 +2509,160 @@ def time_lm(torch, K, T, lm):
             f"{st['flash_bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms")
 
 
+def time_lm_gate(torch, K, T, lm):
+    """Path E's pwl4 SiLU gate: the kernel (silu_pwl4) at the decode (4,
+    4864) and bf16 prefill (4 x 2048, 4864) shapes beside its plain version,
+    its bytes bound and the op-by-op gate it replaced; a bf16 prefill
+    forward at the pwl4 gate and one decode step of the served
+    fxp8/qnm/int8-KV/pwl4 artifact by torch.profiler, with the gate through
+    the kernel and op by op; and decode ms/token of that artifact with the
+    two gate routes in turns (op by op, kernel, kernel, op by op)."""
+    M, cfg, params = K.lm_model, lm["cfg"], lm["params"]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for rows, what in ((LM_GEN_BATCH, "decode"),
+                       (LM_BATCH * LM_SEQ, "bf16 prefill")):
+        x = (torch.randn(rows, cfg.d_ff, generator=gen, device="cuda")
+             * 4).to(torch.bfloat16)
+        kern = lambda: K.pwl.pwl_activation_cuda(x, "silu_pwl4")
+        plain = lambda: K.pwl.pwl_activation_plain(x, "silu_pwl4")
+        out = kern()
+        T.time("pwl_activation", "silu_pwl4", rows, kern, plain,
+               _nbytes(x, out), 8 * x.numel(), FP32_OPS_PER_S, False,
+               "pwl_activation.cu", K.pwl.REPLACES, profile=True)
+        eager = lambda: x * K.acts.sigmoid_pwl4(x)
+        ms, host = cuda_ms(torch, eager, 200 if rows <= 3298 else 20)
+        prof = _kernel_profile(torch, eager)
+        log(f"  {'':14s} the op-by-op gate x * sigmoid_pwl4(x) at the "
+            f"{what} shape ({rows}, {cfg.d_ff}) bf16: {ms:.4f} ms, host "
+            f"{host:.4f}, {prof['launches']} launches, "
+            f"{sum(prof['by_kind'].values()):.4f} ms device")
+    tok = _lm_tokens(torch, cfg, (LM_BATCH, LM_SEQ), 0)
+    cfg_g = dataclasses.replace(cfg, gate_sigmoid="pwl4")
+    gate_bytes = 2 * LM_BATCH * LM_SEQ * cfg.d_ff * 2  # bf16 in and out
+    for kernel in (False, True):
+        with gate_route(K, kernel):
+            prof = _kernel_profile(torch, lambda: M.forward(
+                params, {"tokens": tok}, cfg_g))
+        by = prof["by_kind"]
+        route = "through the kernel" if kernel else "op by op"
+        log(f"  prefill forward {LM_BATCH} x {LM_SEQ} bf16 at the pwl4 "
+            f"gate, gate {route}: "
+            f"{prof['launches']} launches, {prof['activities']} device "
+            f"activities, {sum(by.values()):.3f} ms device; pwl_activation "
+            f"{by['pwl_activation']:.4f} ms = {cfg.n_layers} x "
+            f"{by['pwl_activation'] / cfg.n_layers:.4f} ms a layer (bytes "
+            f"bound {gate_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms a layer); "
+            f"other {by['other']:.3f} ms")
+    art = lm["serving"]["fxp8_qnm_kv8_pwl4"]["artifact"]
+    acfg, ap = art.extras["cfg"], art.extras["params"]
+    cache = M.init_cache(acfg, LM_GEN_BATCH, 8, tok.device)
+    for kernel in (False, True):
+        with gate_route(K, kernel):
+            step = _kernel_profile(torch, lambda: M.serve_step(
+                ap, cache, {"token": tok[:LM_GEN_BATCH, 0]}, acfg))
+        route = "through the kernel" if kernel else "op by op"
+        log(f"  one fxp8/qnm/int8-KV/pwl4 decode step, batch "
+            f"{LM_GEN_BATCH}, gate {route}: "
+            f"{step['launches']} launches, {step['activities']} device "
+            f"activities, {sum(step['by_kind'].values()):.3f} ms device")
+    start = np.random.RandomState(2).randint(
+        1, cfg.vocab_size, (LM_GEN_BATCH,)).astype(np.int32)
+    readings = {False: [], True: []}
+    turns = (False, True, True, False) * 2
+    for kernel in turns:
+        with gate_route(K, kernel):
+            art.extras["generate"](start, 2)
+            t0 = time.perf_counter()
+            art.extras["generate"](start, LM_GEN_TOKENS)
+            readings[kernel].append(
+                (time.perf_counter() - t0) * 1e3 / LM_GEN_TOKENS)
+    order = {False: iter(readings[False]), True: iter(readings[True])}
+    log(f"  decode fxp8/qnm/int8-KV/pwl4 ms/token at batch {LM_GEN_BATCH} "
+        f"(host clock over {LM_GEN_TOKENS} tokens), the gate op by op (o) "
+        f"and through the kernel (k) in turns: "
+        + " / ".join(f"{'k' if k else 'o'} {next(order[k]):.3f}"
+                     for k in turns)
+        + f"; median o {np.median(readings[False]):.3f}, k "
+        f"{np.median(readings[True]):.3f}")
+
+
+@contextlib.contextmanager
+def unfused_bias():
+    """Path C's lowering with the bias add outside the kernel's launch (the
+    route before the fused bias): ``ops.pwl_activation`` adds it first."""
+    from repro_torch.kernels import ops
+
+    fused = ops.pwl_activation
+
+    def unfused(x, variant="pwl4", impl="cuda", bias=None):
+        return fused(x if bias is None else x + bias, variant, impl)
+
+    ops.pwl_activation = unfused
+    try:
+        yield
+    finally:
+        ops.pwl_activation = fused
+
+
+def flt_pwl_predict(torch, K, x_big):
+    """Path C's predict (the flt D6 MLP, pwl4 sigmoid, ``cuda``) at 1, 64,
+    3089 and 65536 rows: its device activities, kernel launches and device
+    time by kernel (its stages) by torch.profiler, beside the same lowering
+    with the bias added outside the kernel (labels equal), and both
+    predicts end to end (host clock, median of 10)."""
+    mlp = K.models.init_mlp([561, 64, 6], seed=0)
+    art = K.tc.compile(mlp, K.tc.Target(sigmoid="pwl4", backend="cuda"))
+
+    def median_ms(fn, n):
+        fn()
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    for m in TIMED_BATCHES:
+        xb = np.ascontiguousarray(x_big[:m])
+        fused_p = _kernel_profile(torch, lambda: art.predict(xb))
+        fused_ms = median_ms(lambda: art.predict(xb), 10)
+        with unfused_bias():
+            unfused_labels = art.predict(xb)
+            unfused_p = _kernel_profile(torch, lambda: art.predict(xb))
+            unfused_ms = median_ms(lambda: art.predict(xb), 10)
+        if not np.array_equal(art.predict(xb), unfused_labels):
+            raise AssertionError(f"path C, {m} rows: the fused bias changes "
+                                 f"labels")
+        if unfused_p["launches"] != fused_p["launches"] + 1:
+            raise AssertionError(f"path C, {m} rows: {fused_p['launches']} "
+                                 f"launches with the fused bias, "
+                                 f"{unfused_p['launches']} without: not one "
+                                 f"fewer")
+        stages = ", ".join(f"{name[:48]} {ms:.4f}"
+                           for name, ms in fused_p["device_ms"].items())
+        log(f"  path C predict, flt pwl4 MLP, batch {m}: fused bias "
+            f"{fused_p['activities']} device activities "
+            f"({fused_p['launches']} kernel launches), unfused "
+            f"{unfused_p['activities']} ({unfused_p['launches']}); labels "
+            f"equal; predict {fused_ms:.3f} ms, unfused {unfused_ms:.3f} "
+            f"ms; device ms by kernel: {stages}")
+
+
 def timing(torch, K, dev, d6, d5, check, arts_a, arts_b, arts_d, tree_model,
            launches, lm):
     x_big = np.resize(d6.x_test, (max(TIMED_BATCHES), d6.x_test.shape[1]))
     n_test = len(d6.x_test)
     T = Timer(torch, dev, check, launches)
     time_lm(torch, K, T, lm)
+    time_lm_gate(torch, K, T, lm)
     time_mlp(torch, K, T, arts_a, x_big, n_test)
     time_tree_svm(torch, K, T, arts_b, tree_model, x_big, n_test)
     time_layer_wide(torch, K, T, arts_a, x_big, n_test)
     time_slice(torch, K, T, arts_d, d6, d5)
     time_predict_device(torch, K, arts_d, d6)
+    flt_pwl_predict(torch, K, x_big)
     predict_breakdown(torch, K, arts_a[("mlp", "fxp16")], x_big,
                       (n_test, max(TIMED_BATCHES)))
     for pinned in (False, True):
@@ -2379,10 +2724,13 @@ def main() -> int:
     from repro_torch.data import load_dataset
     from repro_torch import serve
     from repro_torch import configs
+    from repro_torch import emit
     from repro_torch.kernels import (build, flash_attention, fxp_layer,
                                      fxp_model, fxp_qmatmul, pwl_activation,
                                      tree_ensemble, tune)
     from repro_torch.kernels import ref as kernels_ref
+    from repro_torch.core import activations as acts
+    from repro_torch.lm import layers as lm_layers
     from repro_torch.lm import model as lm_model
     from repro_torch.models.svm import _pick_prototypes
 
@@ -2390,7 +2738,9 @@ def main() -> int:
         tc=tc, models=models, common=common, fxp=fxp, trees=trees,
         layer=fxp_layer, model=fxp_model, qm=fxp_qmatmul, te=tree_ensemble,
         pwl=pwl_activation, serve=serve, pick_prototypes=_pick_prototypes,
-        fa=flash_attention, lm_model=lm_model, configs=configs, tune=tune,
+        fa=flash_attention, lm_model=lm_model, lm_layers=lm_layers,
+        acts=acts, emit=emit,
+        configs=configs, tune=tune,
         kref=kernels_ref,
         launchers={"fxp_layer": fxp_layer.fxp_layer_cuda,
                    "fxp_mlp_model": fxp_model.fxp_mlp_model_cuda,
@@ -2433,6 +2783,7 @@ def main() -> int:
 
     arts_a, launches_a = main_path_mlp(torch, K, d6)
     arts_b, launches_b = main_path_tree_svm(torch, K, d6, d5, tree_model)
+    emit_c_phase(K, arts_a, arts_b, d6, d5)
     launches_c = main_path_flt_pwl(torch, K, d6)
     launches_d, arts_d = main_path_serving(torch, K, d6, d5, tree_model)
     launches_e, lm = main_path_lm(torch, K)

@@ -9,8 +9,9 @@ host in numpy.  ``lower`` places the quantized program on the artifact's
 device: CUDA unless the caller passes ``device="cpu"``, which runs the
 kernels' plain PyTorch versions on the host (the tests do).  With no CUDA
 device and no explicit ``"cpu"``, compiling raises: the port never carries
-on on the host by itself.  Mesh specialization and the ``emit`` backend
-arrive with later slices.
+on on the host by itself.  The ``emit`` backend lowers as ``ref`` on that
+device and serves through the generated C on the host (:func:`_specialize`).
+Mesh specialization arrives with a later slice.
 """
 
 from __future__ import annotations
@@ -70,11 +71,49 @@ def _subtract_phantom_rows(stats: FxpStats, k: int, pad_row_cache: list,
         (stats.overflow, stats.underflow, stats.total), per)))
 
 
-def _specialize(program: Lowered, target: Target) -> Callable:
-    """Stage 4: the batch policy.  ``fixed`` pads every call up to
+def _emit_predict(program: Lowered, target: Target, kind: str) -> Callable:
+    """The ``emit`` backend's predict: the lowering's ``emit_spec`` templated
+    into a freestanding C translation unit, built with the host's C compiler
+    on the first predict (emission itself needs no toolchain; without one
+    the first predict raises ``EmitToolchainError``).  Inputs are quantized
+    on the host with the tensor ops' rounding and the compiled binary gives
+    the labels; stats cover the input quantization only (the C program has
+    no stats plumbing)."""
+    from repro_torch import emit as emit_mod
+
+    spec = (program.extras or {}).get("emit_spec")
+    if spec is None:
+        if not target.is_quantized:
+            raise TypeError(
+                "the 'emit' backend serves quantized targets only — "
+                "float models have no fixed-point program to emit "
+                "(use number_format='fxp*'/'auto*')")
+        raise TypeError(
+            f"the '{kind or 'requested'}' lowering does not support the "
+            f"'emit' backend (no emit_spec); C emission covers the "
+            f"classifier lowerings (tree/logistic/mlp/svm-*)")
+    runner_cell: list = []
+
+    def predict(x):
+        if not runner_cell:
+            src = emit_mod.emit_c(spec, kind=kind,
+                                  target_name=target.number_format)
+            runner_cell.append(emit_mod.CRunner(
+                src, emit_mod.input_format(spec)))
+        labels, stats = runner_cell[0].predict(x)
+        return torch.from_numpy(labels), stats
+
+    return predict
+
+
+def _specialize(program: Lowered, target: Target, kind: str = "") -> Callable:
+    """Stage 4: the backend and the batch policy.  ``emit`` serves through
+    the generated C (:func:`_emit_predict`); ``fixed`` pads every call up to
     ``batch_size`` (the embedded static-allocation posture), rejects larger
     batches and slices the padded rows off the output."""
     predict = program.predict
+    if target.backend == "emit":
+        predict = _emit_predict(program, target, kind)
     if target.batch_policy != "fixed":
         return predict
     inner = predict
@@ -122,7 +161,8 @@ def compile_from_params(kind: str, params: Any, target: Target,
     qparams = lowering.quantize(params, target, plan)
     program = lowering.lower(qparams, target, plan, dev)
     return CompiledArtifact(kind=kind, target=target, params=params,
-                            _predict=_specialize(program, target), device=dev,
+                            _predict=_specialize(program, target, kind),
+                            device=dev,
                             flash_bytes=program.flash_bytes,
                             sram_bytes=program.sram_bytes,
                             extras=program.extras,

@@ -1,11 +1,13 @@
 """The compiled artifact — the paper's "output file" analogue.
 
 The counterpart of :mod:`repro.compile.artifact`, in memory only: archives
-(``save``/``load``) arrive with their own slice.  A :class:`CompiledArtifact`
-holds the extracted parameters, the specialized predict program and the
-memory model of one compile, and what the serving plane reads off it
-(``max_supported_batch``, ``pretune``, and ``mesh``/``replicas`` of a
-single-device artifact).
+(``save``/``load``, with ``include_c``) arrive with their own slice.  A
+:class:`CompiledArtifact` holds the extracted parameters, the specialized
+predict program and the memory model of one compile, and what the serving
+plane reads off it (``max_supported_batch``, ``pretune``, and
+``mesh``/``replicas`` of a single-device artifact).  It emits its C
+(:meth:`CompiledArtifact.emit_c`) and reports its footprint, measured from
+the compiled C where asked (:meth:`CompiledArtifact.report`).
 """
 
 from __future__ import annotations
@@ -121,6 +123,96 @@ class CompiledArtifact:
             "underflow_rate": float(under / denom),
         }
 
+    # -- C emission ----------------------------------------------------------
+    def emit_c(self) -> str:
+        """The freestanding C99 translation unit for this artifact.
+
+        Available for any quantized classifier artifact regardless of its
+        backend (the emit spec rides on the lowered program); raises
+        :class:`repro_torch.emit.EmitError` for float targets and the ``lm``
+        lowering.  Emission is pure templating: no C compiler is needed
+        (only :meth:`report`'s measured sizes and the ``emit`` backend's
+        replay build the C).
+        """
+        from repro_torch import emit as emit_mod
+
+        return emit_mod.emit_artifact_c(self)
+
+    # -- memory model --------------------------------------------------------
     def memory_report(self) -> Dict[str, int]:
         return {"flash": self.flash_bytes, "sram": self.sram_bytes,
                 "total": self.flash_bytes + self.sram_bytes}
+
+    def report(self, x: Optional[np.ndarray] = None,
+               y: Optional[np.ndarray] = None,
+               measure_c: Any = "auto") -> Dict[str, Any]:
+        """Paper-style resource report for this artifact.
+
+        Always includes the memory model and the per-tensor number formats
+        (the QuantPlan table for calibrated targets, the single global
+        format otherwise).  ``model_bytes`` is computed from the *actual
+        quantized tensors* (per-tensor container widths), not a float-size
+        estimate.  Given an evaluation batch ``x``, adds the observed
+        saturation/underflow counts (paper §V-A); given labels ``y`` as
+        well, adds accuracy and the delta vs a float recompile of the same
+        parameters on the ``ref`` backend and the artifact's device (paper
+        Tables V-VII).
+
+        ``measure_c`` controls the *measured* footprint (paper Tables
+        IV-VI): compile the generated C freestanding with the host's C
+        compiler and report its real ``.text``/``.rodata``/``.data`` section
+        sizes as ``c_sections`` (with ``model_bytes_measured = flash``).
+        ``"auto"`` measures for ``emit``-backend artifacts when a toolchain
+        exists and skips otherwise, as the reference does (the measurement
+        is of the host's C build; it stands in for no device); ``True``
+        forces measurement (raising without a C compiler or for
+        un-emittable artifacts); ``False`` disables it.
+        """
+        rep: Dict[str, Any] = {
+            "kind": self.kind,
+            "number_format": self.target.number_format,
+            "backend": self.target.backend,
+            "model_bytes": self.flash_bytes,
+            "sram_bytes": self.sram_bytes,
+        }
+        want_measure = (measure_c is True
+                        or (measure_c == "auto"
+                            and self.target.backend == "emit"))
+        if want_measure:
+            try:
+                from repro_torch import emit as emit_mod
+
+                rep["c_sections"] = emit_mod.measure_artifact(self)
+                rep["model_bytes_measured"] = rep["c_sections"]["flash"]
+            except Exception:
+                if measure_c is True:
+                    raise
+                # auto mode: no toolchain / un-emittable — estimate only.
+        if self.quant_plan is not None:
+            rep["formats"] = {
+                path: repr(self.quant_plan.fmt(path))
+                for path in self.quant_plan.paths()}
+            rep["calibration_ranges"] = dict(self.quant_plan.ranges)
+        elif self.target.is_quantized:
+            rep["formats"] = {"*": repr(self.target.fmt)}
+        else:
+            rep["formats"] = {}
+        if x is not None:
+            out, stats = self.predict_with_stats(x)
+            rep["saturation"] = stats
+            if y is not None:
+                y = np.asarray(y)
+                rep["accuracy"] = float((out == y).mean())
+                if self.params is not None and self.target.is_quantized:
+                    from .api import compile_from_params
+
+                    flt = compile_from_params(
+                        self.kind, self.params,
+                        self.target.replace(number_format="flt",
+                                            backend="ref"),
+                        device=self.device)
+                    rep["accuracy_float"] = float(
+                        (flt.predict(x) == y).mean())
+                    rep["accuracy_delta"] = (rep["accuracy"]
+                                             - rep["accuracy_float"])
+        return rep

@@ -5,8 +5,9 @@ The counterpart of :mod:`repro.compile.lowerings.mlp`.  Backend routing:
 * float targets — float32 matmuls through ``torch.matmul`` with TF32 off
   (the reference leaves them to XLA, outside any kernel); on ``cuda`` a
   ``pwl2``/``pwl4``/``rational`` sigmoid is the ``pwl_activation`` kernel
-  (``ops.pwl_activation``), as on the reference's ``pallas``; otherwise the
-  float sigmoid in PyTorch ops.
+  (``ops.pwl_activation``), as on the reference's ``pallas``, with the
+  hidden layer's bias added in the same launch; otherwise the float
+  sigmoid in PyTorch ops.
 * fixed-point targets on ``cuda`` — the whole forward pass is one
   ``fxp_mlp_model`` megakernel launch when the activations fit one block's
   shared memory (:func:`repro_torch.kernels.fxp_model.mlp_fits_smem`),
@@ -91,17 +92,22 @@ class MLPLowering(Lowering):
                 from repro_torch.kernels import ops
 
                 variant = target.sigmoid
-                sig = lambda h: ops.pwl_activation(h, variant)  # noqa: E731
+
+                def hidden(h, w, b):
+                    # the bias add rides in the activation's launch
+                    return ops.pwl_activation(h @ w, variant, bias=b)
             else:
                 sig = get_sigmoid(target.sigmoid)
+
+                def hidden(h, w, b):
+                    return sig(h @ w + b)
 
             def predict(x):
                 require_full_float32(device)
                 h = as_input(x, device)
-                for i, (w, b) in enumerate(zip(ws, bs)):
-                    h = h @ w + b
-                    if i < len(ws) - 1:
-                        h = sig(h)
+                for w, b in zip(ws[:-1], bs[:-1]):
+                    h = hidden(h, w, b)
+                h = h @ ws[-1] + bs[-1]
                 return (torch.argmax(h, -1).to(torch.int32),
                         zero_stats(device))
 

@@ -7,10 +7,12 @@ the backend that executes the artifact, and the batch policy.
 Backends: ``ref`` runs the wide-accumulating oracle semantics in PyTorch
 ops; ``cuda`` is the counterpart of the reference package's ``pallas``:
 the hand-written CUDA kernels on a card, or their plain PyTorch versions
-when the artifact was compiled for ``device="cpu"``.  The ``emit`` backend
-(C emission) arrives with its own slice; asking for it raises.  The LM
-fields ``weight_scale`` and ``kv_cache`` are read by the ``lm`` lowering,
-which ignores ``backend`` as the reference's does.
+when the artifact was compiled for ``device="cpu"``; ``emit`` (the EmbML
+deliverable) serves through freestanding fixed-point C99 generated by
+:mod:`repro_torch.emit`, compiled with the host's C compiler on the first
+predict and run on the host.  The LM fields ``weight_scale`` and
+``kv_cache`` are read by the ``lm`` lowering, which ignores ``backend`` as
+the reference's does.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ CALIBRATED_FORMATS: Dict[str, int] = {
     "auto8": 8,
 }
 
-BACKENDS = ("ref", "cuda")
+BACKENDS = ("ref", "cuda", "emit")
 BATCH_POLICIES = ("dynamic", "fixed")
 
 
@@ -53,7 +55,8 @@ class Target:
       per-tensor Qn.m from ``compile(..., calibration=x)``).
     * ``sigmoid`` — ``exact`` | ``rational`` | ``pwl2`` | ``pwl4``.
     * ``tree_layout`` — ``iterative`` | ``ifelse`` | ``oblivious``.
-    * ``backend`` — ``ref`` | ``cuda`` (see the module docstring).
+    * ``backend`` — ``ref`` | ``cuda`` | ``emit`` (see the module
+      docstring).
     * ``batch_policy`` — ``dynamic`` or ``fixed`` (padded to ``batch_size``,
       larger batches rejected).
     * ``weight_scale`` — LM weight-only scale mode: ``qnm`` (paper-faithful
@@ -83,10 +86,6 @@ class Target:
             raise KeyError(f"sigmoid must be one of {SIGMOID_NAMES}")
         if self.tree_layout not in TREE_LAYOUTS:
             raise KeyError(f"tree_layout must be one of {TREE_LAYOUTS}")
-        if self.backend == "emit":
-            raise NotImplementedError(
-                "the 'emit' backend (C emission) is not ported to "
-                "repro_torch yet; use the reference package's repro.emit")
         if self.backend not in BACKENDS:
             raise KeyError(f"backend must be one of {BACKENDS}")
         if self.batch_policy not in BATCH_POLICIES:

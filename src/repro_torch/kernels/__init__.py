@@ -18,7 +18,9 @@ between them by device and :mod:`.ref` holds the int64 oracles.
 * fxp_model (fleet half) — E stacked MLPs or kernel SVMs in one launch,
                    one block per (batch block, model) (replace
                    ``fxp_mlp_fleet_pallas`` and ``fxp_svm_fleet_pallas``)
-* pwl_activation — the float PWL sigmoid family, elementwise (replaces
+* pwl_activation — the float PWL sigmoid family, elementwise, with an
+                   optional bias added in the same launch; ``silu_pwl4``
+                   is the LM's pwl4 SiLU gate (replaces
                    ``pwl_activation_pallas``)
 * flash_attention — causal or full softmax attention over (BH, S, dh),
                    one block per 64-query tile (replaces

@@ -13,6 +13,9 @@
 //   without --use_fast_math, and +-inf gives NaN there (inf / inf);
 // * -0.0 >= 0 holds, so pwl4(-0.0) takes the positive branch; silu_pwl4(-inf)
 //   is NaN (-inf * 0);
+// * a fused bias is added before the variant, the sum rounded to the
+//   tensor's type first (pwl_activation.cu), as the unfused h + b rounds
+//   it: float32 here, float16 and bfloat16 by the kernel's narrowing cast;
 // * XLA flushes subnormal float32 results to zero (the CPU tests see it
 //   on its CPU backend), so every result below the smallest normal float
 //   becomes a zero of its sign.  Only silu_pwl4 can produce one (x * 0.5
@@ -25,8 +28,10 @@
 
 #if defined(__CUDACC__)
 #define PWL_HOST_DEVICE __host__ __device__ __forceinline__
+#define PWL_UNROLL _Pragma("unroll")
 #else
 #define PWL_HOST_DEVICE inline
+#define PWL_UNROLL
 #endif
 
 namespace pwl {
@@ -59,6 +64,78 @@ PWL_HOST_DEVICE float silu_pwl4(float x) { return x * pwl4(x); }
 // A subnormal becomes a zero of the same sign; NaN and the rest pass.
 PWL_HOST_DEVICE float flush_subnormal(float y) {
   return fabsf(y) < 0x1p-126f ? y * 0.0f : y;
+}
+
+// The fused bias of a row-major (rows, cols) tensor: the column of each
+// element of a grid-stride pass, without a division per element.  A pass
+// whose items are groups of `vec` consecutive elements starts at element
+// `first` and moves `stride` elements an iteration: `col` is the column of
+// the item's first element, `next` steps one element within the item
+// (columns wrap at `cols`, any number of times in an item when cols < vec)
+// and `advance` one iteration.
+struct ColumnWalk {
+  int col, step, cols;
+  PWL_HOST_DEVICE ColumnWalk(long long first, long long stride, int cols_)
+      : col((int)(first % cols_)), step((int)(stride % cols_)), cols(cols_) {}
+  PWL_HOST_DEVICE int next(int c) const { return c + 1 == cols ? 0 : c + 1; }
+  PWL_HOST_DEVICE void advance() {
+    col += step;
+    if (col >= cols) col -= cols;
+  }
+};
+
+// One thread's share of pwl_activation.cu's grid-stride pass, thread `tid`
+// of `threads`: y[i] = op(x[i], bias[column of i]) with kBias, op(x[i])
+// without, over the n elements of a row-major (n / cols, cols) tensor.
+// Vectorized (x and y aligned to a V of kVec values), it takes the items
+// tid, tid + threads, ... of kVec values, then the tail past the last whole
+// vector element by element; else every element.  The kernel runs it with
+// V = uint4 (16-byte accesses) and op the variant in its storage type; the
+// CPU tests run the same loops over float32 with V a plain array.
+#if defined(__CUDACC__)
+#pragma nv_exec_check_disable
+#endif
+template <bool kBias, int kVec, typename V, typename T, typename Op>
+PWL_HOST_DEVICE void thread_share(const T* __restrict__ x,
+                                  const T* __restrict__ bias,
+                                  T* __restrict__ y, long long n, int cols,
+                                  int vectorized, long long tid,
+                                  long long threads, const Op& op) {
+  long long start = 0;
+  if (vectorized) {
+    const long long nv = n / kVec;
+    const V* __restrict__ xv = reinterpret_cast<const V*>(x);
+    V* __restrict__ yv = reinterpret_cast<V*>(y);
+    ColumnWalk walk(tid * kVec, threads * kVec, kBias ? cols : 1);
+    for (long long i = tid; i < nv; i += threads) {
+      V v = xv[i];
+      T* e = reinterpret_cast<T*>(&v);
+      if (kBias) {
+        int c = walk.col;
+        PWL_UNROLL
+        for (int j = 0; j < kVec; ++j) {
+          e[j] = op(e[j], bias[c]);
+          c = walk.next(c);
+        }
+        walk.advance();
+      } else {
+        PWL_UNROLL
+        for (int j = 0; j < kVec; ++j) e[j] = op(e[j]);
+      }
+      yv[i] = v;
+    }
+    start = nv * kVec;
+  }
+  // the ragged tail, or the whole of an unaligned tensor
+  ColumnWalk walk(start + tid, threads, kBias ? cols : 1);
+  for (long long i = start + tid; i < n; i += threads) {
+    if (kBias) {
+      y[i] = op(x[i], bias[walk.col]);
+      walk.advance();
+    } else {
+      y[i] = op(x[i]);
+    }
+  }
 }
 
 PWL_HOST_DEVICE float apply(int variant, float x) {

@@ -34,7 +34,8 @@ from .fxp_model import (FleetSchedules, LayerSchedule, SvmFleetParams,
                         fxp_svm_fleet_cuda, fxp_svm_fleet_plain,
                         fxp_svm_model_cuda, fxp_svm_model_plain)
 from .fxp_qmatmul import fxp_qmatmul_cuda, fxp_qmatmul_plain
-from .pwl_activation import pwl_activation_cuda, pwl_activation_plain
+from .pwl_activation import (_check_bias, pwl_activation_cuda,
+                             pwl_activation_plain)
 from .tree_ensemble import tree_ensemble_cuda, tree_ensemble_plain
 
 __all__ = ["fxp_qmatmul", "fxp_layer", "fxp_mlp_model", "fxp_svm_model",
@@ -186,17 +187,23 @@ def fxp_svm_fleet(qx: torch.Tensor, sv: torch.Tensor, dual: torch.Tensor,
 
 
 def pwl_activation(x: torch.Tensor, variant: str = "pwl4",
-                   impl: str = "cuda") -> torch.Tensor:
+                   impl: str = "cuda",
+                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The float PWL sigmoid/silu family over any-shaped input, in one
-    dispatch (float32 on the card; the plain version and ``ref`` take any
-    float dtype and compute in float32)."""
+    dispatch: ``variant(x + bias)`` with an optional ``bias`` over the last
+    axis, the sum rounded to ``x``'s dtype (float32, float16 or bfloat16
+    on the card; the plain version and ``ref`` take any float dtype; all
+    compute the variant in float32)."""
     _tick()
     route = _route(impl, x)
     if route == "ref":
+        if bias is not None:
+            _check_bias(x, bias)
+            x = x + bias
         return ref_ops.pwl_activation_ref(x, variant)
     if route == "cuda":
-        return pwl_activation_cuda(x, variant)
-    return pwl_activation_plain(x, variant)
+        return pwl_activation_cuda(x, variant, bias)
+    return pwl_activation_plain(x, variant, bias)
 
 
 def tree_predict(tree: TreeArrays, x: torch.Tensor,

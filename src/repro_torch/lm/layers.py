@@ -4,7 +4,8 @@ The PyTorch counterpart of :mod:`repro.lm.layers`.  All functions are pure;
 parameters are plain dicts of tensors.  Compute dtype follows the input;
 norm statistics and RoPE angles always run in float32.  The paper's PWL
 sigmoid (C3) is available for every sigmoid-derived gate (sigmoid, silu)
-via ``gate_sigmoid`` — exact by default.
+via ``gate_sigmoid`` — exact by default; on the card a ``pwl4`` SiLU gate is
+one ``pwl_activation`` launch (:func:`gated_silu`).
 """
 
 from __future__ import annotations
@@ -102,10 +103,10 @@ def apply_linear(p: Dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def activation_fn(name: str, gate_sigmoid: str = "exact") -> Callable:
-    """silu/gelu/relu/relu2; silu routes through the (possibly PWL) sigmoid."""
+    """silu/gelu/relu/relu2; silu routes through the (possibly PWL) sigmoid
+    (:func:`gated_silu`)."""
     if name == "silu":
-        sig = get_sigmoid(gate_sigmoid)
-        return lambda x: x * sig(x)
+        return lambda x: gated_silu(x, gate_sigmoid)
     if name == "gelu":
         return lambda x: F.gelu(x, approximate="tanh")
     if name == "relu":
@@ -116,6 +117,19 @@ def activation_fn(name: str, gate_sigmoid: str = "exact") -> Callable:
 
 
 def gated_silu(x: torch.Tensor, gate_sigmoid: str = "exact") -> torch.Tensor:
+    """``x * sigmoid(x)`` with the gate sigmoid ``gate_sigmoid``.
+
+    A ``pwl4`` gate on a CUDA tensor is one ``pwl_activation`` launch of
+    its ``silu_pwl4`` variant; on the CPU it stays op by op.  The kernel
+    computes in float32 and rounds once, where the op-by-op route rounds
+    every step to ``x``'s dtype: in float32 the two agree bit for bit but
+    for the kernel's flush of a subnormal result (which XLA applies too); in
+    bf16 they differ by the op-by-op route's roundings.  The other gates
+    have no fused form in the kernel and stay in PyTorch ops."""
+    if gate_sigmoid == "pwl4" and x.device.type == "cuda":
+        from repro_torch.kernels import ops
+
+        return ops.pwl_activation(x, "silu_pwl4")
     sig = get_sigmoid(gate_sigmoid)
     return x * sig(x)
 

@@ -334,6 +334,55 @@ def test_pwl_activation_narrow_floats_match_plain(dev, variant, dtype):
         assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+@pytest.mark.parametrize("variant", ["pwl2", "pwl4", "rational", "silu_pwl4"])
+def test_pwl_activation_bias_matches_plain(dev, variant, dtype):
+    """The fused bias at widths that cross the kernel's 16-byte vectors,
+    non-finite values in x and in the bias, and a view off the 16-byte
+    boundary: bit for bit against the plain version's ``pwl(x + b)``."""
+    from repro_torch.kernels import pwl_activation
+
+    dt = getattr(torch, dtype)
+    as_int = torch.int32 if dtype == "float32" else torch.int16
+    rng = np.random.RandomState(9)
+    for width in (1, 6, 7, 33, 64, 561, 4864):
+        for rows, offset in ((1, 0), (5, 0), (3089, 0), (7, 1)):
+            flat = (rng.randn(rows * width + offset) * 4).astype(np.float32)
+            flat[offset:offset + len(PWL_EDGES)] = np.asarray(
+                PWL_EDGES, np.float32)[:flat.size - offset]
+            x = torch.from_numpy(flat).to(dev).to(dt)[offset:].view(
+                rows, width)
+            b = (rng.randn(width) * 2).astype(np.float32)
+            b[:4] = np.asarray([-0.0, np.inf, -np.inf, np.nan])[:width]
+            b = torch.from_numpy(b).to(dev).to(dt)
+            before = pwl_activation.pwl_activation_cuda.launches
+            got = ops.pwl_activation(x, variant, bias=b)
+            assert pwl_activation.pwl_activation_cuda.launches == before + 1
+            want = pwl_activation.pwl_activation_plain(x, variant, bias=b)
+            assert got.dtype == dt and got.shape == x.shape
+            assert torch.equal(got.view(as_int), want.view(as_int)), (
+                width, rows, offset)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_pwl4_gate_is_one_launch(dev, dtype):
+    """On a CUDA tensor the LM's pwl4 SiLU gate is one silu_pwl4 launch,
+    equal to the kernel route's plain version; the exact gate launches
+    nothing of the port."""
+    from repro_torch.kernels import pwl_activation
+    from repro_torch.lm import layers
+
+    x = torch.randn(4, 4864, generator=torch.Generator().manual_seed(0))
+    x = (x * 4).to(dev).to(getattr(torch, dtype))
+    before = pwl_activation.pwl_activation_cuda.launches
+    got = layers.gated_silu(x, "pwl4")
+    assert pwl_activation.pwl_activation_cuda.launches == before + 1
+    want = pwl_activation.pwl_activation_plain(x, "silu_pwl4")
+    assert torch.equal(got, want)
+    layers.gated_silu(x, "exact")
+    assert pwl_activation.pwl_activation_cuda.launches == before + 1
+
+
 @pytest.mark.parametrize("bits", [8, 16, 32])
 def test_fxp_mlp_fleet_kernel_matches_plain(dev, bits):
     rng = np.random.RandomState(bits + 7)

@@ -133,6 +133,85 @@ def test_mlp_matches_reference(mlp_type, activation, gate):
     assert _rel(got, want) <= 1e-5
 
 
+def _kernel_gate(monkeypatch):
+    """Route every pwl4 SiLU gate through ``ops.pwl_activation(x,
+    "silu_pwl4")`` (the card's route; on these CPU tensors, the kernel's
+    plain version)."""
+    def route(x, gate="exact"):
+        if gate == "pwl4":
+            return tops.pwl_activation(x, "silu_pwl4")
+        return x * tlayers.get_sigmoid(gate)(x)
+
+    monkeypatch.setattr(tlayers, "gated_silu", route)
+
+
+def _bf16(tree):
+    """Floating leaves rounded to bfloat16 (the reference's arrays)."""
+    return jax.tree.map(
+        lambda a: a.astype(jnp.bfloat16)
+        if jnp.issubdtype(a.dtype, jnp.floating) else a, tree)
+
+
+def _f32(tree):
+    return jax.tree.map(
+        lambda a: a.astype(jnp.float32)
+        if jnp.issubdtype(a.dtype, jnp.floating) else a, tree)
+
+
+def test_pwl4_gate_kernel_route_equals_the_op_by_op_route():
+    """In float32 the one-launch gate is ``x * sigmoid_pwl4(x)`` bit for bit
+    (no subnormal result here, the one place the kernel flushes); on a CPU
+    tensor every gate, pwl4 too, keeps the op-by-op route."""
+    rng = np.random.RandomState(4)
+    x = _t((rng.randn(3, 7, 48) * 4).astype(np.float32))
+    eager = x * tlayers.get_sigmoid("pwl4")(x)
+    with tops.count_dispatches() as c:
+        fused = tops.pwl_activation(x, "silu_pwl4")
+    assert c.count == 1
+    assert torch.equal(fused.view(torch.int32), eager.view(torch.int32))
+    with tops.count_dispatches() as c:
+        for gate in GATES:
+            tlayers.gated_silu(x, gate)
+    assert c.count == 0
+    assert torch.equal(tlayers.gated_silu(x, "pwl4"), eager)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mlp_type", ["glu", "standard"])
+def test_pwl4_gate_kernel_route_mlp_matches_reference(mlp_type, dtype,
+                                                      monkeypatch):
+    """The LM's MLP block with the pwl4 SiLU gate through the kernel route
+    against the reference's op-by-op block.  float32: within the layers'
+    1e-5.  bfloat16: the reference rounds each of the gate's ops to bf16,
+    the kernel computes in float32 and rounds once; both are held to the
+    block computed in float32 from the same bf16 values, the kernel route no
+    further from it than 1.5x the reference's own bf16 route."""
+    _kernel_gate(monkeypatch)
+    rng = np.random.RandomState(len(mlp_type))
+    x = (rng.randn(2, 7, 32) * 2).astype(np.float32)
+    p = {k: {"w": (rng.randn(*s) / np.sqrt(s[0]) * 2).astype(np.float32)}
+         for k, s in (("wi", (32, 48)), ("wg", (32, 48)), ("wo", (48, 32)))}
+    if mlp_type == "standard":
+        del p["wg"]
+    jp, jx = jax.tree.map(jnp.asarray, p), jnp.asarray(x)
+    if dtype == "bfloat16":
+        jp, jx = _bf16(jp), jx.astype(jnp.bfloat16)
+    tp = lm_params_from_numpy(_np(jp), "cpu")
+    tx = lm_params_from_numpy(np.asarray(jx), "cpu")
+    with tops.count_dispatches() as c:
+        got = tlayers.apply_mlp(tp, tx, mlp_type, "silu", "pwl4")
+    assert c.count == 1 and got.dtype == tx.dtype
+    want = jlayers.apply_mlp(jp, jx, mlp_type, "silu", "pwl4")
+    if dtype == "float32":
+        assert _rel(got, want) <= 1e-5
+        return
+    exact = jlayers.apply_mlp(_f32(jp), jx.astype(jnp.float32), mlp_type,
+                              "silu", "pwl4")
+    rel_k = _rel(got.float(), exact)
+    rel_o = _rel(np.asarray(want.astype(jnp.float32)), exact)
+    assert 0 < rel_k <= 1.5 * rel_o, (rel_k, rel_o)
+
+
 @pytest.mark.parametrize("mode", [None, "qnm", "per_channel"])
 def test_linear_matches_reference(mode):
     rng = np.random.RandomState(5)
@@ -208,6 +287,37 @@ def test_forward_matches_reference(arch):
     got = TM.forward(tp, {"tokens": _t(tok)}, tcfg)
     assert got.dtype == torch.float32 and got.shape == want.shape
     assert _rel(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_with_pwl4_gate_kernel_route_matches_reference(dtype,
+                                                               monkeypatch):
+    """``forward`` at the pwl4 gate with every layer's gate one
+    ``pwl_activation`` dispatch (path E's route on the card): float32
+    logits within 1e-4 of the reference; in bfloat16 no further from the
+    reference's float32 logits (same bf16 weights) than 1.5x the
+    reference's own bf16 forward."""
+    _kernel_gate(monkeypatch)
+    jcfg, tcfg = (dataclasses.replace(c, gate_sigmoid="pwl4", dtype=dtype)
+                  for c in _cfgs("qwen2-0.5b"))
+    jp, _ = _params("qwen2-0.5b", _cfgs("qwen2-0.5b")[0])
+    if dtype == "bfloat16":
+        jp = _bf16(jp)
+    tp = lm_params_from_numpy(_np(jp), "cpu")
+    tok = _tokens(jcfg, 2, 12, seed=3)
+    fwd = jax.jit(lambda p, t, cfg: JM.forward(p, {"tokens": t}, cfg),
+                  static_argnums=2)
+    want = fwd(jp, jnp.asarray(tok), jcfg)
+    with tops.count_dispatches() as c:
+        got = TM.forward(tp, {"tokens": _t(tok)}, tcfg)
+    assert c.count == tcfg.n_layers
+    if dtype == "float32":
+        assert _rel(got, want) <= 1e-4
+        return
+    exact = fwd(_f32(jp), jnp.asarray(tok),
+                dataclasses.replace(jcfg, dtype="float32"))
+    rel_k, rel_o = _rel(got, exact), _rel(want, exact)
+    assert rel_k <= 1.5 * rel_o, (rel_k, rel_o)
 
 
 @pytest.mark.parametrize("s", [12, 16])
