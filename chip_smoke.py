@@ -138,6 +138,25 @@ Phases, each of which raises on failure:
       through that route are within 1e-4 of the op-by-op gate's in float32
       and, in bf16, no further from the float32 logits than 1.5x the
       op-by-op gate.
+   G. the paper's pipeline on D6 at full width (after E): ``train_mlp``
+      (561->64->6), ``train_logistic``, ``train_linear_svm`` and
+      ``train_kernel_svm`` (rbf and poly, 400 prototypes) train on the card
+      (seconds and flt test accuracy printed); each, with main()'s CART
+      tree, must beat chance (1/6) by 0.5 in flt test accuracy, and the
+      trained MLP must beat path A's untrained one.  Each model is compiled
+      at fxp16 and auto8 on ``cuda`` and saved with its C (``include_c``)
+      into the git-ignored ``build/pipeline/``; each archive is loaded on
+      the card (load time printed), its labels on the 3089 test rows equal
+      the saved artifact's bit for bit, one launch of its kernel
+      (fxp_mlp_model, fxp_layer, fxp_svm_model or tree_ensemble) per
+      predict, and the carried C equals ``emit_c()``.  A fresh
+      ``InferenceService`` hosts the 12 loaded archives behind
+      ``serve_http`` on 127.0.0.1; 8 client threads send every test row of
+      every endpoint in requests of 1, 16 and 256 rows in turns, and every
+      HTTP label must equal the in-process label; ``/v1/health`` and
+      ``/v1/stats`` must answer; requests/s and p50/p99 are printed beside
+      the same requests in process.  An archive with one byte flipped must
+      raise ``ArtifactIntegrityError``.
    In A, B and D, labels equal the plain versions' on the card (in D, each
    member's own predict); in A and B the rows where ``ref`` and ``cuda``
    differ are printed as information.
@@ -1868,6 +1887,292 @@ def main_path_lm(torch, K):
 
 
 # --------------------------------------------------------------------------
+# phase 4G: the paper's pipeline (train -> compile -> archive -> load -> HTTP)
+# --------------------------------------------------------------------------
+PIPELINE_TAGS = ("fxp16", "auto8")
+PIPELINE_PROTOTYPES = 400
+# a trained model's flt test accuracy must exceed chance (1 / classes) by
+# this much
+CHANCE_MARGIN = 0.5
+HTTP_SIZES = (1, 16, 256)  # rows per request, in turns
+HTTP_CLIENTS = 8
+KIND_KERNEL = {"mlp": "fxp_mlp_model", "logistic": "fxp_layer",
+               "svm-linear": "fxp_layer", "svm-poly": "fxp_svm_model",
+               "svm-rbf": "fxp_svm_model", "tree": "tree_ensemble"}
+
+
+def _flt_accuracy(K, model, ds):
+    art = K.tc.compile(model, K.tc.Target(number_format="flt",
+                                          backend="cuda"))
+    return float((art.predict(ds.x_test) == ds.y_test).mean())
+
+
+def _archive_members(K, path):
+    with open(path, "rb") as f:
+        payload = K.ckpt.unpackb(K.ckpt.decompress_bytes(f.read()))
+    return {k: K.ckpt.unpackb(v) for k, v in payload["members"].items()}
+
+
+def _http_requests(server, jobs, bodies, clients):
+    """POST every (name, rows) job, with its JSON body from ``bodies``,
+    from ``clients`` threads, each on its own keep-alive connection;
+    returns (responses and request latencies in s, by job index, and the
+    wall seconds)."""
+    import http.client
+
+    out, lat, errors = [None] * len(jobs), [0.0] * len(jobs), []
+
+    def client(c):
+        conn = http.client.HTTPConnection(server.host, server.port,
+                                          timeout=120)
+        try:
+            for i in range(c, len(jobs), clients):
+                t0 = time.perf_counter()
+                conn.request("POST", f"/v1/predict/{jobs[i][0]}", body=bodies[i],
+                             headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                payload = json.loads(resp.read())
+                dt = time.perf_counter() - t0
+                if resp.status != 200:
+                    raise AssertionError(f"{jobs[i][0]}: HTTP "
+                                         f"{resp.status} {payload}")
+                out[i], lat[i] = payload["predictions"], dt
+        except Exception as e:  # reported by the caller
+            errors.append(e)
+        finally:
+            conn.close()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"HTTP clients failed: {errors[:3]}")
+    return out, lat, wall
+
+
+def _inproc_requests(svc, jobs, clients):
+    """The same jobs through ``svc.predict`` from ``clients`` threads:
+    (latencies in s by job index, wall seconds)."""
+    lat, errors = [0.0] * len(jobs), []
+
+    def client(c):
+        try:
+            for i in range(c, len(jobs), clients):
+                name, rows = jobs[i]
+                t0 = time.perf_counter()
+                svc.predict(name, rows)
+                lat[i] = time.perf_counter() - t0
+        except Exception as e:  # reported by the caller
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"in-process clients failed: {errors[:3]}")
+    return lat, time.perf_counter() - t0
+
+
+def _http_get(server, path):
+    import http.client
+
+    conn = http.client.HTTPConnection(server.host, server.port, timeout=60)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def _latency_line(lat, wall, n):
+    ms = np.asarray(lat) * 1e3
+    return (f"{n / wall:.1f} requests/s, p50 {np.percentile(ms, 50):.3f} ms, "
+            f"p99 {np.percentile(ms, 99):.3f} ms")
+
+
+def main_path_pipeline(torch, K, ds, tree_model):
+    """Main path G: the paper's pipeline on D6 at full width.  Train each
+    classifier on the card (the tree is main()'s CART), compile it at fxp16
+    and auto8 on ``cuda``, save each archive with its C, load each on the
+    card (labels and C equal to the saved artifact's), serve the loaded
+    archives over HTTP (every test row of every endpoint in requests of 1,
+    16 and 256 rows, labels equal to the in-process labels), and refuse a
+    corrupted archive."""
+    import asyncio
+
+    M, C = K.models, ds.n_classes
+    x_tr, y_tr, x_cal = ds.x_train, ds.y_train, ds.x_train[:N_CALIBRATION]
+    out_dir = os.path.join(ROOT, "build", "pipeline")
+    os.makedirs(out_dir, exist_ok=True)
+    reset_launches(K)
+    t_phase = time.perf_counter()
+    trainers = {
+        "mlp": lambda: M.train_mlp(x_tr, y_tr, C, hidden=(64,)),
+        "logistic": lambda: M.train_logistic(x_tr, y_tr, C),
+        "svm-linear": lambda: M.train_linear_svm(x_tr, y_tr, C),
+        "svm-rbf": lambda: M.train_kernel_svm(
+            x_tr, y_tr, C, kernel="rbf", n_prototypes=PIPELINE_PROTOTYPES),
+        "svm-poly": lambda: M.train_kernel_svm(
+            x_tr, y_tr, C, kernel="poly", n_prototypes=PIPELINE_PROTOTYPES),
+    }
+    models, floor = {}, 1.0 / C + CHANCE_MARGIN
+    for kind, train in trainers.items():
+        t0 = time.perf_counter()
+        models[kind] = train()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        acc = _flt_accuracy(K, models[kind], ds)
+        log(f"  4G train {kind:10s} on the card in {secs:.2f} s; flt test "
+            f"accuracy {acc:.4f}")
+        if acc < floor:
+            raise AssertionError(f"4G: trained {kind} accuracy {acc:.4f} "
+                                 f"under chance + {CHANCE_MARGIN} ({floor:.4f})")
+    models["tree"] = tree_model
+    acc_tree = _flt_accuracy(K, tree_model, ds)
+    acc_mlp = _flt_accuracy(K, models["mlp"], ds)
+    acc_init = _flt_accuracy(K, M.init_mlp([561, 64, 6], seed=0), ds)
+    log(f"  4G tree (main()'s CART) flt accuracy {acc_tree:.4f}; untrained "
+        f"init_mlp (path A's MLP) {acc_init:.4f} against trained "
+        f"{acc_mlp:.4f}")
+    if acc_tree < floor or acc_mlp <= acc_init:
+        raise AssertionError("4G: the tree is under chance + margin or the "
+                             "trained MLP does not beat the untrained one")
+
+    arts, paths = {}, {}
+    t0 = time.perf_counter()
+    for kind, model in models.items():
+        for tag in PIPELINE_TAGS:
+            kw = TAGS[tag]
+            cal = x_cal if kw["number_format"].startswith("auto") else None
+            art = K.tc.compile(model, K.tc.Target(backend="cuda", **kw),
+                               calibration=cal)
+            path = os.path.join(out_dir, f"{kind}-{tag}.embml")
+            art.save(path, metadata={"dataset": "D6"}, include_c=True)
+            arts[(kind, tag)], paths[(kind, tag)] = art, path
+    log(f"  4G compiled and saved {len(arts)} archives (include_c) in "
+        f"{time.perf_counter() - t0:.2f} s: "
+        f"{sum(os.path.getsize(p) for p in paths.values())} bytes")
+
+    loaded, labels = {}, {}
+    for key, path in paths.items():
+        t0 = time.perf_counter()
+        again = K.tc.load(path)
+        t_load = time.perf_counter() - t0
+        before = launch_counts(K)
+        got = again.predict(ds.x_test)
+        expect_launches(K, before, {KIND_KERNEL[key[0]]: 1},
+                        f"4G loaded {key} predict")
+        want = arts[key].predict(ds.x_test)
+        if again.device != arts[key].device or not np.array_equal(got, want):
+            raise AssertionError(f"4G: loaded {key} gives other labels "
+                                 f"than the saved artifact")
+        meta = _archive_members(K, path)["metadata"]
+        if meta.get("emit_c") != again.emit_c():
+            raise AssertionError(f"4G: {key} archive's C is not emit_c()")
+        loaded[key], labels[key] = again, got
+        log(f"  4G load {key[0]:10s} {key[1]:6s} {t_load * 1e3:8.2f} ms "
+            f"({os.path.getsize(path)} bytes); labels on {len(got)} rows "
+            f"and the carried C equal the saved artifact's; test accuracy "
+            f"{float((got == ds.y_test).mean()):.4f}")
+
+    svc = K.serve.InferenceService()
+    loop = asyncio.new_event_loop()
+    loop_thread = threading.Thread(target=loop.run_forever, daemon=True)
+    loop_thread.start()
+    server = None
+    try:
+        names = {}
+        for key, art in loaded.items():
+            names[key] = f"{key[0]}-{key[1]}"
+            svc.register(names[key], artifact=art,
+                         policy=K.serve.BatchingPolicy(max_batch=256,
+                                                       max_wait_ms=1.0))
+        server = svc.serve_http("127.0.0.1", 0)
+        asyncio.run_coroutine_threadsafe(server.start(), loop).result(60)
+        jobs, spans = [], []
+        for key in loaded:
+            lo, i = 0, 0
+            while lo < len(ds.x_test):
+                k = HTTP_SIZES[i % len(HTTP_SIZES)]
+                jobs.append((names[key], ds.x_test[lo:lo + k]))
+                spans.append((key, lo, min(lo + k, len(ds.x_test))))
+                lo, i = lo + k, i + 1
+        for name in names.values():  # the first request of each endpoint
+            svc.predict(name, ds.x_test[:1])
+        # each row's JSON made once, before the clock: the clients then
+        # only join strings, and the timing is the server's
+        row_json = [json.dumps(r) for r in ds.x_test.tolist()]
+        bodies = ['{"rows": [' + ",".join(row_json[lo:hi]) + "]}"
+                  for _, lo, hi in spans]
+        out, lat, wall = _http_requests(server, jobs, bodies, HTTP_CLIENTS)
+        for (key, lo, hi), preds in zip(spans, out):
+            if not np.array_equal(np.asarray(preds), labels[key][lo:hi]):
+                raise AssertionError(f"4G: HTTP labels of {key} rows "
+                                     f"{lo}:{hi} differ from in-process")
+        status_h, health = _http_get(server, "/v1/health")
+        status_s, stats = _http_get(server, "/v1/stats")
+        if (status_h, health) != (200, {"status": "ok",
+                                        "endpoints": len(names)}):
+            raise AssertionError(f"4G /v1/health: {status_h} {health}")
+        if status_s != 200 or set(stats["slo"]) != set(names.values()):
+            raise AssertionError(f"4G /v1/stats: {status_s}")
+        in_lat, in_wall = _inproc_requests(svc, jobs, HTTP_CLIENTS)
+        log(f"  4G HTTP: {len(jobs)} requests ({len(names)} endpoints x "
+            f"{len(ds.x_test)} rows in requests of {HTTP_SIZES} rows, "
+            f"{HTTP_CLIENTS} clients): {_latency_line(lat, wall, len(jobs))}; "
+            f"every label equal to the in-process label; /v1/health and "
+            f"/v1/stats answer")
+        log(f"  4G in process, the same requests: "
+            f"{_latency_line(in_lat, in_wall, len(jobs))}")
+        sizes = np.array([hi - lo for _, lo, hi in spans])
+        for k in HTTP_SIZES:
+            pick = sizes == k
+            h = np.asarray(lat)[pick] * 1e3
+            p = np.asarray(in_lat)[pick] * 1e3
+            log(f"  4G requests of {k:3d} rows ({int(pick.sum())}): HTTP p50 "
+                f"{np.percentile(h, 50):.3f} p99 {np.percentile(h, 99):.3f} "
+                f"ms; in process p50 {np.percentile(p, 50):.3f} p99 "
+                f"{np.percentile(p, 99):.3f} ms")
+    finally:
+        if server is not None:
+            asyncio.run_coroutine_threadsafe(server.stop(), loop).result(60)
+        loop.call_soon_threadsafe(loop.stop)
+        loop_thread.join(60)
+        loop.close()
+        svc.close()
+
+    src = paths[("mlp", "fxp16")]
+    bad = os.path.join(out_dir, "corrupt.embml")
+    raw = bytearray(open(src, "rb").read())
+    raw[len(raw) // 2] ^= 0x01
+    with open(bad, "wb") as f:
+        f.write(bytes(raw))
+    try:
+        K.tc.load(bad)
+    except K.tc.ArtifactIntegrityError as e:
+        log(f"  4G a one-byte flip is refused: {str(e)[:96]}")
+    else:
+        raise AssertionError("4G: a corrupted archive loaded")
+    launches = launch_counts(K)
+    for name in set(KIND_KERNEL.values()):
+        if launches[name] == 0:
+            raise AssertionError(f"main path G never launched {name}")
+    log(f"phase 4G: pipeline path in {time.perf_counter() - t_phase:.1f} s; "
+        f"kernel launches {launches}")
+    return launches
+
+
+# --------------------------------------------------------------------------
 # phase 5: timing
 # --------------------------------------------------------------------------
 def cuda_ms(torch, fn, iters):
@@ -2733,13 +3038,14 @@ def main() -> int:
     from repro_torch.lm import layers as lm_layers
     from repro_torch.lm import model as lm_model
     from repro_torch.models.svm import _pick_prototypes
+    from repro_torch.train import checkpoint as ckpt
 
     K = types.SimpleNamespace(
         tc=tc, models=models, common=common, fxp=fxp, trees=trees,
         layer=fxp_layer, model=fxp_model, qm=fxp_qmatmul, te=tree_ensemble,
         pwl=pwl_activation, serve=serve, pick_prototypes=_pick_prototypes,
         fa=flash_attention, lm_model=lm_model, lm_layers=lm_layers,
-        acts=acts, emit=emit,
+        acts=acts, emit=emit, ckpt=ckpt,
         configs=configs, tune=tune,
         kref=kernels_ref,
         launchers={"fxp_layer": fxp_layer.fxp_layer_cuda,
@@ -2787,8 +3093,9 @@ def main() -> int:
     launches_c = main_path_flt_pwl(torch, K, d6)
     launches_d, arts_d = main_path_serving(torch, K, d6, d5, tree_model)
     launches_e, lm = main_path_lm(torch, K)
+    launches_g = main_path_pipeline(torch, K, d6, tree_model)
     by_path = {"A": launches_a, "B": launches_b, "C": launches_c,
-               "D": launches_d, "E": launches_e}
+               "D": launches_d, "E": launches_e, "G": launches_g}
     launches = {n: (sum(p[n] for p in by_path.values()),
                     {k: p[n] for k, p in by_path.items()})
                 for n in KernelCheck.NAMES}

@@ -1,11 +1,13 @@
 """repro_torch.compile — the model -> target artifact compiler on PyTorch.
 
-    from repro_torch.compile import compile, Target
+    from repro_torch.compile import Target, compile, load
 
     art = compile(model, Target(number_format="fxp16", backend="cuda"))
     art.predict(x)                      # int32 labels, via the CUDA kernels
     art.predict_with_stats(x)           # + overflow/underflow accounting
     art.memory_report()                 # flash/SRAM footprint model
+    art.save("model.embml")             # the archive (the paper's output file)
+    again = load("model.embml")         # recompiled on the card
 
 Stages: ``extract_params -> calibrate -> quantize -> lower -> specialize``,
 dispatched through the lowering registry by model kind: ``tree``,
@@ -19,7 +21,7 @@ plane's fleet megabatching.
 """
 
 from .api import compile, compile_from_params, resolve_device
-from .artifact import CompiledArtifact
+from .artifact import ArtifactIntegrityError, CompiledArtifact, load
 from .fingerprint import fingerprint_params
 from .fleet import FleetStack, fleet_signature, stack_fleet
 from .registry import (Lowered, Lowering, get_lowering, lowering_kinds,
@@ -33,6 +35,8 @@ __all__ = [
     "compile_from_params",
     "resolve_device",
     "CompiledArtifact",
+    "ArtifactIntegrityError",
+    "load",
     "LMModel",
     "Target",
     "NUMBER_FORMATS",

@@ -28,8 +28,9 @@ The counterpart of :mod:`repro.serve`.  Layers (bottom-up):
 * :mod:`repro_torch.serve.faults` — deterministic fault injection
   (:class:`FaultPlan` / :class:`FaultInjector`), env-gated via
   ``REPRO_FAULTS``.
-
-The HTTP front end (``repro.serve.net``) arrives with a later slice.
+* :mod:`repro_torch.serve.net` — the asyncio HTTP front end
+  (``InferenceService.serve_http``): admission control, SLO tracking and
+  ``/v1/predict/<name>``, ``/v1/health``, ``/v1/stats``, ``/v1/endpoints``.
 """
 
 from .batching import BatchingPolicy, MicroBatcher

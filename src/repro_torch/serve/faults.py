@@ -21,8 +21,8 @@ site                      where it fires
 ``http.request``          once per parsed HTTP request (``name`` = path)
 ========================  ==================================================
 
-The last three sites are kept for the archive, multi-GPU and HTTP slices of
-the port; nothing fires them yet.
+``mesh.replica`` is kept for the multi-GPU slice of the port; nothing
+fires it yet.
 
 Rules are matched by site + ``match`` substring (+ optional ``poison``
 sentinel contained in the batch), and fire deterministically: per-rule

@@ -26,8 +26,9 @@ endpoints into stacked fleet launches, and ``svc.enable_degradation(name,
 coexist as two cache entries) that serves under overload — see
 :mod:`repro_torch.serve.degrade`.  An :class:`~repro_torch.compile.LMModel`
 registers like any model; ``svc.generate(name, tokens, n)`` decodes on it.
-The HTTP front end and mesh-sharded endpoints arrive with later slices of
-the port.
+``svc.serve_http(...)`` builds the HTTP front end (:mod:`repro_torch.serve.net`)
+over the service.  Mesh-sharded endpoints arrive with a later slice of the
+port.
 """
 
 from __future__ import annotations
@@ -251,12 +252,15 @@ class InferenceService:
 
     def serve_http(self, host: str = "127.0.0.1", port: int = 0,
                    admission: Any = None, slo: Any = None):
-        """The asyncio HTTP front end (``repro.serve.net`` in the reference
-        package) is not ported yet: it arrives with the port's ``serve/net``
-        slice."""
-        raise NotImplementedError(
-            "the HTTP front end arrives with the port's serve/net slice; "
-            "serve in-process with submit()/predict() meanwhile")
+        """Build (not start) the asyncio HTTP front end for this service:
+        ``asyncio.run(svc.serve_http(...).serve())`` or ``await
+        server.start()`` inside a running loop.  See
+        :class:`repro_torch.serve.net.HttpServer`.
+        """
+        from .net import HttpServer
+
+        return HttpServer(self, host=host, port=port, admission=admission,
+                          slo=slo)
 
     def __enter__(self):
         return self

@@ -731,3 +731,86 @@ def test_fingerprint_of_a_card_tensor(dev):
         t = torch.arange(24, dtype=torch.float32).reshape(4, 6).to(dtype)
         assert (fingerprint_params("lm", {"w": t.to(dev)})
                 == fingerprint_params("lm", {"w": t}))
+
+
+def _blobs():
+    from repro_torch.models import synthetic_blobs
+
+    x, y, c = synthetic_blobs(1200, n_features=12, n_classes=3, seed=1)
+    return x[:900], y[:900], x[900:], c
+
+
+def test_train_logistic_on_card_matches_host(dev):
+    """The same trainer on the card and on the host: coefficients within
+    1e-5 of the largest (tests/test_torch_train.py's tolerance against the
+    reference)."""
+    from repro_torch.models import train_logistic
+
+    xtr, ytr, _, c = _blobs()
+    card = train_logistic(xtr, ytr, c, epochs=15, batch_size=128, seed=3)
+    host = train_logistic(xtr, ytr, c, epochs=15, batch_size=128, seed=3,
+                          device="cpu")
+    for got, want in ((card.coef, host.coef),
+                      (card.intercept, host.intercept)):
+        assert got.dtype == want.dtype == np.float32
+        scale = float(np.abs(want).max())
+        assert float(np.abs(got - want).max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("number_format", ["fxp16", "auto8"])
+def test_trained_archive_on_card_roundtrip(dev, tmp_path, number_format):
+    from repro_torch.models import train_mlp
+
+    xtr, ytr, xte, c = _blobs()
+    model = train_mlp(xtr, ytr, c, hidden=(16,), epochs=5)
+    art = tc.compile(model, tc.Target(number_format=number_format,
+                                      backend="cuda"), calibration=xtr[:256])
+    path = str(tmp_path / "mlp.embml")
+    art.save(path, include_c=True)
+    again = tc.load(path)
+    assert again.device.type == "cuda" and again.target == art.target
+    before = fxp_model.fxp_mlp_model_cuda.launches
+    np.testing.assert_array_equal(again.predict(xte), art.predict(xte))
+    assert fxp_model.fxp_mlp_model_cuda.launches == before + 2
+
+
+def test_http_request_on_card(dev):
+    import asyncio
+    import json
+
+    from repro_torch.serve import InferenceService
+
+    xtr, ytr, xte, c = _blobs()
+    svc = InferenceService()
+    try:
+        ep = svc.register("tree", train_decision_tree(xtr, ytr, c,
+                                                      max_depth=6),
+                          tc.Target(number_format="fxp16", backend="cuda"))
+        want = ep.artifact.predict(xte[:5]).tolist()
+
+        async def go():
+            server = svc.serve_http(port=0)
+            await server.start()
+            try:
+                reader, writer = await asyncio.open_connection(
+                    server.host, server.port)
+                body = json.dumps({"rows": xte[:5].tolist()}).encode()
+                writer.write(b"POST /v1/predict/tree HTTP/1.1\r\n"
+                             + f"Content-Length: {len(body)}\r\n\r\n".encode()
+                             + body)
+                await writer.drain()
+                head = await reader.readuntil(b"\r\n\r\n")
+                length = int(head.lower().split(b"content-length: ")[1]
+                             .split(b"\r\n")[0])
+                payload = json.loads(await reader.readexactly(length))
+                writer.close()
+                return head.split()[1], payload
+            finally:
+                await server.stop()
+
+        before = tree_ensemble.tree_ensemble_cuda.launches
+        status, payload = asyncio.run(go())
+        assert status == b"200" and payload["predictions"] == want
+        assert tree_ensemble.tree_ensemble_cuda.launches > before
+    finally:
+        svc.close()

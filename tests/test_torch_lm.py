@@ -560,5 +560,8 @@ def test_serve_cli_runs_reduced_on_the_host(capsys):
                      "--gate-sigmoid", "pwl4", "--stats"])
     out = capsys.readouterr().out
     assert "ms/token" in out and "MB ->" in out and "3 tokens x batch 2" in out
-    with pytest.raises(SystemExit, match="A9"):
-        tserve_cli.main(["--classifier", "tree", "--device", "cpu"])
+    # ported since: classifier mode (tests/test_torch_serve_net.py serves
+    # it over HTTP)
+    tserve_cli.main(["--classifier", "tree", "--device", "cpu",
+                     "--requests", "64"])
+    assert "64 rows:" in capsys.readouterr().out

@@ -546,8 +546,10 @@ def test_register_pretune_and_unported_entry_points(pairs, blobs):
                           pretune=True)
         np.testing.assert_array_equal(ep.submit(xte[:4]).result(timeout=WAIT),
                                       pairs["r0"][1].predict(xte[:4]))
-        with pytest.raises(NotImplementedError, match="serve/net"):
-            svc.serve_http()
+        # ported since: the HTTP front end (tests/test_torch_serve_net.py)
+        from repro_torch.serve.net import HttpServer
+        server = svc.serve_http(port=0)
+        assert isinstance(server, HttpServer) and server.service is svc
         with pytest.raises(NotImplementedError, match="multi-GPU"):
             svc.register("sharded", artifact=pairs["r1"][1], mesh=object())
         assert svc.endpoint("warm").artifact.max_supported_batch is None
