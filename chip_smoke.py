@@ -157,6 +157,34 @@ Phases, each of which raises on failure:
       ``/v1/stats`` must answer; requests/s and p50/p99 are printed beside
       the same requests in process.  An archive with one byte flipped must
       raise ``ArtifactIntegrityError``.
+   H. the LM trainer (after G; ``CUBLAS_WORKSPACE_CONFIG`` is set at the
+      script's start for its resume check).  H1: qwen2-0.5b at its
+      published widths (bf16 parameters, float32 moments, the config's
+      remat) trains 24 steps of ``make_train_step`` at batch 8 x 512 from
+      a seeded init on ``synthetic_token_stream`` (the training route:
+      ``full_attention``, the gate op by op; no kernel launches in a
+      step); every loss and grad norm is finite, the mean of the last five
+      losses is below the first five's, step 0's loss is within 1e-2 of
+      the cross-entropy of ``forward``'s logits through the kernel route
+      on the same batch, and the kernel route with grad on raises
+      (flash_attention and pwl_activation).  It prints ms per step (median
+      of the steps after the third), tokens/s, the model-FLOPs share
+      (``roofline.analytic_cost`` over the step time and the bf16 peak),
+      peak memory and one step under torch.profiler (device time by kind,
+      top kernels and ops, launches, the device's idle share).  H2: the
+      trained weights through path E's prefill checks (24 flash_attention
+      launches at 4 x 2048), their held-out loss below the initial
+      weights', ``generate`` through the ``lm`` lowering, and the
+      checkpoint codec timed on a 64 MB slice of the trained embedding
+      table (restored onto the card bit for bit; the full state's save
+      time projected).  H3: ``python -m repro_torch.launch.train`` at the
+      reduced config in its own process (exit 0, steps 10 and 20
+      committed, the held-out loss of step 20's weights below the
+      initial's); a run to 20 against a run to 10 resumed to 20 under
+      ``torch.use_deterministic_algorithms(True)`` (final parameters and
+      losses bit for bit, or the op without a deterministic kernel named
+      and the last loss within rtol 1e-5); and the float32 step-0 loss and
+      gradients on the card within 1e-4 of the host's.
    In A, B and D, labels equal the plain versions' on the card (in D, each
    member's own predict); in A and B the rows where ``ref`` and ``cuda``
    differ are printed as information.
@@ -219,6 +247,8 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# deterministic cuBLAS for path H's resume check; set before CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 INT8_TENSOR_OPS_PER_S = 1979e12  # dense int8 tensor-core rate (data sheet)
@@ -1710,6 +1740,69 @@ def check_gate_route(torch, K, cfg, params, tok, fwd):
             f"1.5x)")
 
 
+def prefill_checks(torch, K, cfg, params, tok, what):
+    """The bf16 prefill through the kernel at ``params``: exactly one
+    flash_attention launch per layer, finite float32 logits of the expected
+    shape; with the weights in float32 the kernel route within 1e-4 of the
+    same forward through the oracle's attention, and in bf16 the kernel
+    route no further from those float32 logits than 1.5x the oracle
+    route.  Returns (float32 rel err, bf16 kernel and oracle distances from
+    float32, the two bf16 routes' distance, first call s)."""
+    M = K.lm_model
+    zero = launch_counts(K)
+    t0 = time.perf_counter()
+    logits = M.forward(params, {"tokens": tok}, cfg)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    expect_launches(K, zero, {"flash_attention": cfg.n_layers},
+                    f"bf16 prefill forward{what}")
+    if (logits.shape != (*tok.shape, cfg.vocab_size)
+            or logits.dtype != torch.float32
+            or not bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"prefill logits{what} {logits.dtype}"
+                             f"{tuple(logits.shape)} not finite float32 of "
+                             f"the expected shape")
+    # The same weights in float32: the kernel route against the oracle's
+    # attention, and the float32 logits that both bf16 routes are held to.
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = _tree_map(lambda t: t.to(torch.float32), params)
+    before = launch_counts(K)
+    ref32 = M.forward(p32, {"tokens": tok}, cfg32, attn_impl="ref")
+    expect_launches(K, before, {}, f"float32 prefill through the oracle{what}")
+    f32 = M.forward(p32, {"tokens": tok}, cfg32)
+    expect_launches(K, before, {"flash_attention": cfg.n_layers},
+                    f"float32 prefill{what}")
+    del p32
+    rel32 = _rel_err(f32, ref32)
+    del ref32
+    if not rel32 <= 1e-4:
+        raise AssertionError(f"float32 prefill{what}: kernel route against "
+                             f"the oracle's attention, rel err {rel32} > 1e-4")
+    rel_k = _rel_err(logits, f32)
+    before = launch_counts(K)
+    plain = M.forward(params, {"tokens": tok}, cfg, attn_impl="ref")
+    expect_launches(K, before, {}, f"bf16 prefill through the oracle{what}")
+    rel_o = _rel_err(plain, f32)
+    rel = _rel_err(logits, plain)
+    del logits, plain, f32
+    # bf16 rounds every layer's output: two bf16 forwards that sum in other
+    # orders part by about as much as either parts from float32, so the
+    # kernel route is held to the oracle route's distance from float32.
+    if not rel_k <= 1.5 * rel_o:
+        raise AssertionError(f"bf16 prefill{what}: kernel route {rel_k} from "
+                             f"the float32 logits, over 1.5 x the oracle "
+                             f"route's {rel_o}")
+    b, s = tok.shape
+    log(f"  bf16 prefill{what} {b} x {s} tokens: {cfg.n_layers} "
+        f"flash_attention launches, first call {t_fwd:.2f} s.  float32, "
+        f"same weights: kernel route within {rel32:.3e} of the oracle's "
+        f"attention (bound 1e-4).  bf16: kernel route {rel_k:.3e} and oracle "
+        f"route {rel_o:.3e} from the float32 logits (bound 1.5x the "
+        f"oracle's), {rel:.3e} from each other (relative to the largest "
+        f"logit)")
+    return rel32, rel_k, rel_o, rel, t_fwd
+
+
 def main_path_lm(torch, K):
     """Main path E: qwen2-0.5b at its published widths, seeded weights.
 
@@ -1741,57 +1834,11 @@ def main_path_lm(torch, K):
         f"embeddings): {n_params} seeded {cfg.dtype} parameters in "
         f"{time.perf_counter() - t0:.1f} s")
     reset_launches(K)
-    zero = launch_counts(K)
     tok = _lm_tokens(torch, cfg, (LM_BATCH, LM_SEQ), 0)
-    t0 = time.perf_counter()
-    logits = M.forward(params, {"tokens": tok}, cfg)
-    torch.cuda.synchronize()
-    t_fwd = time.perf_counter() - t0
-    expect_launches(K, zero, {"flash_attention": cfg.n_layers},
-                    "bf16 prefill forward")
-    if (logits.shape != (LM_BATCH, LM_SEQ, cfg.vocab_size)
-            or logits.dtype != torch.float32
-            or not bool(torch.isfinite(logits).all())):
-        raise AssertionError(f"prefill logits {logits.dtype}"
-                             f"{tuple(logits.shape)} not finite float32 of "
-                             f"the expected shape")
-    # The same weights in float32: the kernel route against the oracle's
-    # attention, and the float32 logits that both bf16 routes are held to.
+    prefill_checks(torch, K, cfg, params, tok, "")
+
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     p32 = _tree_map(lambda t: t.to(torch.float32), params)
-    before = launch_counts(K)
-    ref32 = M.forward(p32, {"tokens": tok}, cfg32, attn_impl="ref")
-    expect_launches(K, before, {}, "float32 prefill through the oracle")
-    f32 = M.forward(p32, {"tokens": tok}, cfg32)
-    expect_launches(K, before, {"flash_attention": cfg.n_layers},
-                    "float32 prefill")
-    rel32 = _rel_err(f32, ref32)
-    del ref32
-    if not rel32 <= 1e-4:
-        raise AssertionError(f"float32 prefill: kernel route against the "
-                             f"oracle's attention, rel err {rel32} > 1e-4")
-    rel_k = _rel_err(logits, f32)
-    before = launch_counts(K)
-    plain = M.forward(params, {"tokens": tok}, cfg, attn_impl="ref")
-    expect_launches(K, before, {}, "bf16 prefill through the oracle")
-    rel_o = _rel_err(plain, f32)
-    rel = _rel_err(logits, plain)
-    del logits, plain, f32
-    # bf16 rounds every layer's output: two bf16 forwards that sum in other
-    # orders part by about as much as either parts from float32, so the
-    # kernel route is held to the oracle route's distance from float32.
-    if not rel_k <= 1.5 * rel_o:
-        raise AssertionError(f"bf16 prefill: kernel route {rel_k} from the "
-                             f"float32 logits, over 1.5 x the oracle "
-                             f"route's {rel_o}")
-    log(f"  bf16 prefill {LM_BATCH} x {LM_SEQ} tokens: {cfg.n_layers} "
-        f"flash_attention launches, first call {t_fwd:.2f} s.  float32, "
-        f"same weights: kernel route within {rel32:.3e} of the oracle's "
-        f"attention (bound 1e-4).  bf16: kernel route {rel_k:.3e} and oracle "
-        f"route {rel_o:.3e} from the float32 logits (bound 1.5x the "
-        f"oracle's), {rel:.3e} from each other (relative to the largest "
-        f"logit)")
-
     tok = _lm_tokens(torch, cfg, (LM_DECODE_BATCH, LM_DECODE_STEPS), 1)
     before = launch_counts(K)
     fwd = M.forward(p32, {"tokens": tok}, cfg32)
@@ -2170,6 +2217,421 @@ def main_path_pipeline(torch, K, ds, tree_model):
     log(f"phase 4G: pipeline path in {time.perf_counter() - t_phase:.1f} s; "
         f"kernel launches {launches}")
     return launches
+
+
+# --------------------------------------------------------------------------
+# phase 4H: the LM trainer on the card (loss_fn, make_train_step, train_loop,
+# the pytree checkpoints, launch/train.py)
+# --------------------------------------------------------------------------
+TRAIN_BATCH, TRAIN_SEQ = 8, 512  # H1: the full_attention branch (chunk 1024)
+TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP, TRAIN_SEED = 24, 1e-3, 3, 0
+HELD_OUT_STEP = 10_000  # a batch of the stream that training never sees
+CODEC_SAMPLE_BYTES = 64 << 20  # H2: a slice of the trained embedding table
+TRAINED_GEN_TOKENS = 4
+# H3: launch/train.py at the reduced config, and the resume check.  At the
+# launcher's default lr (1e-3) the reduced model's loss over 20 steps moves
+# less than the batch-to-batch noise of 256 tokens (host runs, seeds 0-5:
+# the mean of the last five losses is above the first five's for two);
+# at 1e-2 it falls by 0.1-0.2 for every seed
+REDUCED_STEPS, REDUCED_EVERY, REDUCED_BATCH, REDUCED_SEQ = 20, 10, 4, 64
+REDUCED_LR, REDUCED_EVAL_BATCH = 1e-2, 32
+TRAIN_DIR = os.path.join(ROOT, "build", "train_ckpt")
+
+
+def _step_profile(torch, fn):
+    """One call of ``fn`` through :func:`_kernel_profile`, its device time
+    bucketed by the kinds of a training step (no kernel of the port runs
+    in one), with the top kernels and the top aten ops by device time."""
+    prof = _kernel_profile(torch, fn)
+    kinds = {"float32 GEMM": 0.0, "bf16 GEMM": 0.0, "reduction": 0.0,
+             "elementwise": 0.0, "other": 0.0}
+    for name, ms in prof["device_ms"].items():
+        n = name.lower()
+        if any(t in n for t in ("gemm", "nvjet", "cutlass", "xmma")):
+            f32 = "sgemm" in n or ("f32" in n and "bf16" not in n)
+            kind = "float32 GEMM" if f32 else "bf16 GEMM"
+        elif "reduce" in n or "softmax" in n:
+            kind = "reduction"
+        else:
+            kind = "elementwise" if "elementwise" in n else "other"
+        kinds[kind] += ms
+    top = sorted(prof["device_ms"].items(), key=lambda kv: -kv[1])[:8]
+    return {"by_kind": kinds, "device_ms": sum(kinds.values()),
+            "wall_ms": prof["wall_ms"], "launches": prof["launches"],
+            "top_kernels": [(n, (ms, prof["names"][n])) for n, ms in top],
+            "top_ops": sorted(prof["ops"].items(), key=lambda kv: -kv[1])[:8]}
+
+
+def _leaf_bits(torch, x):
+    """(dtype, shape, bytes) of a restored leaf: a numpy array, or a
+    bfloat16 tensor (the codec's decoding of bf16)."""
+    if isinstance(x, torch.Tensor):
+        t = x.detach().cpu()
+        return str(t.dtype), tuple(t.shape), t.view(torch.int16).numpy(
+            ).tobytes()
+    x = np.asarray(x)
+    return str(x.dtype), x.shape, x.tobytes()
+
+
+def check_grad_guard(torch, K, cfg, params, tokens):
+    """The serving route with grad on: the stack stops at its first
+    flash_attention call, and pwl_activation refuses an input that requires
+    grad; neither launches."""
+    live = K.optim.tree_map(lambda p: p.detach().requires_grad_(True), params)
+    x = torch.ones(4, 64, device="cuda", requires_grad=True)
+    calls = {"the serving stack (flash_attention)": lambda: K.lm_model._stack(
+                 live, {"tokens": tokens}, cfg, "cuda"),
+             "pwl_activation": lambda: K.ops.pwl_activation(x, "silu_pwl4")}
+    before = launch_counts(K)
+    for what, call in calls.items():
+        try:
+            with torch.enable_grad():
+                call()
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{what} with grad on did not raise")
+    expect_launches(K, before, {}, "the kernel routes with grad on")
+    return list(calls)
+
+
+def train_full_width(torch, K):
+    """H1: qwen2-0.5b at its published widths (bf16 parameters, float32
+    moments) trains for TRAIN_STEPS steps of batch 8 x 512 from a seeded
+    init through make_train_step; no kernel launches in a step."""
+    M, TT = K.lm_model, K.trainer
+    cfg = K.configs.get_config(LM_ARCH)
+    dev = torch.device("cuda", 0)
+    tcfg = TT.TrainConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                          total_steps=TRAIN_STEPS, seed=TRAIN_SEED)
+    opt = TT.make_optimizer(tcfg)
+    step_fn = TT.make_train_step(cfg, tcfg, opt)
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    init = M.init_params(cfg, torch.Generator(dev).manual_seed(TRAIN_SEED))
+    state = opt.init(init)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(init))
+    blockwise = TRAIN_SEQ % cfg.attn_chunk == 0 and TRAIN_SEQ > cfg.attn_chunk
+    log(f"phase 4H: {LM_ARCH} training at full width, remat {cfg.remat}: "
+        f"{n_params} {cfg.dtype} parameters and {tcfg.moments_dtype} "
+        f"moments in {time.perf_counter() - t0:.1f} s; batch {TRAIN_BATCH} "
+        f"x {TRAIN_SEQ} ({'blockwise' if blockwise else 'full'} attention), "
+        f"lr {TRAIN_LR}, warmup {TRAIN_WARMUP}, {TRAIN_STEPS} steps")
+    stream = TT.synthetic_token_stream(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                       TRAIN_SEED, device=dev)
+    batch = next(stream)
+    # the serving route's cross-entropy on step 0's batch: the loss that
+    # the training route must give at the same weights
+    before = launch_counts(K)
+    with torch.inference_mode():
+        logits = M.forward(init, batch, cfg)
+        serve_loss = float(M._cross_entropy(logits[:, :-1],
+                                            batch["tokens"][:, 1:]))
+    del logits
+    expect_launches(K, before, {"flash_attention": cfg.n_layers},
+                    "H1 serving-route forward")
+    guarded = check_grad_guard(torch, K, cfg, init, batch["tokens"][:1, :64])
+    params, losses, norms, times = init, [], [], []
+    before = launch_counts(K)
+    for i in range(TRAIN_STEPS):
+        if i:
+            batch = next(stream)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    expect_launches(K, before, {}, "H1 training steps")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    if not all(math.isfinite(v) for v in losses + norms):
+        raise AssertionError(f"H1: non-finite loss or grad norm: {losses}, "
+                             f"{norms}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not last < first:
+        raise AssertionError(f"H1: the loss did not fall: mean of the first "
+                             f"five {first}, of the last five {last}; "
+                             f"{losses}")
+    gap = abs(losses[0] - serve_loss) / serve_loss
+    if not gap <= 1e-2:
+        raise AssertionError(f"H1: step 0's training-route loss {losses[0]} "
+                             f"against the serving route's {serve_loss}: "
+                             f"{gap} > 1e-2")
+    ms = float(np.median(times[3:]))
+    shape = K.configs.ShapeSpec("h1", TRAIN_SEQ, TRAIN_BATCH, "train")
+    one = dict(chips=1, tp=1, dp_in_pod=1, pods=1, microbatches=1)
+    model_flops = K.roofline.analytic_cost(cfg, shape, remat=False,
+                                           **one).flops_global
+    run_flops = K.roofline.analytic_cost(cfg, shape, **one).flops_global
+    share = model_flops / (ms / 1e3 * BF16_TENSOR_OPS_PER_S)
+    prof = _step_profile(torch, lambda: step_fn(params, state, batch))
+    idle = 1 - prof["device_ms"] / ms
+    log(f"  losses {[round(v, 4) for v in losses]}")
+    log(f"  grad norms {[round(v, 3) for v in norms]}")
+    log(f"  H1: loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of the first "
+        f"five {first:.4f}, of the last five {last:.4f}); step 0 against "
+        f"the serving route's cross-entropy {serve_loss:.4f}: {gap:.3e} "
+        f"(bound 1e-2); with grad on {', '.join(guarded)} raised")
+    log(f"  H1: {ms:.2f} ms/step (median of steps 4-{TRAIN_STEPS}; all "
+        f"{[round(t, 1) for t in times]}), "
+        f"{TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.0f} tokens/s; model FLOPs "
+        f"{model_flops / 1e12:.3f} Tflop a step (analytic_cost, no remat; "
+        f"{run_flops / 1e12:.3f} with the config's remat): "
+        f"{share:.1%} of {BF16_TENSOR_OPS_PER_S / 1e12:.1f} Tflop/s "
+        f"({run_flops / (ms / 1e3 * BF16_TENSOR_OPS_PER_S):.1%} with "
+        f"remat); peak memory {peak_gb:.2f} GiB "
+        f"(max_memory_allocated; {base_gb:.2f} GiB held before the phase)")
+    log(f"  H1 one step under torch.profiler: {prof['device_ms']:.2f} ms of "
+        f"device time in {prof['launches']} launches, "
+        f"{prof['wall_ms']:.1f} ms wall; device idle {idle:.1%} of the "
+        f"unprofiled step ({1 - prof['device_ms'] / prof['wall_ms']:.1%} of "
+        f"the profiled one); by kind: "
+        + ", ".join(f"{k} {v:.2f} ms ({v / prof['device_ms']:.1%})"
+                    for k, v in prof["by_kind"].items()))
+    log("  H1 top kernels: " + "; ".join(
+        f"{n[:70]} {v[0]:.2f} ms x{v[1]}" for n, v in prof["top_kernels"]))
+    log("  H1 top ops (own device time): " + "; ".join(
+        f"{n} {v:.2f} ms" for n, v in prof["top_ops"]))
+    del state
+    return dict(cfg=cfg, init=init, params=params, ms_per_step=ms,
+                tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
+                model_flops=model_flops, share=share, peak_gb=peak_gb,
+                launches_per_step=prof["launches"], idle=idle,
+                losses=losses, profile=prof)
+
+
+def serve_trained(torch, K, h1):
+    """H2: the trained weights served back: the bf16 prefill through the
+    kernel (path E's checks), the held-out loss below the initial one,
+    generate through the lm lowering, and the checkpoint codec timed on a
+    64 MB slice of the trained embedding table."""
+    M, TT = K.lm_model, K.trainer
+    cfg, init, params = h1["cfg"], h1["init"], h1["params"]
+    dev = torch.device("cuda", 0)
+    tok = _lm_tokens(torch, cfg, (LM_BATCH, LM_SEQ), 5)
+    prefill_checks(torch, K, cfg, params, tok, " of the trained weights")
+    held = next(TT.synthetic_token_stream(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                          TRAIN_SEED, HELD_OUT_STEP,
+                                          device=dev))
+    with torch.no_grad():
+        l_init = float(M.loss_fn(init, held, cfg))
+        l_trained = float(M.loss_fn(params, held, cfg))
+    if not l_trained < l_init:
+        raise AssertionError(f"H2: held-out loss of the trained weights "
+                             f"{l_trained} not below the initial {l_init}")
+    art = K.tc.compile(K.tc.LMModel(cfg, params),
+                       K.tc.Target(number_format="flt"))
+    start = np.arange(1, LM_GEN_BATCH + 1, dtype=np.int32) * 97
+    before = launch_counts(K)
+    seqs = art.extras["generate"](start, TRAINED_GEN_TOKENS)
+    expect_launches(K, before, {}, "H2 generate")
+    seq_t = torch.from_numpy(seqs).cuda()
+    dec = _decode_logits(torch, M, art.extras["cfg"], art.extras["params"],
+                         seq_t[:, :-1], TRAINED_GEN_TOKENS + 4)
+    if (seqs.shape != (LM_GEN_BATCH, TRAINED_GEN_TOKENS + 1)
+            or not torch.equal(dec.argmax(-1).to(torch.int32), seq_t[:, 1:])):
+        raise AssertionError(f"H2 generate: {seqs} are not serve_step's "
+                             f"argmax")
+    del art, dec
+    # the codec on a slice of the trained table (zlib where zstandard is
+    # missing), projected to the whole train state
+    table = params["embed"]["table"]
+    rows = CODEC_SAMPLE_BYTES // (table.shape[1] * table.element_size())
+    sample = {"embed": {"table": table[:rows]}}
+    raw = rows * table.shape[1] * table.element_size()
+    path = os.path.join(TRAIN_DIR, "codec", "sample.ckpt")
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    t0 = time.perf_counter()
+    K.ckpt.save_pytree(path, sample)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back, _ = K.ckpt.restore_pytree(path, like=sample)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    disk = os.path.getsize(path)
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    got = back["embed"]["table"]
+    if got.device.type != "cuda" or _leaf_bits(torch, got) != _leaf_bits(
+            torch, sample["embed"]["table"]):
+        raise AssertionError("H2: the codec sample did not restore bit for "
+                             "bit onto the card")
+    codec = "zstd" if K.ckpt.zstandard is not None else "zlib"
+    n = sum(t.numel() for t in _leaves(params))
+    state_bytes = n * (table.element_size() + 4 + 4)  # params, mu, nu
+    save_mbs = raw / t_save / 1e6
+    log(f"  H2: held-out loss (stream step {HELD_OUT_STEP}) {l_init:.4f} "
+        f"initial -> {l_trained:.4f} trained; generate {TRAINED_GEN_TOKENS} "
+        f"tokens through the lm lowering: {seqs[0].tolist()}, serve_step's "
+        f"argmax, no flash_attention launch")
+    log(f"  H2 codec ({codec}) on {raw / 1e6:.1f} MB of the trained bf16 "
+        f"table: save {t_save:.2f} s ({save_mbs:.1f} MB/s), restore onto "
+        f"the card {t_restore:.2f} s ({raw / t_restore / 1e6:.1f} MB/s), "
+        f"ratio {disk / raw:.3f}; the full train state ({state_bytes / 1e9:.2f}"
+        f" GB: bf16 parameters, float32 mu and nu) would take "
+        f"{state_bytes / 1e6 / save_mbs:.0f} s to save at this rate")
+    return dict(l_init=l_init, l_trained=l_trained, codec=codec,
+                save_mbs=save_mbs, restore_mbs=raw / t_restore / 1e6,
+                ratio=disk / raw,
+                projected_s=state_bytes / 1e6 / save_mbs)
+
+
+def _run_train_cli(cfg, ckpt_dir):
+    """launch/train.py at the reduced config in a process of its own:
+    (first loss, last loss, the printed lines)."""
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src")] + [p for p in [env.get("PYTHONPATH")]
+                                       if p])
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           LM_ARCH, "--steps", str(REDUCED_STEPS), "--batch",
+           str(REDUCED_BATCH), "--seq", str(REDUCED_SEQ), "--lr",
+           str(REDUCED_LR),
+           "--checkpoint-every", str(REDUCED_EVERY), "--ckpt-dir", ckpt_dir]
+    r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=300)
+    if r.returncode != 0:
+        raise AssertionError(f"H3: {' '.join(cmd[2:])} exited "
+                             f"{r.returncode}: {r.stderr[-3000:]}")
+    done = [l for l in r.stdout.splitlines() if l.startswith("done at step")]
+    if not done or f"done at step {REDUCED_STEPS} on cuda" not in done[-1]:
+        raise AssertionError(f"H3: the launcher printed {r.stdout[-2000:]}")
+    first, last = (float(v) for v in done[-1].split("loss")[1].split("->"))
+    return first, last, r.stdout.strip().splitlines()
+
+
+def train_reduced(torch, K):
+    """H3: launch/train.py on the card at the reduced config; the resume
+    check of tests/test_trainer.py, bit for bit under deterministic
+    algorithms; and the step-0 loss and gradients against the host's."""
+    M, TT = K.lm_model, K.trainer
+    cfg = K.configs.get_config(LM_ARCH).reduced()
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    cli_dir = os.path.join(TRAIN_DIR, "cli")
+    first, last, lines = _run_train_cli(cfg, cli_dir)
+    mgr = K.ckpt.CheckpointManager(os.path.join(cli_dir, cfg.name))
+    steps = mgr.all_steps()
+    if steps != [REDUCED_EVERY, REDUCED_STEPS]:
+        raise AssertionError(f"H3: committed steps {steps}")
+    t_cli = time.perf_counter() - t0
+    # the loss falls: the committed step's weights against the launcher's
+    # seeded init (the same generator, on the card), on a held-out batch
+    init = M.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    _, state, _ = mgr.restore({"params": init, "opt": K.trainer.make_optimizer(
+        K.trainer.TrainConfig()).init(init)}, REDUCED_STEPS)
+    held = next(TT.synthetic_token_stream(cfg, REDUCED_EVAL_BATCH,
+                                          REDUCED_SEQ, 0, HELD_OUT_STEP,
+                                          device=dev))
+    with torch.no_grad():
+        l_init = float(M.loss_fn(init, held, cfg))
+        l_end = float(M.loss_fn(state["params"], held, cfg))
+    if not l_end < l_init:
+        raise AssertionError(f"H3: held-out loss at step {REDUCED_STEPS} "
+                             f"{l_end} not below the initial {l_init}")
+    log(f"  H3: launch/train.py --arch {LM_ARCH} --steps {REDUCED_STEPS} "
+        f"--batch {REDUCED_BATCH} --seq {REDUCED_SEQ} --lr {REDUCED_LR} "
+        f"--checkpoint-every {REDUCED_EVERY} on the card in {t_cli:.1f} s "
+        f"(its own process): loss {first} -> {last}, committed steps "
+        f"{steps}; held-out loss ({REDUCED_EVAL_BATCH} x {REDUCED_SEQ}) "
+        f"{l_init:.4f} initial -> {l_end:.4f} at step {REDUCED_STEPS}; "
+        + " | ".join(lines[-3:]))
+
+    tcfg = TT.TrainConfig(lr=1e-3, warmup_steps=2, total_steps=30,
+                          checkpoint_every=10, seed=3)
+
+    def run(d, n):
+        return TT.train_loop(cfg, tcfg, batch=4, seq=32, ckpt_dir=d,
+                             steps=n, device=dev)
+
+    da, db = (os.path.join(TRAIN_DIR, x) for x in ("full", "resumed"))
+    for d in (da, db):
+        shutil.rmtree(d, ignore_errors=True)
+    prev = torch.are_deterministic_algorithms_enabled()
+    nondeterministic = None
+    t0 = time.perf_counter()
+    try:
+        torch.use_deterministic_algorithms(True)
+        full = run(da, 20)
+        run(db, 10)
+        resumed = run(db, 20)
+    except RuntimeError as e:
+        if "deterministic" not in str(e):
+            raise
+        nondeterministic = str(e).splitlines()[0]
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    if nondeterministic is None:
+        _, a, _ = K.ckpt.CheckpointManager(da).restore(None, 20)
+        _, b, _ = K.ckpt.CheckpointManager(db).restore(None, 20)
+        same = (len(a) == len(b) and all(
+            _leaf_bits(torch, x) == _leaf_bits(torch, y)
+            for x, y in zip(a, b)))
+        if not same or full["history"][10:] != resumed["history"]:
+            raise AssertionError("H3: the resumed run's final parameters or "
+                                 "losses are not the uninterrupted run's bit "
+                                 "for bit")
+        verdict = (f"final parameters ({len(a)} leaves) and losses 10-19 "
+                   f"equal bit for bit under deterministic algorithms")
+    else:
+        for d in (da, db):
+            shutil.rmtree(d, ignore_errors=True)
+        full = run(da, 20)
+        run(db, 10)
+        resumed = run(db, 20)
+        np.testing.assert_allclose(full["history"][-1],
+                                   resumed["history"][-1], rtol=1e-5)
+        verdict = (f"no deterministic CUDA kernel for: {nondeterministic}; "
+                   f"last loss {resumed['history'][-1]} within rtol 1e-5 of "
+                   f"{full['history'][-1]}")
+    log(f"  H3 resume (20 steps against 10 + 10, {time.perf_counter() - t0:.1f}"
+        f" s): {verdict}")
+
+    p_cpu = M.init_params(cfg, torch.Generator("cpu").manual_seed(0))
+    p_gpu = K.optim.tree_map(lambda t: t.to(dev), p_cpu)
+    b = next(TT.synthetic_token_stream(cfg, REDUCED_BATCH, REDUCED_SEQ, 0))
+    l_c, g_c = TT.loss_and_grads(p_cpu, b, cfg)
+    l_g, g_g = TT.loss_and_grads(p_gpu, {"tokens": b["tokens"].to(dev)}, cfg)
+    rel_l = abs(float(l_g) - float(l_c)) / abs(float(l_c))
+    rel_g = max(float((x.cpu() - y).abs().max() / y.abs().max())
+                for x, y in zip(K.optim.tree_leaves(g_g),
+                                K.optim.tree_leaves(g_c)))
+    if not (rel_l <= 1e-4 and rel_g <= 1e-4):
+        raise AssertionError(f"H3: the card's step-0 loss {rel_l} or "
+                             f"gradients {rel_g} from the host's, over 1e-4")
+    log(f"  H3 float32 step 0 on the card against the host: loss "
+        f"{float(l_g):.6f} vs {float(l_c):.6f} ({rel_l:.2e}), gradients "
+        f"within {rel_g:.2e} of each leaf's largest value (bound 1e-4)")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    return dict(cli_loss=(first, last), held_out=(l_init, l_end),
+                resume=verdict, rel_loss=rel_l,
+                rel_grad=rel_g, nondeterministic=nondeterministic)
+
+
+def main_path_train(torch, K):
+    """Main path H: the LM trainer on the card.  H1 trains qwen2-0.5b at
+    full width, H2 serves the trained weights back through the kernel and
+    times the checkpoint codec, H3 runs launch/train.py and the resume
+    check at the reduced config."""
+    reset_launches(K)
+    t0 = time.perf_counter()
+    h1 = train_full_width(torch, K)
+    h2 = serve_trained(torch, K, h1)
+    h3 = train_reduced(torch, K)
+    launches = launch_counts(K)
+    if launches["flash_attention"] == 0:
+        raise AssertionError("main path H never launched flash_attention")
+    log(f"phase 4H: trainer path in {time.perf_counter() - t0:.1f} s; kernel "
+        f"launches on path H: {launches}")
+    for k in ("init", "params"):
+        h1.pop(k)
+    torch.cuda.empty_cache()
+    return launches, dict(h1=h1, h2=h2, h3=h3)
 
 
 # --------------------------------------------------------------------------
@@ -2683,23 +3145,28 @@ def _kernel_profile(torch, fn):
     """Device time by kernel kind and by name (ms), the number of kernel
     launches (the host's launch calls) and of device activities (kernels
     and copies, and their count by name) of one call of ``fn``, from
-    torch.profiler's CPU and CUDA activity."""
+    torch.profiler's CPU and CUDA activity; with each aten op's own device
+    time and the wall time under the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
     by_kind = {"flash_attention": 0.0, "pwl_activation": 0.0,
                "float32 GEMM": 0.0, "bf16 GEMM": 0.0, "other": 0.0}
     launches = activities = 0
-    names, device_ms = {}, {}
+    names, device_ms, ops = {}, {}, {}
     for e in prof.key_averages():
         if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx", "cuLaunchKernel",
                      "cudaLaunchKernelExC"):
             launches += e.count
         if e.device_type != torch.autograd.DeviceType.CUDA:
+            if e.self_device_time_total > 0:
+                ops[e.key] = e.self_device_time_total / 1e3
             continue
         activities += e.count
         names[e.key] = e.count
@@ -2718,7 +3185,7 @@ def _kernel_profile(torch, fn):
             by_kind["other"] += ms
     return {"by_kind": by_kind, "launches": launches,
             "activities": activities, "names": names,
-            "device_ms": device_ms}
+            "device_ms": device_ms, "ops": ops, "wall_ms": wall_ms}
 
 
 def time_lm(torch, K, T, lm):
@@ -3014,39 +3481,37 @@ def check_tensor_core_sass(build):
                                  f"SASS: {need}")
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this smoke runs on a GPU host",
-              file=sys.stderr)
-        return 2
+def namespace():
+    """The port's modules that the phases use, and each kernel's launcher
+    (whose ``launches`` count the main paths read)."""
     from repro_torch import compile as tc
     from repro_torch import models
     from repro_torch.compile.lowerings import common
     from repro_torch.core import fixedpoint as fxp
     from repro_torch.core import trees
-    from repro_torch.data import load_dataset
     from repro_torch import serve
     from repro_torch import configs
     from repro_torch import emit
-    from repro_torch.kernels import (build, flash_attention, fxp_layer,
-                                     fxp_model, fxp_qmatmul, pwl_activation,
+    from repro_torch.kernels import (flash_attention, fxp_layer, fxp_model,
+                                     fxp_qmatmul, pwl_activation,
                                      tree_ensemble, tune)
     from repro_torch.kernels import ref as kernels_ref
     from repro_torch.core import activations as acts
     from repro_torch.lm import layers as lm_layers
     from repro_torch.lm import model as lm_model
     from repro_torch.models.svm import _pick_prototypes
+    from repro_torch import roofline
+    from repro_torch.kernels import ops
     from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optim, trainer
 
-    K = types.SimpleNamespace(
+    return types.SimpleNamespace(
         tc=tc, models=models, common=common, fxp=fxp, trees=trees,
         layer=fxp_layer, model=fxp_model, qm=fxp_qmatmul, te=tree_ensemble,
         pwl=pwl_activation, serve=serve, pick_prototypes=_pick_prototypes,
         fa=flash_attention, lm_model=lm_model, lm_layers=lm_layers,
-        acts=acts, emit=emit, ckpt=ckpt,
-        configs=configs, tune=tune,
+        acts=acts, emit=emit, ckpt=ckpt, optim=optim, trainer=trainer,
+        roofline=roofline, ops=ops, configs=configs, tune=tune,
         kref=kernels_ref,
         launchers={"fxp_layer": fxp_layer.fxp_layer_cuda,
                    "fxp_mlp_model": fxp_model.fxp_mlp_model_cuda,
@@ -3058,6 +3523,19 @@ def main() -> int:
                    "fxp_svm_fleet": fxp_model.fxp_svm_fleet_cuda,
                    "flash_attention": flash_attention.flash_attention_cuda})
 
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke runs on a GPU host",
+              file=sys.stderr)
+        return 2
+    from repro_torch import models
+    from repro_torch.data import load_dataset
+    from repro_torch.kernels import build
+
+    K = namespace()
     t_start = time.perf_counter()
     dev = Device(torch)
 
@@ -3094,8 +3572,10 @@ def main() -> int:
     launches_d, arts_d = main_path_serving(torch, K, d6, d5, tree_model)
     launches_e, lm = main_path_lm(torch, K)
     launches_g = main_path_pipeline(torch, K, d6, tree_model)
+    launches_h, _ = main_path_train(torch, K)
     by_path = {"A": launches_a, "B": launches_b, "C": launches_c,
-               "D": launches_d, "E": launches_e, "G": launches_g}
+               "D": launches_d, "E": launches_e, "G": launches_g,
+               "H": launches_h}
     launches = {n: (sum(p[n] for p in by_path.values()),
                     {k: p[n] for k, p in by_path.items()})
                 for n in KernelCheck.NAMES}

@@ -8,7 +8,11 @@ Each wrapper routes by ``impl`` and by where its tensors lie:
   launch raises: there is no fallback), a CPU tensor takes the kernel's
   plain PyTorch version, which computes the same bits.
 
-The CUDA kernels mask ragged edges themselves, so no wrapper pads.
+The CUDA kernels mask ragged edges themselves, so no wrapper pads.  No
+kernel has a backward: the float kernels' wrappers (``flash_attention``,
+``pwl_activation``) raise ``RuntimeError`` rather than launch on an input
+that requires grad while grad is enabled, since the launch writes a fresh
+tensor and would cut the gradient without a word.
 ``count_dispatches()`` counts wrapper calls (one per logical kernel
 dispatch, whichever version ran); each CUDA launcher also counts its own
 launches (``fxp_layer_cuda.launches``, ``fxp_svm_model_cuda.launches``,
@@ -70,6 +74,18 @@ def count_dispatches():
         yield c
     finally:
         _active_counters.remove(c)
+
+
+def _no_backward(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise before a launch whose output autograd would need to
+    differentiate: the kernels have no backward."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input requires "
+            f"grad; train through the reference's route "
+            f"(repro_torch.lm.model.loss_fn), or call it under "
+            f"torch.no_grad()")
 
 
 def _route(impl: str, t: torch.Tensor) -> str:
@@ -202,6 +218,7 @@ def pwl_activation(x: torch.Tensor, variant: str = "pwl4",
             x = x + bias
         return ref_ops.pwl_activation_ref(x, variant)
     if route == "cuda":
+        _no_backward("pwl_activation", x, bias)
         return pwl_activation_cuda(x, variant, bias)
     return pwl_activation_plain(x, variant, bias)
 
@@ -229,5 +246,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _tick()
     route = _route(impl, q)
     if route == "cuda":
+        _no_backward("flash_attention", q, k, v)
         return flash_attention_cuda(q, k, v, causal)
     return flash_attention_plain(q, k, v, causal)

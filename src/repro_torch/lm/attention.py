@@ -15,7 +15,11 @@ The PyTorch counterpart of :mod:`repro.lm.attention`.  Prefill
 * with a sliding ``window`` (no dense config has one), the kernel does not
   compute the function — it masks only the causal triangle — so a windowed
   attention takes the CPU branch's functions on either device.  The kernel
-  is never tried and given up on.
+  is never tried and given up on;
+* with ``impl="train"`` (the training route of
+  :func:`repro_torch.lm.model.loss_fn`), the CPU branch's functions on
+  either device: autograd differentiates them, as JAX differentiates the
+  reference's, and the kernel has no backward.
 
 Decode (:func:`decode_attention`) computes one query against the cache in
 grouped form (no KV head replication) and updates the cache's buffers in
@@ -33,7 +37,7 @@ import torch
 
 from repro_torch.kernels import ops
 
-from .layers import apply_linear, apply_rope, init_linear
+from .layers import apply_linear, apply_rope, init_linear, on_card
 
 __all__ = ["attn_params", "attention", "blockwise_attention",
            "full_attention", "decode_attention", "init_kv_cache"]
@@ -174,7 +178,8 @@ def attention(params: Dict, x: torch.Tensor, *, n_heads: int,
               impl: str = "cuda") -> torch.Tensor:
     """Self-attention over a full sequence (prefill).  ``impl`` is the
     kernel route on a CUDA tensor (``"cuda"`` launches the kernel, ``"ref"``
-    computes its function through the materialized-scores oracle)."""
+    computes its function through the materialized-scores oracle);
+    ``"train"`` takes the reference's branch on any device."""
     b, s, _ = x.shape
     q = _split_heads(apply_linear(params["wq"], x), n_heads)
     k = _split_heads(apply_linear(params["wk"], x), n_kv_heads)
@@ -183,7 +188,7 @@ def attention(params: Dict, x: torch.Tensor, *, n_heads: int,
         positions = torch.arange(s, device=x.device)[None, :]
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
-    if x.device.type == "cuda" and window is None:
+    if impl != "train" and on_card(x) and window is None:
         out = _kernel_attention(q, k, v, causal, impl)
     elif s % chunk == 0 and s > chunk:
         out = blockwise_attention(q, k, v, causal, chunk, window)

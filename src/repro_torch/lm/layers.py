@@ -21,7 +21,13 @@ from repro_torch.core.activations import get_sigmoid
 __all__ = ["rmsnorm", "layernorm", "make_norm_params", "apply_norm",
            "init_linear", "mlp_params", "apply_mlp", "activation_fn",
            "rope_freqs", "apply_rope", "init_embed", "gated_silu", "wval",
-           "apply_linear", "embed_tokens", "unembed"]
+           "apply_linear", "embed_tokens", "unembed", "on_card"]
+
+
+def on_card(x: torch.Tensor) -> bool:
+    """Whether ``x`` lies on a CUDA device, where the serving route
+    launches the kernels."""
+    return x.device.type == "cuda"
 
 
 # --------------------------------------------------------------------------
@@ -102,10 +108,15 @@ def apply_linear(p: Dict, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def activation_fn(name: str, gate_sigmoid: str = "exact") -> Callable:
+def activation_fn(name: str, gate_sigmoid: str = "exact",
+                  fused: bool = True) -> Callable:
     """silu/gelu/relu/relu2; silu routes through the (possibly PWL) sigmoid
-    (:func:`gated_silu`)."""
+    (:func:`gated_silu`), or op by op when ``fused`` is False (the
+    training route: the gate's kernel has no backward)."""
     if name == "silu":
+        if not fused:
+            sig = get_sigmoid(gate_sigmoid)
+            return lambda x: x * sig(x)
         return lambda x: gated_silu(x, gate_sigmoid)
     if name == "gelu":
         return lambda x: F.gelu(x, approximate="tanh")
@@ -126,7 +137,7 @@ def gated_silu(x: torch.Tensor, gate_sigmoid: str = "exact") -> torch.Tensor:
     for the kernel's flush of a subnormal result (which XLA applies too); in
     bf16 they differ by the op-by-op route's roundings.  The other gates
     have no fused form in the kernel and stay in PyTorch ops."""
-    if gate_sigmoid == "pwl4" and x.device.type == "cuda":
+    if gate_sigmoid == "pwl4" and on_card(x):
         from repro_torch.kernels import ops
 
         return ops.pwl_activation(x, "silu_pwl4")
@@ -149,8 +160,8 @@ def mlp_params(generator: torch.Generator, d: int, d_ff: int, mlp_type: str,
 
 
 def apply_mlp(p: Dict, x: torch.Tensor, mlp_type: str, activation: str,
-              gate_sigmoid: str = "exact") -> torch.Tensor:
-    act = activation_fn(activation, gate_sigmoid)
+              gate_sigmoid: str = "exact", fused: bool = True) -> torch.Tensor:
+    act = activation_fn(activation, gate_sigmoid, fused)
     h = apply_linear(p["wi"], x)
     if mlp_type == "glu":
         h = act(apply_linear(p["wg"], x)) * h

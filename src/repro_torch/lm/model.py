@@ -1,4 +1,5 @@
-"""Model assembly for the dense attention family: init / forward / decode.
+"""Model assembly for the dense attention family: init / forward / loss /
+decode.
 
 The PyTorch counterpart of :mod:`repro.lm.model`, dense decoder stacks only
 (``family`` dense: GQA or MHA attention, glu or standard MLP, rmsnorm or
@@ -7,25 +8,41 @@ the layers stacked on a leading ``n_layers`` axis — so weights carry across
 one to one (:func:`repro_torch.convert.lm_params_from_numpy`); a Python
 loop over the stacked index takes the place of the reference's
 ``lax.scan``.  MoE, MLA, mamba-hybrid, rwkv and modality configs raise
-``NotImplementedError`` (roadmap item A13); the training loss waits for the
-trainers (A12).
+``NotImplementedError`` (roadmap item A13).
 
 Public API:
   init_params(cfg, generator)            -> params tree on the generator's device
   forward(params, batch, cfg)            -> (B, S, vocab) float32 logits
+  loss_fn(params, batch, cfg)            -> scalar float32 next-token loss
   init_cache(cfg, batch, max_len, device) -> decode cache tree
   serve_step(params, cache, batch, cfg)  -> (logits, cache)
 
-Everything runs under ``torch.inference_mode()``.  ``serve_step`` updates
-the cache's buffers in place and returns the same buffers under an advanced
+Two routes run the same layer stack (:func:`_stack`):
+
+* the serving route (``forward``, ``serve_step``), under
+  ``torch.inference_mode()``: on the card each layer's attention is one
+  ``flash_attention`` launch and a pwl4 gate one ``pwl_activation`` launch;
+* the training route (``loss_fn``, or ``forward(..., attn_impl="train")``):
+  the reference's own branch on any device — ``blockwise_attention`` when
+  ``S % attn_chunk == 0 and S > attn_chunk``, else ``full_attention`` — and
+  the gate op by op, which are the functions the reference differentiates.
+  Neither kernel has a backward, and each raises when asked for one
+  (:mod:`repro_torch.kernels.ops`).  With ``cfg.remat`` each layer is
+  recomputed in the backward (``torch.utils.checkpoint``), as the
+  reference's ``jax.checkpoint`` does.
+
+``init_params`` runs under ``torch.no_grad()``, so its tensors are normal
+tensors that the trainer can differentiate.  ``serve_step`` updates the
+cache's buffers in place and returns the same buffers under an advanced
 ``pos``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 
@@ -33,12 +50,26 @@ from . import attention as attn_mod
 from .layers import (apply_linear, apply_mlp, apply_norm, embed_tokens,
                      init_embed, init_linear, make_norm_params, mlp_params)
 
-__all__ = ["init_params", "forward", "init_cache", "serve_step",
-           "require_dense"]
+__all__ = ["init_params", "forward", "loss_fn", "init_cache", "serve_step",
+           "require_dense", "ATTN_IMPLS"]
+
+# Attention routes of the layer stack: "cuda" launches the flash_attention
+# kernel on a CUDA tensor, "ref" computes the kernel's function through its
+# plain version there, "train" takes the reference's own branch (blockwise
+# or full attention) on any device, differentiably.
+ATTN_IMPLS = ("cuda", "ref", "train")
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def unported(cfg: ArchConfig, kind: str) -> NotImplementedError:
+    """The error for a part of ``cfg`` that the port does not run yet."""
+    return NotImplementedError(
+        f"{cfg.name}: {kind} is not ported to repro_torch yet (roadmap "
+        f"item A13, the rest of the LM stack); the port runs dense "
+        f"attention stacks")
 
 
 def require_dense(cfg: ArchConfig) -> None:
@@ -53,16 +84,24 @@ def require_dense(cfg: ArchConfig) -> None:
     elif cfg.modality is not None:
         kind = f"the {cfg.modality} modality frontend"
     if kind is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: {kind} is not ported to repro_torch yet (roadmap "
-            f"item A13, the rest of the LM stack); the port runs dense "
-            f"attention stacks")
+        raise unported(cfg, kind)
 
 
 def _layer(stacked: Dict, i: int) -> Dict:
     """Layer ``i``'s parameters (views) from a stacked tree."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in stacked.items()}
+
+
+def _unbind_layers(stacked: Dict) -> List[Dict]:
+    """Every layer's parameters (views) from a stacked tree, split once:
+    autograd then writes a stacked leaf's gradient with one ``stack``,
+    where indexing each layer would add a zero-filled stacked gradient per
+    layer (O(L^2) traffic)."""
+    per_leaf = {k: _unbind_layers(v) if isinstance(v, dict) else v.unbind(0)
+                for k, v in stacked.items()}
+    n = len(next(iter(per_leaf.values())))
+    return [{k: v[i] for k, v in per_leaf.items()} for i in range(n)]
 
 
 def _n_layers(stacked: Dict) -> int:
@@ -79,10 +118,11 @@ def _tokens(tokens: Any, device: torch.device) -> torch.Tensor:
 # ===========================================================================
 # Parameter construction
 # ===========================================================================
-@torch.inference_mode()
+@torch.no_grad()
 def init_params(cfg: ArchConfig, generator: torch.Generator) -> Dict:
     """Seeded parameters (the reference's layout and init scales) on the
-    generator's device."""
+    generator's device: normal tensors, not inference tensors, so that
+    :func:`loss_fn` can be differentiated with respect to them."""
     require_dense(cfg)
     dt, dev, lead = _dtype(cfg), generator.device, (cfg.n_layers,)
     params: Dict[str, Any] = {
@@ -121,7 +161,8 @@ def _dense_block(cfg: ArchConfig, p: Dict, x: torch.Tensor,
                  attn_impl: str) -> torch.Tensor:
     x = x + _block_attn(cfg, p, apply_norm(cfg.norm, p["ln1"], x), attn_impl)
     x = x + apply_mlp(p["mlp"], apply_norm(cfg.norm, p["ln2"], x),
-                      cfg.mlp_type, cfg.activation, cfg.gate_sigmoid)
+                      cfg.mlp_type, cfg.activation, cfg.gate_sigmoid,
+                      fused=attn_impl != "train")
     return x
 
 
@@ -133,20 +174,64 @@ def _logits(cfg: ArchConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
     return apply_linear(params["head"], x).to(torch.float32)
 
 
+def _stack(params: Dict, batch: Dict, cfg: ArchConfig,
+           attn_impl: str) -> torch.Tensor:
+    """Embedding, the layers and the head -> float32 logits (B, S, vocab):
+    the one layer stack of both routes."""
+    if attn_impl not in ATTN_IMPLS:
+        raise KeyError(f"attn_impl must be one of {ATTN_IMPLS}, got "
+                       f"{attn_impl!r}")
+    require_dense(cfg)
+    table = params["embed"]["table"]
+    x = embed_tokens(params["embed"], _tokens(batch["tokens"], table.device))
+    remat = attn_impl == "train" and cfg.remat and torch.is_grad_enabled()
+    for p in _unbind_layers(params["layers"]):
+        if remat:
+            x = checkpoint(_dense_block, cfg, p, x, attn_impl,
+                           use_reentrant=False)
+        else:
+            x = _dense_block(cfg, p, x, attn_impl)
+    return _logits(cfg, params, x)
+
+
 @torch.inference_mode()
 def forward(params: Dict, batch: Dict, cfg: ArchConfig,
             attn_impl: str = "cuda") -> torch.Tensor:
     """Full-sequence forward -> float32 logits (B, S, vocab).  On the card
     each layer's attention is one ``flash_attention`` launch
     (``attn_impl="ref"`` computes the same function through the
-    materialized-scores oracle instead, for checks)."""
-    require_dense(cfg)
-    table = params["embed"]["table"]
-    x = embed_tokens(params["embed"], _tokens(batch["tokens"], table.device))
-    layers = params["layers"]
-    for i in range(_n_layers(layers)):
-        x = _dense_block(cfg, _layer(layers, i), x, attn_impl)
-    return _logits(cfg, params, x)
+    materialized-scores oracle instead, for checks; ``"train"`` takes the
+    training route of :func:`loss_fn`, without grad)."""
+    return _stack(params, batch, cfg, attn_impl)
+
+
+def _cross_entropy(logits: torch.Tensor,
+                   targets: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy in float32: ``logsumexp`` through a detached
+    max, as the reference computes it.  The target logit is a
+    ``torch.gather``: the reference's masked sum over the vocabulary adds
+    only zeros to it, so the two give the same value bit for bit (and the
+    same one-hot gradient)."""
+    l32 = logits.to(torch.float32)
+    m = torch.amax(l32, dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(l32 - m), dim=-1)) + m[..., 0]
+    tgt = torch.gather(l32, -1, targets[..., None].to(torch.int64))[..., 0]
+    return torch.mean(lse - tgt)
+
+
+def loss_fn(params: Dict, batch: Dict, cfg: ArchConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy over ``batch["tokens"]`` (the target
+    shifted by one; an encoder's ``batch["labels"]`` unshifted), through
+    the training route: differentiable on any device, no kernel launched.
+    """
+    logits = _stack(params, batch, cfg, "train")
+    dev = logits.device
+    if cfg.encoder_only:
+        return _cross_entropy(logits, _tokens(batch["labels"], dev))
+    tokens = _tokens(batch["tokens"], dev)
+    n_prefix = logits.shape[1] - tokens.shape[1]
+    logits_text = logits[:, n_prefix:, :]
+    return _cross_entropy(logits_text[:, :-1], tokens[:, 1:])
 
 
 # ===========================================================================

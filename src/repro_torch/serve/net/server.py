@@ -224,7 +224,7 @@ class HttpServer:
         if name not in self.service.router:
             raise ProtocolError(404, f"no endpoint '{name}'")
         ep = self.service.router[name]
-        if "generate" in ep.artifact.extras:
+        if ep.batcher is None:
             raise ProtocolError(405, f"endpoint '{name}' hosts an LM "
                                      f"artifact; predict serves classifiers")
         ctrl = self._controller(name)

@@ -2,11 +2,14 @@
 
 The counterpart of :mod:`repro.serve.router` for the PyTorch port.  Each
 registered :class:`~repro_torch.compile.artifact.CompiledArtifact` gets an
-*endpoint*: its own micro-batching scheduler and a rolling stats window —
-QPS, p50/p95/p99 request latency, mean batch-fill ratio (rows per
-dispatched bucket).  The scheduler stages batches in pinned host memory
-when the artifact runs on a CUDA device.  An LM artifact's endpoint also
-answers :meth:`Endpoint.generate`, outside the scheduler.
+*endpoint*: its own micro-batching scheduler (classifier artifacts) and a
+rolling stats window — QPS, p50/p95/p99 request latency, mean batch-fill
+ratio (rows per dispatched bucket).  The scheduler stages batches in pinned
+host memory when the artifact runs on a CUDA device.  LM artifacts
+(``kind == 'lm'``) are hosted without a scheduler, as the reference hosts
+them: their :meth:`Endpoint.generate` calls are routed and accounted
+through the same stats, and ``submit``/``predict``/``set_fallback`` raise
+``TypeError``.
 
 An endpoint may additionally carry a *fallback* artifact of the same model
 at a narrower precision (``set_fallback``): a
@@ -165,10 +168,12 @@ class Endpoint:
             artifact.max_supported_batch).with_replicas(
             getattr(artifact, "replicas", 1),
             align_top=artifact.max_supported_batch is None)
-        self.batcher = MicroBatcher(
-            self._dispatch, self.policy, on_batch=self.stats.record_batch,
-            name=name, retry=retry, on_dispatch=self._on_dispatch,
-            device=getattr(artifact, "device", None))
+        self.batcher: Optional[MicroBatcher] = None
+        if artifact.kind != "lm":
+            self.batcher = MicroBatcher(
+                self._dispatch, self.policy, on_batch=self.stats.record_batch,
+                name=name, retry=retry, on_dispatch=self._on_dispatch,
+                device=getattr(artifact, "device", None))
 
     # -- load-adaptive precision ---------------------------------------------
     def set_fallback(self, artifact: CompiledArtifact,
@@ -178,6 +183,9 @@ class Endpoint:
         the primary.  The fallback must host the same model shape: same
         lowering kind, and no batch ceiling below the scheduler's buckets.
         """
+        if self.batcher is None:
+            raise TypeError(f"endpoint '{self.name}' hosts an LM artifact; "
+                            f"precision fallback applies to classifiers")
         if artifact.kind != self.artifact.kind:
             raise ValueError(
                 f"fallback kind '{artifact.kind}' does not match primary "
@@ -224,8 +232,8 @@ class Endpoint:
         hint = (self.breaker is not None
                 and self.breaker.state != CircuitBreaker.CLOSED)
         degraded = self.governor.observe(
-            self.batcher.depth(), self.stats.rolling_p99_ms(),
-            overload_hint=hint)
+            self.batcher.depth() if self.batcher is not None else 0,
+            self.stats.rolling_p99_ms(), overload_hint=hint)
         art = self.fallback if degraded else self.artifact
         return art.predict(x), {"degraded": degraded,
                                 "number_format": art.target.number_format}
@@ -248,8 +256,8 @@ class Endpoint:
         if self.governor is None:
             return True
         return not self.governor.observe(
-            self.batcher.depth(), self.stats.rolling_p99_ms(),
-            overload_hint=False)
+            self.batcher.depth() if self.batcher is not None else 0,
+            self.stats.rolling_p99_ms(), overload_hint=False)
 
     # -- classifier surface --------------------------------------------------
     def submit(self, x: np.ndarray,
@@ -258,6 +266,9 @@ class Endpoint:
             raise CircuitOpenError(
                 f"endpoint '{self.name}' circuit is open",
                 retry_after_s=self.breaker.retry_after_s())
+        if self.batcher is None:
+            raise TypeError(f"endpoint '{self.name}' hosts an LM artifact; "
+                            f"use generate()")
         return self.batcher.submit(x, timeout_s=timeout_s)
 
     def predict(self, x: np.ndarray) -> np.ndarray:
@@ -288,14 +299,15 @@ class Endpoint:
         """Full stats surface: serving stats + reliability counters +
         breaker/governor state."""
         snap: Dict[str, object] = self.stats.snapshot()
-        # Flat scalars (every plain-stats consumer keeps iterating numbers);
-        # breaker/governor state stay nested because they only appear when
-        # armed.
-        snap["expired_requests"] = self.batcher.n_expired
-        snap["dispatch_retries"] = self.batcher.n_retries
-        snap["dispatch_failures"] = self.batcher.n_dispatch_failures
-        snap["failed_requests"] = self.batcher.n_failed_requests
-        snap.update(self.batcher.assembly_stats())
+        if self.batcher is not None:
+            # Flat scalars (every plain-stats consumer keeps iterating
+            # numbers); breaker/governor state stay nested because they
+            # only appear when armed.
+            snap["expired_requests"] = self.batcher.n_expired
+            snap["dispatch_retries"] = self.batcher.n_retries
+            snap["dispatch_failures"] = self.batcher.n_dispatch_failures
+            snap["failed_requests"] = self.batcher.n_failed_requests
+            snap.update(self.batcher.assembly_stats())
         if self.breaker is not None:
             snap["breaker"] = self.breaker.snapshot()
         if self.governor is not None:
@@ -303,7 +315,8 @@ class Endpoint:
         return snap
 
     def close(self, timeout: Optional[float] = None) -> None:
-        self.batcher.close(timeout=timeout)
+        if self.batcher is not None:
+            self.batcher.close(timeout=timeout)
 
 
 class ModelRouter:

@@ -1,10 +1,8 @@
-"""Training substrate of the port: optimizers, LR schedules and the
-checkpoint codec.
+"""Training substrate of the port: optimizers, LR schedules, checkpointing
+and the fault-tolerant LM loop (:mod:`.checkpoint`, :mod:`.trainer`).
 
-The counterpart of :mod:`repro.train`, with its exports except the LM
-trainer (``train/trainer.py``), which arrives with the LM half of the
-trainers' slice; the classifier trainers live beside their models in
-:mod:`repro_torch.models`.
+The counterpart of :mod:`repro.train`, with its exports; the classifier
+trainers live beside their models in :mod:`repro_torch.models`.
 """
 
 from .optim import adamw, sgd, clip_by_global_norm, OptState

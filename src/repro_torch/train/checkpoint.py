@@ -1,11 +1,24 @@
-"""The checkpoint codec: compressed msgpack containers and array leaves.
+"""Checkpointing: atomic, compressed, resumable; and the codec under it.
 
-The counterpart of the codec half of :mod:`repro.train.checkpoint`
+The counterpart of :mod:`repro.train.checkpoint`.  The codec
 (``compress_bytes``, ``decompress_bytes``, ``LEAF_KEY``, ``encode_leaf``,
-``decode_leaf``, ``atomic_write_bytes``), shared with the artifact archive
-(:mod:`repro_torch.compile.artifact`).  The pytree checkpoints
-(``save_pytree``, ``restore_pytree``, ``CheckpointManager``) arrive with the
-LM trainer.
+``decode_leaf``, ``atomic_write_bytes``) is shared with the artifact
+archive (:mod:`repro_torch.compile.artifact`); the pytree checkpoints
+(:func:`save_pytree`, :func:`restore_pytree`, :class:`CheckpointManager`)
+hold the LM trainer's state.  A file either package writes restores in the
+other.
+
+* Pytrees: nested dicts, lists, tuples and named tuples (such as
+  :class:`repro_torch.train.optim.OptState`) of tensors, numpy arrays and
+  Python scalars; ``None`` is an empty subtree.  The leaves are stored in
+  ``jax.tree.flatten``'s order — dict keys sorted, sequences and named
+  tuples' fields in order — which is not the insertion order that
+  :func:`repro_torch.train.optim.tree_leaves` walks.  The payload keeps the
+  reference's keys: ``treedef`` (a description; nothing reads it back),
+  ``leaves``, ``metadata``, ``version`` 1 and ``saved_at``.
+* Steps: ``<dir>/step_<n>/host_<k>.ckpt`` with a ``COMMIT`` marker
+  written last, so a step without it is never restored; the newest
+  ``keep`` steps and every ``keep_period``-th are retained.
 
 * Compression: zstd when the ``zstandard`` package imports, zlib otherwise.
   The streams identify themselves (zstd frame magic or zlib header), so
@@ -27,11 +40,15 @@ LM trainer.
 
 from __future__ import annotations
 
+import dataclasses
 import os
+import re
+import shutil
 import struct
 import tempfile
+import time
 import zlib
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,7 +58,8 @@ try:  # zstd preferred; zlib is the always-available fallback
 except ImportError:  # pragma: no cover - environment-dependent
     zstandard = None
 
-__all__ = ["compress_bytes", "decompress_bytes", "encode_leaf", "decode_leaf",
+__all__ = ["save_pytree", "restore_pytree", "CheckpointManager",
+           "compress_bytes", "decompress_bytes", "encode_leaf", "decode_leaf",
            "atomic_write_bytes", "packb", "unpackb", "LEAF_KEY"]
 
 _ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"
@@ -306,3 +324,174 @@ def decode_leaf(d: Dict) -> Any:
     if kind == "scalar":
         return d["value"]
     raise TypeError(f"unknown leaf kind {kind}")
+
+
+# --------------------------------------------------------------------------
+# pytrees
+# --------------------------------------------------------------------------
+def _is_namedtuple(x: Any) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def _flatten(tree: Any, leaves: List[Any]) -> str:
+    """Append ``tree``'s leaves to ``leaves`` in ``jax.tree.flatten``'s
+    order; returns a description of the structure."""
+    if tree is None:
+        return "None"
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        return "{" + ", ".join(f"{k!r}: {_flatten(tree[k], leaves)}"
+                               for k in keys) + "}"
+    if _is_namedtuple(tree):
+        return type(tree).__name__ + "(" + ", ".join(
+            f"{f}={_flatten(v, leaves)}"
+            for f, v in zip(tree._fields, tree)) + ")"
+    if isinstance(tree, (list, tuple)):
+        inner = ", ".join(_flatten(v, leaves) for v in tree)
+        return f"[{inner}]" if isinstance(tree, list) else f"({inner},)"
+    leaves.append(tree)
+    return "*"
+
+
+def _rebuild(like: Any, leaves) -> Any:
+    """``like``'s structure with its leaves taken from the iterator
+    ``leaves`` in flatten order."""
+    if like is None:
+        return None
+    if isinstance(like, dict):
+        out = {k: _rebuild(like[k], leaves) for k in sorted(like)}
+        return {k: out[k] for k in like}
+    if _is_namedtuple(like):
+        return type(like)(*(_rebuild(v, leaves) for v in like))
+    if isinstance(like, (list, tuple)):
+        return type(like)(_rebuild(v, leaves) for v in like)
+    return _place(next(leaves), like)
+
+
+def _place(x: Any, like: Any) -> Any:
+    """A decoded leaf as ``like`` holds it: a tensor on ``like``'s device
+    (with the checkpoint's dtype), else the decoded value."""
+    if isinstance(like, torch.Tensor):
+        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+            np.asarray(x))
+        return t.to(like.device)
+    return x
+
+
+def _shape(x: Any) -> tuple:
+    return tuple(x.shape) if hasattr(x, "shape") else np.shape(x)
+
+
+def save_pytree(path: str, tree: Any, metadata: Optional[Dict] = None) -> None:
+    """Atomically save a pytree (tensors, arrays and scalars) to ``path``."""
+    leaves: List[Any] = []
+    treedef = _flatten(tree, leaves)
+    payload = {
+        "treedef": f"PyTreeDef({treedef})",
+        "leaves": [encode_leaf(l) for l in leaves],
+        "metadata": metadata or {},
+        "version": 1,
+        "saved_at": time.time(),
+    }
+    atomic_write_bytes(path, compress_bytes(packb(payload)))
+
+
+def restore_pytree(path: str, like: Any = None) -> Tuple[Any, Dict]:
+    """Restore a pytree.  With ``like``, validate the leaf count and shapes
+    and return the leaves in ``like``'s structure, each tensor on the
+    device of ``like``'s leaf (safe resume); without it, the leaf list."""
+    with open(path, "rb") as f:
+        payload = unpackb(decompress_bytes(f.read()))
+    leaves = [decode_leaf(l) for l in payload["leaves"]]
+    if like is None:
+        return leaves, payload["metadata"]
+    like_leaves: List[Any] = []
+    _flatten(like, like_leaves)
+    if len(like_leaves) != len(leaves):
+        raise ValueError(
+            f"checkpoint has {len(leaves)} leaves, expected {len(like_leaves)}")
+    for i, (a, b) in enumerate(zip(leaves, like_leaves)):
+        if hasattr(b, "shape") and _shape(a) != _shape(b):
+            raise ValueError(
+                f"leaf {i}: checkpoint shape {_shape(a)} != expected "
+                f"{_shape(b)}")
+    return _rebuild(like, iter(leaves)), payload["metadata"]
+
+
+_STEP_RE = re.compile(r"^step_(\d+)$")
+
+
+@dataclasses.dataclass
+class CheckpointManager:
+    """Step-indexed checkpoint directory with retention + commit markers."""
+
+    directory: str
+    keep: int = 3
+    keep_period: Optional[int] = None  # additionally keep every k-th step
+    host_id: int = 0
+
+    def __post_init__(self):
+        os.makedirs(self.directory, exist_ok=True)
+
+    # -- paths ---------------------------------------------------------------
+    def _step_dir(self, step: int) -> str:
+        return os.path.join(self.directory, f"step_{step}")
+
+    def _ckpt_path(self, step: int) -> str:
+        return os.path.join(self._step_dir(step), f"host_{self.host_id}.ckpt")
+
+    def _commit_path(self, step: int) -> str:
+        return os.path.join(self._step_dir(step), "COMMIT")
+
+    # -- api -----------------------------------------------------------------
+    def all_steps(self) -> List[int]:
+        steps = []
+        for name in os.listdir(self.directory):
+            m = _STEP_RE.match(name)
+            if m and os.path.exists(self._commit_path(int(m.group(1)))):
+                steps.append(int(m.group(1)))
+        return sorted(steps)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, tree: Any,
+             metadata: Optional[Dict] = None) -> str:
+        path = self._ckpt_path(step)
+        meta = dict(metadata or {})
+        meta["step"] = step
+        save_pytree(path, tree, meta)
+        # Commit marker written last: a step dir without it is ignored.
+        with open(self._commit_path(step), "w") as f:
+            f.write(str(time.time()))
+        self._gc()
+        return path
+
+    def restore(self, like: Any,
+                step: Optional[int] = None) -> Tuple[int, Any, Dict]:
+        if step is None:
+            step = self.latest_step()
+            if step is None:
+                raise FileNotFoundError(
+                    f"no committed checkpoints in {self.directory}")
+        tree, meta = restore_pytree(self._ckpt_path(step), like)
+        return step, tree, meta
+
+    def restore_or_init(self, like: Any) -> Tuple[int, Any]:
+        """Resume from the latest checkpoint or fall back to ``like`` at
+        step 0."""
+        step = self.latest_step()
+        if step is None:
+            return 0, like
+        _, tree, _ = self.restore(like, step)
+        return step, tree
+
+    def _gc(self) -> None:
+        steps = self.all_steps()
+        protect = set(steps[-self.keep:]) if self.keep else set()
+        if self.keep_period:
+            protect |= {s for s in steps if s % self.keep_period == 0}
+        for s in steps:
+            if s not in protect:
+                shutil.rmtree(self._step_dir(s), ignore_errors=True)

@@ -61,8 +61,10 @@ class Optimizer:
 def _lr_fn(lr: LR) -> Callable[[torch.Tensor], torch.Tensor]:
     if callable(lr):
         return lr
-    return lambda step: torch.tensor(lr, dtype=torch.float32,
-                                     device=step.device)
+    # torch.full, not torch.tensor: no host-to-device copy, which would
+    # wait for the card
+    return lambda step: torch.full((), lr, dtype=torch.float32,
+                                   device=step.device)
 
 
 def _first_device(tree: Any) -> torch.device:
@@ -100,10 +102,10 @@ def adamw(lr: LR, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         step = state.step + 1
         lr_t = lr_fn(step)
         s32 = step.to(torch.float32)
-        b1c = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
-                                           device=s32.device), s32)
-        b2c = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
-                                           device=s32.device), s32)
+        # a Python scalar base computes in float32 with no host-to-device
+        # copy (a copy would wait for the card every step)
+        b1c = 1.0 - torch.pow(b1, s32)
+        b2c = 1.0 - torch.pow(b2, s32)
 
         mu = tree_map(lambda g, m: b1 * m + (1 - b1) * g.to(torch.float32),
                       grads, state.mu)

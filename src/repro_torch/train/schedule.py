@@ -15,8 +15,8 @@ __all__ = ["cosine_schedule", "warmup_linear", "constant"]
 
 
 def constant(lr: float):
-    return lambda step: torch.tensor(lr, dtype=torch.float32,
-                                     device=step.device)
+    return lambda step: torch.full((), lr, dtype=torch.float32,
+                                   device=step.device)
 
 
 def warmup_linear(base_lr: float, warmup_steps: int):

@@ -814,3 +814,54 @@ def test_http_request_on_card(dev):
         assert tree_ensemble.tree_ensemble_cuda.launches > before
     finally:
         svc.close()
+
+
+def test_checkpoint_restores_onto_the_card(dev, tmp_path):
+    """A host-written train state restores onto the card, bit for bit,
+    with the structure (OptState, None) of ``like``."""
+    from repro_torch.train import optim
+    from repro_torch.train.checkpoint import restore_pytree, save_pytree
+
+    g = torch.Generator("cpu").manual_seed(0)
+    params = {"w": torch.randn(64, 32, generator=g).to(torch.bfloat16),
+              "b": torch.randn(32, generator=g)}
+    opt = optim.adamw(1e-3)
+    state = {"params": params, "opt": opt.init(params)}
+    p = str(tmp_path / "s.ckpt")
+    save_pytree(p, state)
+    like = {"params": {k: v.to(dev) for k, v in params.items()},
+            "opt": opt.init({k: v.to(dev) for k, v in params.items()})}
+    got, _ = restore_pytree(p, like=like)
+    assert got["params"]["w"].device.type == "cuda"
+    assert got["opt"].step.device.type == "cuda"
+    assert torch.equal(got["params"]["w"].cpu().view(torch.int16),
+                       params["w"].view(torch.int16))
+    assert torch.equal(got["params"]["b"].cpu(), params["b"])
+    sgd_state = optim.sgd(1e-2).init(like["params"])
+    save_pytree(p, {"params": params, "opt": sgd_state})
+    back, _ = restore_pytree(p, like={"params": like["params"],
+                                      "opt": sgd_state})
+    assert back["opt"].nu is None and back["opt"].mu is None
+
+
+@pytest.mark.parametrize("wrapper", ["flash_attention", "pwl_activation"])
+def test_kernel_wrappers_raise_under_grad(dev, wrapper):
+    """Neither float kernel has a backward: on the card an input that
+    requires grad raises instead of returning a cut gradient, and the
+    launch counter does not move; under no_grad it launches."""
+    from repro_torch.kernels import flash_attention, pwl_activation
+
+    x = torch.randn(4, 64, 64, device=dev, requires_grad=True)
+    if wrapper == "flash_attention":
+        launcher = flash_attention.flash_attention_cuda
+        call = lambda: ops.flash_attention(x, x, x, True)
+    else:
+        launcher = pwl_activation.pwl_activation_cuda
+        call = lambda: ops.pwl_activation(x, "silu_pwl4")
+    before = launcher.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        call()
+    assert launcher.launches == before
+    with torch.no_grad():
+        out = call()
+    assert launcher.launches == before + 1 and not out.requires_grad

@@ -584,3 +584,52 @@ def test_fixed_batch_artifact_is_clamped(members, blobs):
             + art.predict(xte[4:6]).tolist() + art.predict(xte[6:7]).tolist())
     finally:
         svc.close()
+
+
+def test_lm_endpoint_has_no_batcher_as_in_the_reference():
+    """An ``lm`` endpoint is hosted without a micro-batcher in both
+    packages: ``submit``, ``predict`` and ``set_fallback`` raise the same
+    ``TypeError``, nothing reaches the breaker, and the stats carry the
+    reference's keys (no batcher counters)."""
+    import jax
+
+    from repro import compile as jcompile
+    from repro.configs import get_config as jget_config
+    from repro.lm import model as JM
+    from repro_torch.configs import get_config as tget_config
+    from repro_torch.convert import lm_params_from_numpy
+
+    jcfg = jget_config("qwen2-0.5b").reduced()
+    tcfg = tget_config("qwen2-0.5b").reduced()
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    tp = lm_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    start = np.array([3, 7], np.int32)
+    rows = np.zeros((2, 4), np.float32)
+    jsvc = jserve.InferenceService()
+    tsvc = InferenceService(device="cpu")
+    try:
+        jep = jsvc.register("lm", jcompile.LMModel(jcfg, jp),
+                            jcompile.Target(backend="xla"))
+        tep = tsvc.register("lm", tcompile.LMModel(tcfg, tp),
+                            tcompile.Target(backend="ref"))
+        assert jep.batcher is None and tep.batcher is None
+        jep.set_breaker(jserve.BreakerPolicy(consecutive_failures=1))
+        tep.set_breaker(BreakerPolicy(consecutive_failures=1))
+        calls = (lambda ep: ep.submit(rows), lambda ep: ep.predict(rows),
+                 lambda ep: ep.set_fallback(ep.artifact))
+        for call in calls:
+            with pytest.raises(TypeError) as jerr:
+                call(jep)
+            with pytest.raises(TypeError) as terr:
+                call(tep)
+            assert str(terr.value) == str(jerr.value)
+        assert tep.breaker.snapshot() == jep.breaker.snapshot()
+        assert tep.breaker.snapshot()["window_samples"] == 0
+        assert tep.breaker.snapshot()["trips"] == 0
+        np.testing.assert_array_equal(tsvc.generate("lm", start, 2),
+                                      jsvc.generate("lm", start, 2))
+        assert set(tsvc.stats()["lm"]) == set(jsvc.stats()["lm"])
+        assert tep.fleet_route() and jep.fleet_route()
+    finally:
+        jsvc.close()
+        tsvc.close()
