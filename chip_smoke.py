@@ -76,7 +76,8 @@ Phases, each of which raises on failure:
      (scores materialized in float32, full float32 products), and in
      bfloat16 also every output row within 4e-2 of the row's largest
      |value| (at S 2048 a row averages ~2000 keys and is ~20x smaller than
-     3e-2 allows for); causal and full, dh 32/64/128, S in {1, 7, 63, 64,
+     3e-2 allows for); causal and full, dh 32/64/128/192 (192: MLA's q/k
+     width), S in {1, 7, 63, 64,
      65, 129, 2048}, BH 1 and BH 56 (4 x 14 heads) with K/V of 56 rows
      (G 1) and of 8 rows (G 7, the grouped form path E launches); head dims
      56, 80 and 112 (zero-padded to the next instance) in float32, bf16 and
@@ -185,6 +186,33 @@ Phases, each of which raises on failure:
       losses bit for bit, or the op without a deterministic kernel named
       and the last loss within rtol 1e-5); and the float32 step-0 loss and
       gradients on the card within 1e-4 of the host's.
+   I. the rest of the attention family (after H), one model at a time at
+      its published widths with seeded weights (FAMILY_RUNS):
+      deepseek-v3-671b (MLA, MoE with a shared expert and the aux-free
+      router, 3 dense layers; depth 61 -> 4, prefill 2 x 8192 crossing its
+      moe_prefill_chunk, decode 4 x 32 at flt and fxp8/qnm/int8-KV/pwl4),
+      grok-1-314b (8 experts, GeGLU; depth 64 -> 2, prefill 4 x 2048,
+      decode 4 x 32), llava-next-mistral-7b (full depth, 2880 image
+      embeddings before 1216 tokens a row, batch 2; decode 4 x 32) and
+      hubert-xlarge (full depth, 4 x 1500 audio frames, encoder-only).  In
+      float32 at one row of FAMILY_CHECK_SEQ positions the kernel route is
+      within 1e-4 of the oracle's attention (up to the first token whose
+      experts differ between the two runs, none expected), decode matches
+      forward within 2e-3 (the MoE capacity raised until nothing drops),
+      and the MoE routing tables (top-k, weights, slot_token, token_slots,
+      token_weights) on the card equal the host's bit for bit from the same
+      scores with experts that overflow; the bf16 kernel route is within
+      1.5x the oracle route's distance from those float32 logits (a MoE
+      model's bf16 routes on the float32 run's experts).  Then the bf16
+      prefill at the model's traffic: one flash_attention launch per layer
+      (MLA on the dh-192 instance), the last launch's first query heads
+      against the plain version (FLASH_CHECK_HEADS, bf16 bounds), finite
+      logits, first-call seconds, ms, peak memory, the bound from
+      ``roofline.analytic_cost`` and a torch.profiler breakdown (device
+      time by kind, launches, idle share); and ``generate`` through an
+      InferenceService: no flash_attention launch, one silu_pwl4 launch a
+      step per gated MLP or expert stack at the pwl4 gate, deepseek-v3's
+      latent cache int8 there.  Grep ``4I`` for the lines.
    In A, B and D, labels equal the plain versions' on the card (in D, each
    member's own predict); in A and B the rows where ``ref`` and ``cuda``
    differ are printed as information.
@@ -192,7 +220,10 @@ Phases, each of which raises on failure:
    shape (BH 56, S 2048, dh 64, bf16 causal), with K/V of 8 rows (G 7, as
    path E launches it) and of 56, beside its plain version, its bound and
    ``scaled_dot_product_attention`` (the library yardstick, with
-   ``enable_gqa`` for the grouped form), the
+   ``enable_gqa`` for the grouped form), and its dh-192 instance at path
+   I's MLA shape (BH 256, S 8192, v padded from 128; its first heads held
+   to the plain version) beside the MLA function's bound and that library
+   call (kept as ``dh192_*`` in the record), the
    prefill forward and the kernel's share of it, decode ms/token at both
    served targets; each recorded kernel's device time from a
    torch.profiler trace besides (below ~0.04 ms the CUDA-event loop
@@ -285,6 +316,9 @@ FLASH_HEADS = ((1, 1), (56, 1), (56, 7))
 # over rows of (max |error| in the row) / (max |value| in the row); see
 # PERF.md (Findings) for the readings that set the row bound
 FLASH_BF16_ATOL, FLASH_BF16_ROW_RTOL = 3e-2, 4e-2
+# query heads of a large flash_attention launch held against the plain
+# version (its float32 scores: 2 GiB at S 8192)
+FLASH_CHECK_HEADS = 8
 # float16 flash_attention runs the float32 instance and rounds its output
 # once to float16: one float16 ulp of an output below 8 in magnitude
 FLASH_FP16_ATOL = 2.0 ** -8
@@ -2635,6 +2669,504 @@ def main_path_train(torch, K):
 
 
 # --------------------------------------------------------------------------
+# phase 4I: the rest of the attention family (MoE, MLA with MoE, the vision
+# and audio front ends) at published widths
+# --------------------------------------------------------------------------
+# (arch, layers kept or None for the full depth, prefill (batch, tokens),
+# image embeddings prepended per row, decode (batch, tokens) or None)
+FAMILY_RUNS = (
+    # 3 dense layers (d_ff 18432) and one MoE layer; S 8192 crosses the
+    # config's moe_prefill_chunk (4096) in two chunks of 2 x 4096 tokens
+    ("deepseek-v3-671b", 4, (2, 8192), 0, (4, 32)),
+    ("grok-1-314b", 2, (4, 2048), 0, (4, 32)),
+    # anyres: 5 tiles x 576 = 2880 patch embeddings before 1216 tokens
+    ("llava-next-mistral-7b", None, (2, 1216), 2880, (4, 32)),
+    # 30 s of audio at HuBERT's 20 ms frames; encoder-only: no decode
+    ("hubert-xlarge", None, (4, 1500), 0, None),
+)
+# the float32 checks: one row of this many positions (llava: a quarter of
+# them image embeddings)
+FAMILY_CHECK_SEQ = 1024
+FAMILY_QUANT = "deepseek-v3-671b"  # served at fxp8/qnm/int8-KV/pwl4 too
+
+
+def _family_cfg(K, arch, n_layers):
+    cfg = K.configs.get_config(arch)
+    return cfg if n_layers is None else dataclasses.replace(cfg,
+                                                            n_layers=n_layers)
+
+
+def _no_drop(cfg):
+    """``cfg`` with the MoE capacity factor raised until nothing drops
+    (capacity = tokens: E / k), as the reference's ``reduced()`` does for
+    decode == prefill; a dense config as it is."""
+    if cfg.moe is None:
+        return cfg
+    mo = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        mo, capacity_factor=mo.n_experts / mo.top_k))
+
+
+def _family_batch(torch, cfg, b, s, n_img, seed):
+    """A prefill batch of ``b`` rows: audio frame embeddings (s of them),
+    or tokens with ``n_img`` image embeddings before them."""
+    rng = np.random.RandomState(seed)
+    if cfg.modality == "audio":
+        return {"embeds": torch.from_numpy(rng.randn(b, s, cfg.d_model)
+                                           .astype(np.float32)).cuda()}
+    out = {"tokens": _lm_tokens(torch, cfg, (b, s), seed)}
+    if n_img:
+        out["image_embeds"] = torch.from_numpy(
+            rng.randn(b, n_img, cfg.d_model).astype(np.float32)).cuda()
+    return out
+
+
+@contextlib.contextmanager
+def record_routing(K):
+    """Every ``moe.route`` call's (float32 input, experts) in order: which
+    experts each token picked, in each MoE layer (and prefill chunk)."""
+    moe, route = K.moe, K.moe.route
+    calls = []
+
+    def spy(p, x32, cfg):
+        w, e = route(p, x32, cfg)
+        calls.append((x32, e))
+        return w, e
+
+    moe.route = spy
+    try:
+        yield calls
+    finally:
+        moe.route = route
+
+
+@contextlib.contextmanager
+def pinned_routing(K, experts):
+    """Every ``moe.route`` call, in order, selects the experts of the
+    matching call of ``experts`` (a float32 run's), weighted by this run's
+    own scores as ``moe.select`` weights its picks: a bf16 run dispatches
+    the same tokens to the same experts as the float32 one, so the two
+    differ by rounding only, at every position."""
+    moe, route = K.moe, K.moe.route
+    calls = iter(experts)
+
+    def pinned(p, x32, cfg):
+        e = next(calls)
+        w = moe.scores(p, x32, cfg).gather(1, e)
+        total = w[:, 0]
+        for j in range(1, w.shape[1]):
+            total = total + w[:, j]
+        return w / total.clamp_min(1e-9)[:, None], e
+
+    moe.route = pinned
+    try:
+        yield
+    finally:
+        moe.route = route
+    if next(calls, None) is not None:
+        raise AssertionError("pinned routing: fewer MoE calls than the "
+                             "float32 run made")
+
+
+@contextlib.contextmanager
+def captured_flash(K):
+    """The last ``flash_attention_cuda`` launch made inside, its inputs and
+    output cut to its first query heads (``FLASH_CHECK_HEADS``, rounded to
+    whole KV groups) and kept, for the plain version to check after the run
+    at the main path's own shape and data; the launch is the path's own
+    (the wrapper counts it), none is added."""
+    ops, wrapper = K.ops, K.ops.flash_attention_cuda
+    seen = {"launches": 0}
+
+    def spy(q, k, v, causal=True):
+        out = wrapper(q, k, v, causal)
+        g = q.shape[0] // k.shape[0]
+        n_kv = max(1, FLASH_CHECK_HEADS // g)
+        seen.update(q=q[:n_kv * g].clone(), k=k[:n_kv].clone(),
+                    v=v[:n_kv].clone(), out=out[:n_kv * g].clone(),
+                    causal=causal, group=g, shape=tuple(q.shape),
+                    launches=seen["launches"] + 1)
+        return out
+
+    ops.flash_attention_cuda = spy
+    try:
+        yield seen
+    finally:
+        ops.flash_attention_cuda = wrapper
+
+
+def check_captured_flash(torch, K, seen, what):
+    """The captured launch's query heads against the plain version:
+    every output row within FLASH_BF16_ROW_RTOL of its largest value, and
+    within FLASH_BF16_ATOL x max(1, rms of v) absolute (phase 3's bound is
+    for unit-normal v; an output is a convex mix of v's rows)."""
+    q, k, v, out = (seen[n] for n in ("q", "k", "v", "out"))
+    want = K.fa.flash_attention_plain(q, k, v, seen["causal"])
+    err = float((out.float() - want.float()).abs().max())
+    rel = row_rel_err(out, want)
+    v_rms = float(v.float().square().mean().sqrt())
+    atol = FLASH_BF16_ATOL * max(1.0, v_rms)
+    del want
+    where = (f"the last of {seen['launches']} launches, (BH, S, dh) "
+             f"{seen['shape']}, G {seen['group']}, "
+             f"{'causal' if seen['causal'] else 'full'}, query heads 0.."
+             f"{q.shape[0] - 1}")
+    if (err > atol or rel > FLASH_BF16_ROW_RTOL
+            or not bool(torch.isfinite(out).all())):
+        raise AssertionError(f"{what}: flash_attention at {where} against "
+                             f"the plain version: max abs err {err} (bound "
+                             f"{atol}), row rel err {rel} (bound "
+                             f"{FLASH_BF16_ROW_RTOL})")
+    return (f"flash_attention at {where}: within {err:.3e} (max abs, bound "
+            f"{atol:.3e}, rms of v {v_rms:.3g}) and {rel:.3e} (row, bound "
+            f"{FLASH_BF16_ROW_RTOL}) of the plain version")
+
+
+def _first_flip(torch, a, b, rows, cols):
+    """Per row, the first position whose expert set differs between two
+    runs' routing (``cols`` when none): from there on a token's output, and
+    through attention every later one's, may differ by a whole expert.
+    ``a``, ``b``: the (rows * cols, k) experts of each MoE layer, tokens in
+    (row, position) order."""
+    first = torch.full((rows,), cols, dtype=torch.long, device="cuda")
+    for ea, eb in zip(a, b):
+        diff = (ea.sort(-1).values != eb.sort(-1).values).any(-1)
+        diff = diff.view(rows, -1)
+        pos = torch.arange(diff.shape[1], device="cuda").expand_as(diff)
+        first = torch.minimum(first, torch.where(
+            diff, pos, cols).min(-1).values)
+    return first
+
+
+def _masked_rel(a, b, first):
+    """max |a - b| / max |b| over each row's positions before ``first``."""
+    err = scale = 0.0
+    for r in range(a.shape[0]):
+        n = int(first[r])
+        if n:
+            err = max(err, float((a[r, :n] - b[r, :n]).abs().max()))
+            scale = max(scale, float(b[r, :n].abs().max()))
+    return err / scale if scale else float("nan")
+
+
+def _float32_checks(torch, K, cfg, params, n_img_check):
+    """At published widths in float32: the prefill through the kernel
+    against the oracle's attention (one row of FAMILY_CHECK_SEQ positions,
+    within 1e-4 before the first token whose experts differ between the
+    two), decode against forward (path E's 2e-3 over 2 x 12 steps, the MoE
+    capacity raised until nothing drops) and the MoE routing tables on the
+    card against the host's.  Returns the kernel route's logits at the
+    check batch (the float32 logits the bf16 routes are held to) and the
+    experts each of its MoE calls picked."""
+    M = K.lm_model
+    n_text = FAMILY_CHECK_SEQ - n_img_check
+    batch = _family_batch(torch, cfg, 1, n_text, n_img_check, 5)
+    before = launch_counts(K)
+    with record_routing(K) as kern_calls:
+        f32 = M.forward(params, batch, cfg)
+    with record_routing(K) as ref_calls:
+        ref = M.forward(params, batch, cfg, attn_impl="ref")
+    expect_launches(K, before, {"flash_attention": cfg.n_layers},
+                    f"{cfg.name} float32 prefill (kernel, then oracle)")
+    first = _first_flip(torch, [e for _, e in kern_calls],
+                        [e for _, e in ref_calls], 1, f32.shape[1])
+    rel = _masked_rel(f32, ref, first)
+    if not (rel <= 1e-4 and int(first.min()) >= f32.shape[1] // 4):
+        raise AssertionError(f"{cfg.name} float32 prefill: kernel route "
+                             f"{rel} from the oracle's over the first "
+                             f"{first.tolist()} positions (bound 1e-4, at "
+                             f"least a quarter of them)")
+    del ref
+    notes = [f"float32 prefill 1 x {f32.shape[1]}: kernel route within "
+             f"{rel:.3e} of the oracle's attention (bound 1e-4) over "
+             f"{int(first.min())} positions before the first routing "
+             f"difference"]
+    if cfg.moe is not None:
+        notes.append(_routing_tables(torch, K, cfg, params, kern_calls))
+    experts = [e for _, e in kern_calls]
+    del kern_calls, ref_calls
+
+    if not cfg.encoder_only:
+        cfg_nd = _no_drop(cfg)
+        tok = _lm_tokens(torch, cfg, (LM_DECODE_BATCH, LM_DECODE_STEPS), 6)
+        with record_routing(K) as fwd_calls:
+            fwd = M.forward(params, {"tokens": tok}, cfg_nd)
+        with record_routing(K) as dec_calls:
+            dec = _decode_logits(torch, M, cfg_nd, params, tok,
+                                 LM_DECODE_STEPS + 2)
+        n_moe = len(fwd_calls)
+        per_layer = [[dec_calls[s * n_moe + i][1]
+                      for s in range(LM_DECODE_STEPS)] for i in range(n_moe)]
+        first = _first_flip(torch, [e for _, e in fwd_calls],
+                            [torch.stack(p, 1).reshape(-1, p[0].shape[-1])
+                             for p in per_layer],
+                            LM_DECODE_BATCH, LM_DECODE_STEPS)
+        rel = _masked_rel(dec, fwd, first)
+        if not (rel < 2e-3 and int(first.min()) >= LM_DECODE_STEPS // 2):
+            raise AssertionError(f"{cfg.name} float32 decode against forward:"
+                                 f" rel err {rel} over the first "
+                                 f"{first.tolist()} steps (bound 2e-3)")
+        notes.append(f"float32 decode ({LM_DECODE_BATCH} x "
+                     f"{LM_DECODE_STEPS} steps{', capacity raised until '
+                     'nothing drops' if cfg.moe else ''}) within {rel:.3e} "
+                     f"of the forward (bound 2e-3) over "
+                     f"{first.tolist()} steps")
+        del fwd, dec, fwd_calls, dec_calls
+    log("  " + "; ".join(notes))
+    return f32, experts
+
+
+def _routing_tables(torch, K, cfg, params, calls):
+    """The top-k selection and dispatch of the first MoE layer on the card
+    against the host's, bit for bit, from the same float32 scores: at the
+    check prefill's tokens (the published capacity factor, and 1.0) and at
+    decode's 4; at least one expert must overflow."""
+    moe, mo = K.moe, cfg.moe
+    router = {k: v[0] for k, v in params["layers"]["moe"]["router"].items()}
+    x32 = calls[0][0]
+    overflow = []
+    for t, cf in ((x32.shape[0], None), (x32.shape[0], 1.0), (4, None)):
+        s = moe.scores({"router": router}, x32[:t], mo)
+        cap = moe.capacity(t, mo, cf)
+        card = moe.select({"router": router}, s, mo)
+        host = moe.select({"router": {k: v.cpu() for k, v in
+                                      router.items()}}, s.cpu(), mo)
+        tables_c = moe.dispatch(*card, mo.n_experts, cap)
+        tables_h = moe.dispatch(*host, mo.n_experts, cap)
+        for c, h in zip(card + tables_c, host + tables_h):
+            if not torch.equal(c.cpu(), h):
+                raise AssertionError(f"{cfg.name} routing at {t} tokens: the "
+                                     f"card's tables differ from the host's")
+        counts = torch.bincount(host[1].reshape(-1), minlength=mo.n_experts)
+        overflow.append((t, cap, int((counts > cap).sum())))
+    if not any(n for _, _, n in overflow):
+        raise AssertionError(f"{cfg.name} routing: no expert overflowed")
+    return ("routing tables (experts, weights, slot_token, token_slots, "
+            "token_weights) on the card equal the host's bit for bit at "
+            + ", ".join(f"{t} tokens (capacity {c}, {n} experts overflow)"
+                        for t, c, n in overflow))
+
+
+def _to_bf16(torch, tree):
+    """Every floating leaf but a MoE router's to bf16, in place, one leaf
+    at a time (the float32 leaf is freed as its copy is made): the weights
+    ``init_params`` would draw for the bf16 config from the same seed."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            if k != "router":
+                _to_bf16(torch, v)
+        elif v.is_floating_point():
+            tree[k] = v.to(torch.bfloat16)
+
+
+def _gated_mlps(cfg):
+    """pwl_activation launches per decode step at the pwl4 gate: one per
+    gated MLP or expert stack (silu only)."""
+    if cfg.activation != "silu":
+        return 0
+    if cfg.moe is None:
+        return cfg.n_layers
+    n_moe = cfg.n_layers - cfg.moe.first_k_dense
+    return cfg.moe.first_k_dense + n_moe * (1 + bool(cfg.moe.n_shared))
+
+
+def family_run(torch, K, arch, n_layers, prefill, n_img, decode):
+    """One model of path I (see :func:`main_path_families`)."""
+    M = K.lm_model
+    start = launch_counts(K)
+    cfg = _family_cfg(K, arch, n_layers)
+    cut = (f"depth {cfg.n_layers} of {K.configs.get_config(arch).n_layers} "
+           f"layers" if n_layers else "full depth")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = M.init_params(cfg32, torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in _leaves(params))
+    torch.cuda.synchronize()
+    log(f"phase 4I {arch}: {cut}, published widths (d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV, "
+        + (f"MLA q/k {cfg.mla.qk_nope_head_dim} + {cfg.mla.qk_rope_head_dim}"
+           f", v {cfg.mla.v_head_dim}" if cfg.mla else f"dh {cfg.head_dim}")
+        + (f", {cfg.moe.n_experts} experts top {cfg.moe.top_k} d_ff "
+           f"{cfg.moe.d_ff_expert}, {cfg.moe.first_k_dense} dense layers, "
+           f"{cfg.moe.n_shared} shared" if cfg.moe else f", d_ff {cfg.d_ff}")
+        + f", vocab {cfg.vocab_size}): {n_params} seeded float32 parameters "
+        f"in {time.perf_counter() - t0:.1f} s")
+    n_img_check = FAMILY_CHECK_SEQ // 4 if n_img else 0
+    f32_logits, f32_experts = _float32_checks(torch, K, cfg32, params,
+                                              n_img_check)
+
+    _to_bf16(torch, params)
+    torch.cuda.empty_cache()
+    check = _family_batch(torch, cfg, 1, FAMILY_CHECK_SEQ - n_img_check,
+                          n_img_check, 5)
+    # a MoE layer's top-k flips wherever bf16 rounding moves a score past a
+    # neighbour's; both bf16 routes take the float32 run's experts, so they
+    # part from it by rounding only, at all FAMILY_CHECK_SEQ positions
+    pin = ((lambda: pinned_routing(K, f32_experts)) if cfg.moe else
+           contextlib.nullcontext)
+    with pin():
+        bf16 = M.forward(params, check, cfg)
+    with pin():
+        plain = M.forward(params, check, cfg, attn_impl="ref")
+    rel_k, rel_o = _rel_err(bf16, f32_logits), _rel_err(plain, f32_logits)
+    del bf16, plain, f32_logits, f32_experts
+    if not rel_k <= 1.5 * rel_o:
+        raise AssertionError(f"{arch} bf16 prefill: kernel route {rel_k} from "
+                             f"the float32 logits, over 1.5 x the oracle "
+                             f"route's {rel_o}")
+    log(f"  bf16 prefill 1 x {FAMILY_CHECK_SEQ}"
+        + (" (both routes on the float32 run's experts)" if cfg.moe else "")
+        + f": kernel route {rel_k:.3e}, oracle route {rel_o:.3e} from the "
+        f"float32 logits (bound 1.5x the oracle's)")
+
+    b, s = prefill
+    batch = _family_batch(torch, cfg, b, s, n_img, 7)
+    s_total = s + n_img
+    torch.cuda.reset_peak_memory_stats()
+    before = launch_counts(K)
+    t0 = time.perf_counter()
+    with captured_flash(K) as seen:
+        logits = M.forward(params, batch, cfg)
+        torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    expect_launches(K, before, {"flash_attention": cfg.n_layers},
+                    f"{arch} bf16 prefill")
+    if (logits.shape != (b, s_total, cfg.vocab_size)
+            or logits.dtype != torch.float32
+            or not bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"{arch} prefill logits {logits.dtype}"
+                             f"{tuple(logits.shape)} not finite float32 of "
+                             f"the expected shape")
+    del logits
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("  bf16 prefill " + check_captured_flash(torch, K, seen,
+                                                 f"{arch} bf16 prefill"))
+    del seen
+    fwd = lambda: M.forward(params, batch, cfg)  # noqa: E731
+    ms, host_ms = cuda_ms(torch, fwd, 2)
+    prof = _kernel_profile(torch, fwd)
+    dev_ms = sum(prof["by_kind"].values())
+    shape = K.configs.ShapeSpec("i", s_total, b, "prefill")
+    one = dict(chips=1, tp=1, dp_in_pod=1, pods=1, microbatches=1)
+    cost = K.roofline.analytic_cost(cfg, shape, **one)
+    bound_ms = max(cost.flops_global / BF16_TENSOR_OPS_PER_S,
+                   cost.hbm_bytes_global / HBM_BYTES_PER_S) * 1e3
+    top = sorted(prof["device_ms"].items(), key=lambda kv: -kv[1])[:4]
+    log(f"  bf16 prefill {b} x {s_total}"
+        + (f" ({n_img} image embeddings + {s} tokens)" if n_img else "")
+        + f": {cfg.n_layers} flash_attention launches, first call "
+        f"{t_first:.2f} s; {ms:.2f} ms ({host_ms:.2f} ms host); peak memory "
+        f"{peak:.2f} GiB; bound {bound_ms:.3f} ms "
+        f"({cost.flops_global / 1e12:.2f} Tflop at the bf16 rate, "
+        f"analytic_cost); device time by kind "
+        "(torch.profiler): " + ", ".join(
+            f"{k} {v:.2f} ms ({v / dev_ms:.1%})"
+            for k, v in prof["by_kind"].items())
+        + f"; {prof['launches']} launches, idle "
+        f"{max(0.0, 1 - dev_ms / ms):.1%} of the {ms:.2f} ms (the profiled "
+        f"call's wall {prof['wall_ms']:.2f} ms); top kernels "
+        + "; ".join(f"{n[:60]} {v:.2f} ms" for n, v in top))
+    del batch, fwd
+
+    record = dict(prefill_ms=ms, device_ms=dev_ms, bound_ms=bound_ms,
+                  peak_gib=peak, launches=prof["launches"],
+                  flash_device_ms=prof["by_kind"]["flash_attention"])
+    if decode is not None:
+        record["decode"] = family_decode(torch, K, cfg, params, decode,
+                                         arch == FAMILY_QUANT)
+    record["flash_launches"] = (launch_counts(K)["flash_attention"]
+                                - start["flash_attention"])
+    del params
+    torch.cuda.empty_cache()
+    return record
+
+
+def family_decode(torch, K, cfg, params, decode, quantized):
+    """``generate`` through an InferenceService at flt (and, when asked,
+    fxp8/qnm/int8-KV/pwl4): no flash_attention launch, one silu_pwl4 per
+    gated MLP or expert stack a step, tokens in the vocabulary."""
+    b, n = decode
+    targets = {"flt": K.tc.Target(number_format="flt")}
+    if quantized:
+        targets["fxp8_qnm_kv8_pwl4"] = K.tc.Target(
+            number_format="fxp8", weight_scale="qnm", kv_cache="int8",
+            sigmoid="pwl4")
+    start = np.random.RandomState(2).randint(1, cfg.vocab_size,
+                                             (b,)).astype(np.int32)
+    out = {}
+    svc = K.serve.InferenceService()
+    try:
+        for name, target in targets.items():
+            t0 = time.perf_counter()
+            art = svc.register(name, K.tc.LMModel(cfg, params),
+                               target).artifact
+            t_reg = time.perf_counter() - t0
+            acfg = art.extras["cfg"]
+            svc.generate(name, start, 2)  # warm-up: allocations
+            per_step = _gated_mlps(acfg) if acfg.gate_sigmoid == "pwl4" else 0
+            before = launch_counts(K)
+            t0 = time.perf_counter()
+            seqs = svc.generate(name, start, n)
+            ms_tok = (time.perf_counter() - t0) * 1e3 / n
+            expect_launches(K, before, {"pwl_activation": per_step * n}
+                            if per_step else {}, f"{cfg.name} generate at "
+                            f"{name}")
+            if (seqs.shape != (b, n + 1) or seqs.min() < 0
+                    or seqs.max() >= cfg.vocab_size
+                    or not np.array_equal(seqs[:, 0], start)):
+                raise AssertionError(f"{cfg.name} generate at {name}: "
+                                     f"{seqs.dtype}{seqs.shape}")
+            cache = art.extras["init_cache"](1, 2)
+            layout = {k: (str(v.dtype).replace("torch.", ""),
+                          tuple(v.shape[-1:]))
+                      for k, v in cache["layers"].items()}
+            if quantized and name != "flt" and cfg.mla is not None and (
+                    layout.get("c_kv_q", ("",))[0] != "int8"):
+                raise AssertionError(f"{cfg.name} at {name}: the latent "
+                                     f"cache is {layout}, not int8")
+            out[name] = ms_tok
+            log(f"  decode {name}: registered in {t_reg:.1f} s; generate "
+                f"batch {b} x {n} tokens: {ms_tok:.2f} ms/token, no "
+                f"flash_attention launch, {per_step} pwl_activation "
+                f"(silu_pwl4) a step; cache {layout}; weights "
+                f"{art.memory_report()['flash']} bytes "
+                f"({art.extras['quantized_bytes']} quantized); sample "
+                f"{seqs[0, :8].tolist()}")
+            del art
+    finally:
+        svc.close()
+    return out
+
+
+def main_path_families(torch, K):
+    """Main path I: the rest of the attention family at published widths,
+    one model at a time (each freed before the next), seeded weights: the
+    depth cuts and traffic of FAMILY_RUNS.  For each model: float32 checks
+    at one row of FAMILY_CHECK_SEQ positions (the kernel route against the
+    oracle's attention within 1e-4; decode against forward within 2e-3;
+    the MoE routing tables on the card equal to the host's), the bf16 routes
+    against those float32 logits (the kernel route within 1.5x the oracle
+    route's distance, path E's bound; MoE on the float32 run's experts),
+    then the bf16 prefill at the model's traffic with one flash_attention
+    launch per layer (MLA on the dh-192 instance; the last launch's first
+    heads against the plain version), profiled, and decode through an
+    InferenceService."""
+    reset_launches(K)
+    records = {}
+    for run in FAMILY_RUNS:
+        t0 = time.perf_counter()
+        records[run[0]] = family_run(torch, K, *run)
+        log(f"  {run[0]} took {time.perf_counter() - t0:.1f} s")
+    launches = launch_counts(K)
+    if launches["flash_attention"] == 0:
+        raise AssertionError("main path I never launched flash_attention")
+    log(f"  kernel launches on path I: {launches}")
+    return launches, records
+
+
+# --------------------------------------------------------------------------
 # phase 5: timing
 # --------------------------------------------------------------------------
 def cuda_ms(torch, fn, iters):
@@ -3281,6 +3813,75 @@ def time_lm(torch, K, T, lm):
             f"{st['flash_bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms")
 
 
+def time_flash_mla(torch, K, T, launches_mla):
+    """The kernel's dh-192 instance at path I's deepseek-v3 prefill shape —
+    128 heads x batch 2, 8192 tokens, q/k 128 + 64 dims, v 128 zero-padded
+    to 192 (MLA's padding), bf16, causal, ungrouped — checked on its first
+    FLASH_CHECK_HEADS heads against the plain version (FLASH_BF16_ATOL and
+    the row bound; the padded output columns exactly 0), beside its bound
+    and scaled_dot_product_attention on the same tensors (a yardstick the
+    port never calls), kept in flash_attention's record as ``dh192_*``.
+    The bound is the MLA function's: q.k over 192 dims and p.v over 128 a
+    pair, v and the output 128 wide (the padded columns are zeros the
+    layer never needs); the padded dh-192 problem's is printed beside."""
+    fa = K.fa
+    b, h, s, dh, dv = 2, 128, 8192, 192, 128
+    bh = b * h
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v = (torch.randn(bh, s, dh, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    v[..., dv:] = 0
+    pairs = s * (s + 1) // 2
+    flops = 2 * bh * pairs * (dh + dv)
+    nbytes = bh * s * (dh + dh + dv + dv) * q.element_size()
+    out = fa.flash_attention_cuda(q, k, v, True)
+    n = FLASH_CHECK_HEADS
+    want = fa.flash_attention_plain(q[:n], k[:n], v[:n], True)
+    err = float((out[:n].float() - want.float()).abs().max())
+    rel = row_rel_err(out[:n], want)
+    pad_nonzero = int((out[..., dv:] != 0).sum())
+    del want
+    if (err > FLASH_BF16_ATOL or rel > FLASH_BF16_ROW_RTOL or pad_nonzero
+            or not bool(torch.isfinite(out).all())):
+        raise AssertionError(f"flash_attention dh 192 at (BH {bh}, S {s}): "
+                             f"heads 0..{n - 1} max abs err {err} (bound "
+                             f"{FLASH_BF16_ATOL}), row rel err {rel} (bound "
+                             f"{FLASH_BF16_ROW_RTOL}) against the plain "
+                             f"version; {pad_nonzero} nonzero padded outputs")
+    ms, host_ms = cuda_ms(torch, lambda: fa.flash_attention_cuda(q, k, v,
+                                                                 True), 5)
+    bound_ms, bound_by = T.dev.bound(nbytes, flops, BF16_TENSOR_OPS_PER_S)
+    pad_bound_ms, pad_by = T.dev.bound(_nbytes(q, k, v, out),
+                                       4 * bh * pairs * dh,
+                                       BF16_TENSOR_OPS_PER_S)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4 = (t.view(b, h, s, dh) for t in (q, k, v))
+    lib_ms, _ = cuda_ms(torch, lambda: sdpa(q4, k4, v4, is_causal=True), 5)
+    lib_err = float((sdpa(q4, k4, v4, is_causal=True).reshape(bh, s, dh)
+                     .float() - out.float()).abs().max())
+    rec = T.records["flash_attention"]
+    rec.update(instances=list(fa.HEAD_DIMS), dh192_ms=ms,
+               dh192_bound_ms=bound_ms, dh192_bound_by=bound_by,
+               dh192_padded_bound_ms=pad_bound_ms,
+               dh192_max_abs_err=err, dh192_row_rel_err=rel,
+               dh192_library_ms=lib_ms, dh192_launches=launches_mla,
+               dh192_shape=f"(BH {bh} = batch {b} x {h} heads, S {s}, dh "
+                           f"{dh}, v padded from {dv}) bf16 causal: one MLA "
+                           f"layer of path I's deepseek-v3 prefill")
+    log(f"  flash_attention dh 192 at {rec['dh192_shape']}: heads 0..{n - 1}"
+        f" within {err:.3e} (max abs, bound {FLASH_BF16_ATOL}) and "
+        f"{rel:.3e} (row, bound {FLASH_BF16_ROW_RTOL}) of the plain version,"
+        f" padded columns 0; {ms:.3f} ms ({host_ms:.3f} ms host), "
+        f"{flops / ms / 1e9:.1f} Tflop/s of the MLA function's "
+        f"{flops / 1e12:.3f} Tflop; bound {bound_ms:.3f} ms ({bound_by}: "
+        f"q.k 192 + p.v {dv} dims a pair, {nbytes} bytes; the padded dh-192 "
+        f"problem's {pad_bound_ms:.3f} ms, {pad_by}); "
+        f"scaled_dot_product_attention {lib_ms:.3f} ms (max abs diff "
+        f"{lib_err:.3e}; kernel / library {ms / lib_ms:.2f}x); "
+        f"{launches_mla} launches on path I (deepseek-v3)")
+    del q, k, v, out, q4, k4, v4
+
+
 def time_lm_gate(torch, K, T, lm):
     """Path E's pwl4 SiLU gate: the kernel (silu_pwl4) at the decode (4,
     4864) and bf16 prefill (4 x 2048, 4864) shapes beside its plain version,
@@ -3423,11 +4024,12 @@ def flt_pwl_predict(torch, K, x_big):
 
 
 def timing(torch, K, dev, d6, d5, check, arts_a, arts_b, arts_d, tree_model,
-           launches, lm):
+           launches, lm, families):
     x_big = np.resize(d6.x_test, (max(TIMED_BATCHES), d6.x_test.shape[1]))
     n_test = len(d6.x_test)
     T = Timer(torch, dev, check, launches)
     time_lm(torch, K, T, lm)
+    time_flash_mla(torch, K, T, families[FAMILY_QUANT]["flash_launches"])
     time_lm_gate(torch, K, T, lm)
     time_mlp(torch, K, T, arts_a, x_big, n_test)
     time_tree_svm(torch, K, T, arts_b, tree_model, x_big, n_test)
@@ -3499,6 +4101,7 @@ def namespace():
     from repro_torch.core import activations as acts
     from repro_torch.lm import layers as lm_layers
     from repro_torch.lm import model as lm_model
+    from repro_torch.lm import moe
     from repro_torch.models.svm import _pick_prototypes
     from repro_torch import roofline
     from repro_torch.kernels import ops
@@ -3509,7 +4112,7 @@ def namespace():
         tc=tc, models=models, common=common, fxp=fxp, trees=trees,
         layer=fxp_layer, model=fxp_model, qm=fxp_qmatmul, te=tree_ensemble,
         pwl=pwl_activation, serve=serve, pick_prototypes=_pick_prototypes,
-        fa=flash_attention, lm_model=lm_model, lm_layers=lm_layers,
+        fa=flash_attention, lm_model=lm_model, lm_layers=lm_layers, moe=moe,
         acts=acts, emit=emit, ckpt=ckpt, optim=optim, trainer=trainer,
         roofline=roofline, ops=ops, configs=configs, tune=tune,
         kref=kernels_ref,
@@ -3573,14 +4176,17 @@ def main() -> int:
     launches_e, lm = main_path_lm(torch, K)
     launches_g = main_path_pipeline(torch, K, d6, tree_model)
     launches_h, _ = main_path_train(torch, K)
+    t0 = time.perf_counter()
+    launches_i, families = main_path_families(torch, K)
+    log(f"  phase 4I took {time.perf_counter() - t0:.1f} s")
     by_path = {"A": launches_a, "B": launches_b, "C": launches_c,
                "D": launches_d, "E": launches_e, "G": launches_g,
-               "H": launches_h}
+               "H": launches_h, "I": launches_i}
     launches = {n: (sum(p[n] for p in by_path.values()),
                     {k: p[n] for k, p in by_path.items()})
                 for n in KernelCheck.NAMES}
     kernels = timing(torch, K, dev, d6, d5, check, arts_a, arts_b, arts_d,
-                     tree_model, launches, lm)
+                     tree_model, launches, lm, families)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(dev.smi_line)

@@ -76,9 +76,13 @@ def lm_params_from_numpy(tree: Dict[str, Any], device: Any,
     """The port's LM parameter tree from the reference's, leaf for leaf:
     nested dicts of numpy arrays (``np.asarray`` of each JAX leaf) become
     the same dicts of tensors on ``device``, bit for bit (bfloat16
-    included), floating leaves cast to ``dtype`` when one is given."""
+    included), floating leaves cast to ``dtype`` when one is given — but
+    a MoE router's (``router/w`` and its ``bias``), which stay float32:
+    the reference keeps and computes the router in float32 whatever the
+    model's dtype."""
     if isinstance(tree, dict):
-        return {k: lm_params_from_numpy(v, device, dtype)
+        return {k: lm_params_from_numpy(v, device,
+                                        None if k == "router" else dtype)
                 for k, v in tree.items()}
     t = _tensor_from_numpy(tree).to(device)
     return t if dtype is None or not t.is_floating_point() else t.to(dtype)

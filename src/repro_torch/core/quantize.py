@@ -63,7 +63,11 @@ def quantize_linear(w: torch.Tensor, spec: QuantSpec) -> Dict[str, torch.Tensor]
             tuple(w32.shape[:-2]) + (1, w32.shape[-1]))
     else:
         raise KeyError(f"unknown quant mode {spec.mode}")
-    q = torch.clamp(torch.round(w32 / scale), -spec.qmax - 1, spec.qmax)
+    # rounded and clamped in place, w32 dropped first: a stacked expert
+    # tensor (deepseek-v3's is 15 GB in float32) is held at most twice
+    q = w32 / scale
+    del w32
+    q = q.round_().clamp_(-spec.qmax - 1, spec.qmax)
     return {"w_q": q.to(spec.dtype),
             "scale": scale.to(torch.float32).contiguous()}
 

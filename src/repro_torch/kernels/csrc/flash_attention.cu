@@ -562,7 +562,9 @@ int launch_dtype(const void* q, const void* k, const void* v, void* o, int bh,
 // q, o: contiguous (bh, s, dh) tensors; k, v: contiguous (bh / group, s, dh)
 // tensors, all of one type and 16-byte aligned, o not overlapping the
 // inputs.  Query row r reads key/value row r / group.  dtype: 0 float32,
-// 1 bfloat16.  dh: 32, 64 or 128.  scale: float32(1/sqrt(dh)).  causal: 0
+// 1 bfloat16.  dh: 32, 64, 128 or 192 (MLA's 128 + 64 rotary dims; the
+// 192 instance holds 96 float32 accumulators a thread in bf16 and 161.5 KB
+// of shared memory in float32).  scale: float32(1/sqrt(dh)).  causal: 0
 // or 1.  Launches on the calling thread's current device.  Returns the CUDA
 // error code of the launch (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -582,6 +584,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                               group, st);
     case 128:
       return launch_dtype<128>(q, k, v, o, bh, s, dtype, scale, causal,
+                               group, st);
+    case 192:
+      return launch_dtype<192>(q, k, v, o, bh, s, dtype, scale, causal,
                                group, st);
     default:
       return (int)cudaErrorInvalidValue;

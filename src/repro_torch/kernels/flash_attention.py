@@ -17,11 +17,12 @@ signature, equal-shape q, k, v.  Two versions of the same function:
   m16n8k16, Q fragments in registers, a two-stage ``cp.async`` ring of
   swizzled bf16 K/V tiles, P kept in registers); in float32 the products
   stay on the CUDA cores (TF32 would not hold the float32 tolerance).  Its
-  instances take dh in {32, 64, 128}: a head dim below 128 between them is
-  zero-padded to the next instance (:func:`pad_head_dim`; zeros add nothing
-  to q.k or to the output's first dh columns, and the scale stays
-  ``1/sqrt(dh)`` of the true dh), and the output is sliced back; dh above
-  128 raises.  float32 and bfloat16 run their own instances; any other
+  instances take dh in {32, 64, 128, 192} (192: MLA's 128 + 64 rotary
+  query/key dims, with v zero-padded to it by the caller): a head dim
+  between them is zero-padded to the next instance (:func:`pad_head_dim`;
+  zeros add nothing to q.k or to the output's first dh columns, and the
+  scale stays ``1/sqrt(dh)`` of the true dh), and the output is sliced
+  back; dh above 192 raises.  float32 and bfloat16 run their own instances; any other
   float dtype (float16, float64) computes on the float32 instance and is
   cast back, as the reference computes in float32.  Unlike the TPU kernel
   it takes any S (ragged edges are masked).  It counts its launches in
@@ -48,7 +49,7 @@ from .ref import flash_attention_ref
 __all__ = ["flash_attention_plain", "flash_attention_cuda", "check_shapes",
            "expand_kv", "pad_head_dim", "HEAD_DIMS", "REPLACES"]
 
-HEAD_DIMS = (32, 64, 128)  # the kernel's template instances
+HEAD_DIMS = (32, 64, 128, 192)  # the kernel's template instances
 REPLACES = "src/repro/kernels/flash_attention.py:71"  # flash_attention_pallas
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -78,8 +78,10 @@ def init_linear(generator: torch.Generator, d_in: int, d_out: int,
     device; a zero bias when asked."""
     s = scale if scale is not None else 1.0 / math.sqrt(d_in)
     dev = generator.device
+    # scaled in place: a stacked expert leaf's float32 draw is the largest
+    # buffer of a full-width init (15 GB for deepseek-v3's), held once
     w = torch.randn(tuple(lead) + (d_in, d_out), generator=generator,
-                    dtype=torch.float32, device=dev) * s
+                    dtype=torch.float32, device=dev).mul_(s)
     p = {"w": w.to(dtype)}
     if bias:
         p["b"] = torch.zeros(tuple(lead) + (d_out,), dtype=dtype, device=dev)
@@ -130,8 +132,10 @@ def activation_fn(name: str, gate_sigmoid: str = "exact",
 def gated_silu(x: torch.Tensor, gate_sigmoid: str = "exact") -> torch.Tensor:
     """``x * sigmoid(x)`` with the gate sigmoid ``gate_sigmoid``.
 
-    A ``pwl4`` gate on a CUDA tensor is one ``pwl_activation`` launch of
-    its ``silu_pwl4`` variant; on the CPU it stays op by op.  The kernel
+    A ``pwl4`` gate on a CUDA tensor of any rank is one ``pwl_activation``
+    launch of its ``silu_pwl4`` variant (an MLP's (B, S, f) activations, or
+    a MoE layer's (E, C, f) expert activations at once); on the CPU it
+    stays op by op.  The kernel
     computes in float32 and rounds once, where the op-by-op route rounds
     every step to ``x``'s dtype: in float32 the two agree bit for bit but
     for the kernel's flush of a subnormal result (which XLA applies too); in
@@ -203,7 +207,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def init_embed(generator: torch.Generator, vocab: int, d: int,
                dtype: torch.dtype) -> Dict:
     table = torch.randn((vocab, d), generator=generator, dtype=torch.float32,
-                        device=generator.device) * (1.0 / math.sqrt(d))
+                        device=generator.device).mul_(1.0 / math.sqrt(d))
     return {"table": table.to(dtype)}
 
 

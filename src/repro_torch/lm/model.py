@@ -1,19 +1,23 @@
-"""Model assembly for the dense attention family: init / forward / loss /
+"""Model assembly for the ``"attn"`` block pattern: init / forward / loss /
 decode.
 
-The PyTorch counterpart of :mod:`repro.lm.model`, dense decoder stacks only
-(``family`` dense: GQA or MHA attention, glu or standard MLP, rmsnorm or
-layernorm).  The parameter tree keeps the reference's layout — nested dicts,
-the layers stacked on a leading ``n_layers`` axis — so weights carry across
-one to one (:func:`repro_torch.convert.lm_params_from_numpy`); a Python
-loop over the stacked index takes the place of the reference's
-``lax.scan``.  MoE, MLA, mamba-hybrid, rwkv and modality configs raise
+The PyTorch counterpart of :mod:`repro.lm.model` for its attention stacks:
+dense decoders (GQA or MHA attention, glu or standard MLP, rmsnorm or
+layernorm), MoE stacks (:mod:`.moe`, after ``first_k_dense`` dense
+layers), MLA attention (:mod:`.mla`), an encoder (bidirectional, no
+decode) and the modality front ends (audio frame embeddings in place of
+tokens; vision patch embeddings through ``modality_proj``, prepended).
+The parameter tree keeps the reference's layout — nested dicts, the layers
+stacked on a leading axis — so weights carry across one to one
+(:func:`repro_torch.convert.lm_params_from_numpy`); a Python loop over the
+stacked index takes the place of the reference's ``lax.scan``.  The
+recurrent families (``mamba_hybrid``: zamba2; ``rwkv``) raise
 ``NotImplementedError`` (roadmap item A13).
 
 Public API:
   init_params(cfg, generator)            -> params tree on the generator's device
   forward(params, batch, cfg)            -> (B, S, vocab) float32 logits
-  loss_fn(params, batch, cfg)            -> scalar float32 next-token loss
+  loss_fn(params, batch, cfg)            -> scalar float32 loss
   init_cache(cfg, batch, max_len, device) -> decode cache tree
   serve_step(params, cache, batch, cfg)  -> (logits, cache)
 
@@ -21,7 +25,8 @@ Two routes run the same layer stack (:func:`_stack`):
 
 * the serving route (``forward``, ``serve_step``), under
   ``torch.inference_mode()``: on the card each layer's attention is one
-  ``flash_attention`` launch and a pwl4 gate one ``pwl_activation`` launch;
+  ``flash_attention`` launch (MLA's on the kernel's dh-192 instance) and a
+  pwl4 gate one ``pwl_activation`` launch per MLP or expert stack;
 * the training route (``loss_fn``, or ``forward(..., attn_impl="train")``):
   the reference's own branch on any device — ``blockwise_attention`` when
   ``S % attn_chunk == 0 and S > attn_chunk``, else ``full_attention`` — and
@@ -39,7 +44,7 @@ cache's buffers in place and returns the same buffers under an advanced
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -47,11 +52,13 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 
 from . import attention as attn_mod
+from . import mla as mla_mod
+from . import moe as moe_mod
 from .layers import (apply_linear, apply_mlp, apply_norm, embed_tokens,
                      init_embed, init_linear, make_norm_params, mlp_params)
 
 __all__ = ["init_params", "forward", "loss_fn", "init_cache", "serve_step",
-           "require_dense", "ATTN_IMPLS"]
+           "require_ported", "ATTN_IMPLS"]
 
 # Attention routes of the layer stack: "cuda" launches the flash_attention
 # kernel on a CUDA tensor, "ref" computes the kernel's function through its
@@ -68,23 +75,15 @@ def unported(cfg: ArchConfig, kind: str) -> NotImplementedError:
     """The error for a part of ``cfg`` that the port does not run yet."""
     return NotImplementedError(
         f"{cfg.name}: {kind} is not ported to repro_torch yet (roadmap "
-        f"item A13, the rest of the LM stack); the port runs dense "
-        f"attention stacks")
+        f"item A13, the rest of the LM stack); the port runs the attn "
+        f"block pattern")
 
 
-def require_dense(cfg: ArchConfig) -> None:
-    """Raise unless ``cfg`` is a dense attention stack the port runs."""
-    kind = None
+def require_ported(cfg: ArchConfig) -> None:
+    """Raise unless ``cfg`` runs the ``"attn"`` block pattern (dense, MoE,
+    MLA, encoder or modality front end), the one the port runs."""
     if cfg.block_pattern != "attn":
-        kind = f"the {cfg.block_pattern} block pattern"
-    elif cfg.moe is not None:
-        kind = "MoE layers"
-    elif cfg.mla is not None:
-        kind = "MLA attention"
-    elif cfg.modality is not None:
-        kind = f"the {cfg.modality} modality frontend"
-    if kind is not None:
-        raise unported(cfg, kind)
+        raise unported(cfg, f"the {cfg.block_pattern} block pattern")
 
 
 def _layer(stacked: Dict, i: int) -> Dict:
@@ -118,24 +117,53 @@ def _tokens(tokens: Any, device: torch.device) -> torch.Tensor:
 # ===========================================================================
 # Parameter construction
 # ===========================================================================
+def _layer_params(generator: torch.Generator, cfg: ArchConfig, n: int,
+                  ffn: Callable[[tuple], Dict], ffn_key: str) -> Dict:
+    """``n`` stacked layers: norms, attention (MLA or GQA) and the FFN
+    ``ffn(lead)`` under ``ffn_key`` (the reference's leaf order)."""
+    dt, dev, lead = _dtype(cfg), generator.device, (n,)
+    p = {"ln1": make_norm_params(cfg.norm, cfg.d_model, dt, dev, lead),
+         "ln2": make_norm_params(cfg.norm, cfg.d_model, dt, dev, lead)}
+    if cfg.mla is not None:
+        p["attn"] = mla_mod.mla_params(generator, cfg.d_model, cfg.n_heads,
+                                       cfg.mla, dt, lead)
+    else:
+        p["attn"] = attn_mod.attn_params(generator, cfg.d_model, cfg.n_heads,
+                                         cfg.n_kv_heads, cfg.head_dim, dt,
+                                         cfg.qkv_bias, lead)
+    p[ffn_key] = ffn(lead)
+    return p
+
+
 @torch.no_grad()
 def init_params(cfg: ArchConfig, generator: torch.Generator) -> Dict:
     """Seeded parameters (the reference's layout and init scales) on the
     generator's device: normal tensors, not inference tensors, so that
     :func:`loss_fn` can be differentiated with respect to them."""
-    require_dense(cfg)
-    dt, dev, lead = _dtype(cfg), generator.device, (cfg.n_layers,)
+    require_ported(cfg)
+    dt, dev = _dtype(cfg), generator.device
     params: Dict[str, Any] = {
         "embed": init_embed(generator, cfg.vocab_size, cfg.d_model, dt)}
-    params["layers"] = {
-        "ln1": make_norm_params(cfg.norm, cfg.d_model, dt, dev, lead),
-        "ln2": make_norm_params(cfg.norm, cfg.d_model, dt, dev, lead),
-        "attn": attn_mod.attn_params(generator, cfg.d_model, cfg.n_heads,
-                                     cfg.n_kv_heads, cfg.head_dim, dt,
-                                     cfg.qkv_bias, lead),
-        "mlp": mlp_params(generator, cfg.d_model, cfg.d_ff, cfg.mlp_type, dt,
-                          lead),
-    }
+    if cfg.modality is not None:
+        params["modality_proj"] = init_linear(generator, cfg.d_model,
+                                              cfg.d_model, dt)
+    mo = cfg.moe
+    if mo is not None:
+        if mo.first_k_dense:
+            params["dense_layers"] = _layer_params(
+                generator, cfg, mo.first_k_dense,
+                lambda lead: mlp_params(generator, cfg.d_model,
+                                        mo.d_ff_dense or cfg.d_ff,
+                                        cfg.mlp_type, dt, lead), "mlp")
+        params["layers"] = _layer_params(
+            generator, cfg, cfg.n_layers - mo.first_k_dense,
+            lambda lead: moe_mod.moe_params(generator, cfg.d_model, mo,
+                                            cfg.mlp_type, dt, lead), "moe")
+    else:
+        params["layers"] = _layer_params(
+            generator, cfg, cfg.n_layers,
+            lambda lead: mlp_params(generator, cfg.d_model, cfg.d_ff,
+                                    cfg.mlp_type, dt, lead), "mlp")
     params["final_norm"] = make_norm_params(cfg.norm, cfg.d_model, dt, dev)
     if not cfg.tie_embeddings:
         params["head"] = init_linear(generator, cfg.d_model, cfg.vocab_size,
@@ -148,6 +176,10 @@ def init_params(cfg: ArchConfig, generator: torch.Generator) -> Dict:
 # ===========================================================================
 def _block_attn(cfg: ArchConfig, p: Dict, x: torch.Tensor,
                 attn_impl: str) -> torch.Tensor:
+    if cfg.mla is not None:
+        return mla_mod.mla_attention(p["attn"], x, n_heads=cfg.n_heads,
+                                     m=cfg.mla, rope_theta=cfg.rope_theta,
+                                     chunk=cfg.attn_chunk, impl=attn_impl)
     return attn_mod.attention(p["attn"], x, n_heads=cfg.n_heads,
                               n_kv_heads=cfg.n_kv_heads,
                               head_dim=cfg.head_dim,
@@ -166,6 +198,46 @@ def _dense_block(cfg: ArchConfig, p: Dict, x: torch.Tensor,
     return x
 
 
+def _moe_ffn(cfg: ArchConfig, p: Dict, x: torch.Tensor,
+             fused: bool) -> torch.Tensor:
+    """The MoE FFN, over sequence chunks of ``moe_prefill_chunk`` tokens
+    when ``S > chunk`` and the chunk divides S (the reference's scan; the
+    capacity is then applied per chunk of B x chunk tokens)."""
+    ck = cfg.moe_prefill_chunk
+    b, s, d = x.shape
+
+    def moe(xc):
+        return moe_mod.apply_moe(p, xc, cfg.moe, cfg.mlp_type, cfg.activation,
+                                 gate_sigmoid=cfg.gate_sigmoid, fused=fused)
+
+    if ck and s > ck and s % ck == 0:
+        return torch.cat([moe(x[:, i:i + ck]) for i in range(0, s, ck)], 1)
+    return moe(x)
+
+
+def _moe_block(cfg: ArchConfig, p: Dict, x: torch.Tensor,
+               attn_impl: str) -> torch.Tensor:
+    x = x + _block_attn(cfg, p, apply_norm(cfg.norm, p["ln1"], x), attn_impl)
+    x = x + _moe_ffn(cfg, p["moe"], apply_norm(cfg.norm, p["ln2"], x),
+                     fused=attn_impl != "train")
+    return x
+
+
+def _embed_inputs(cfg: ArchConfig, params: Dict,
+                  batch: Dict) -> torch.Tensor:
+    """The stack's input: audio frame embeddings in the model dtype, or
+    the tokens' embeddings with the vision patches (through
+    ``modality_proj``) prepended."""
+    table = params["embed"]["table"]
+    if cfg.modality == "audio":
+        return _tokens(batch["embeds"], table.device).to(_dtype(cfg))
+    x = embed_tokens(params["embed"], _tokens(batch["tokens"], table.device))
+    if cfg.modality == "vision" and "image_embeds" in batch:
+        img = _tokens(batch["image_embeds"], table.device).to(x.dtype)
+        x = torch.cat([apply_linear(params["modality_proj"], img), x], 1)
+    return x
+
+
 def _logits(cfg: ArchConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
     x = apply_norm(cfg.norm, params["final_norm"], x)
     if cfg.tie_embeddings:
@@ -174,23 +246,34 @@ def _logits(cfg: ArchConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
     return apply_linear(params["head"], x).to(torch.float32)
 
 
+def _stacks(cfg: ArchConfig, dense: Callable, moe: Callable) -> List:
+    """(params key, block) of each layer stack in order: a MoE config's
+    leading dense layers (absent when ``first_k_dense`` is 0), then its MoE
+    layers; a dense config's layers."""
+    if cfg.moe is None:
+        return [("layers", dense)]
+    return [("dense_layers", dense), ("layers", moe)]
+
+
 def _stack(params: Dict, batch: Dict, cfg: ArchConfig,
            attn_impl: str) -> torch.Tensor:
-    """Embedding, the layers and the head -> float32 logits (B, S, vocab):
-    the one layer stack of both routes."""
+    """The inputs' embedding, the layers and the head -> float32 logits
+    (B, S, vocab): the one layer stack of both routes."""
     if attn_impl not in ATTN_IMPLS:
         raise KeyError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                        f"{attn_impl!r}")
-    require_dense(cfg)
-    table = params["embed"]["table"]
-    x = embed_tokens(params["embed"], _tokens(batch["tokens"], table.device))
+    require_ported(cfg)
+    x = _embed_inputs(cfg, params, batch)
     remat = attn_impl == "train" and cfg.remat and torch.is_grad_enabled()
-    for p in _unbind_layers(params["layers"]):
-        if remat:
-            x = checkpoint(_dense_block, cfg, p, x, attn_impl,
-                           use_reentrant=False)
-        else:
-            x = _dense_block(cfg, p, x, attn_impl)
+    for key, block in _stacks(cfg, _dense_block, _moe_block):
+        if key not in params:
+            continue
+        for p in _unbind_layers(params[key]):
+            if remat:
+                x = checkpoint(block, cfg, p, x, attn_impl,
+                               use_reentrant=False)
+            else:
+                x = block(cfg, p, x, attn_impl)
     return _logits(cfg, params, x)
 
 
@@ -221,12 +304,12 @@ def _cross_entropy(logits: torch.Tensor,
 
 def loss_fn(params: Dict, batch: Dict, cfg: ArchConfig) -> torch.Tensor:
     """Mean next-token cross-entropy over ``batch["tokens"]`` (the target
-    shifted by one; an encoder's ``batch["labels"]`` unshifted), through
-    the training route: differentiable on any device, no kernel launched.
-    """
+    shifted by one, past a vision prefix), or over an encoder's or the
+    audio stream's ``batch["labels"]`` unshifted, through the training
+    route: differentiable on any device, no kernel launched."""
     logits = _stack(params, batch, cfg, "train")
     dev = logits.device
-    if cfg.encoder_only:
+    if cfg.encoder_only or cfg.modality == "audio":
         return _cross_entropy(logits, _tokens(batch["labels"], dev))
     tokens = _tokens(batch["tokens"], dev)
     n_prefix = logits.shape[1] - tokens.shape[1]
@@ -240,16 +323,35 @@ def loss_fn(params: Dict, batch: Dict, cfg: ArchConfig) -> torch.Tensor:
 @torch.inference_mode()
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device: Any) -> Dict:
-    require_dense(cfg)
+    """The decode cache: ``pos`` and, per stack (``dense_layers`` first
+    when a MoE config has them, then ``layers``), an MLA latent cache or a
+    GQA KV cache stacked over its layers."""
+    require_ported(cfg)
     device = torch.device(device)
-    return {"pos": torch.zeros((), dtype=torch.int32, device=device),
-            "layers": attn_mod.init_kv_cache(
-                batch, max_len, cfg.n_kv_heads, cfg.head_dim, _dtype(cfg),
-                device, quantized=cfg.kv_cache_dtype == "int8",
-                lead=(cfg.n_layers,))}
+    dt, kv_q = _dtype(cfg), cfg.kv_cache_dtype == "int8"
+
+    def mk(n):
+        if cfg.mla is not None:
+            return mla_mod.init_mla_cache(batch, max_len, cfg.mla, dt, device,
+                                          quantized=kv_q, lead=(n,))
+        return attn_mod.init_kv_cache(batch, max_len, cfg.n_kv_heads,
+                                      cfg.head_dim, dt, device,
+                                      quantized=kv_q, lead=(n,))
+
+    cache: Dict[str, Any] = {"pos": torch.zeros((), dtype=torch.int32,
+                                                device=device)}
+    n_dense = cfg.moe.first_k_dense if cfg.moe is not None else 0
+    if n_dense:
+        cache["dense_layers"] = mk(n_dense)
+    cache["layers"] = mk(cfg.n_layers - n_dense)
+    return cache
 
 
 def _decode_attn(cfg: ArchConfig, p: Dict, x, layer_cache, pos):
+    if cfg.mla is not None:
+        return mla_mod.mla_decode(p["attn"], x, layer_cache, pos,
+                                  n_heads=cfg.n_heads, m=cfg.mla,
+                                  rope_theta=cfg.rope_theta)
     return attn_mod.decode_attention(p["attn"], x, layer_cache, pos,
                                      n_heads=cfg.n_heads,
                                      n_kv_heads=cfg.n_kv_heads,
@@ -267,24 +369,36 @@ def _decode_dense_block(cfg, p, x, layer_cache, pos):
     return x, new_cache
 
 
+def _decode_moe_block(cfg, p, x, layer_cache, pos):
+    att, new_cache = _decode_attn(cfg, p, apply_norm(cfg.norm, p["ln1"], x),
+                                  layer_cache, pos)
+    x = x + att
+    x = x + moe_mod.apply_moe(p["moe"], apply_norm(cfg.norm, p["ln2"], x),
+                              cfg.moe, cfg.mlp_type, cfg.activation,
+                              gate_sigmoid=cfg.gate_sigmoid)
+    return x, new_cache
+
+
 @torch.inference_mode()
 def serve_step(params: Dict, cache: Dict, batch: Dict,
                cfg: ArchConfig) -> Tuple[torch.Tensor, Dict]:
     """One decode step: new tokens (B,) -> logits (B, vocab), cache.  The
     cache's buffers are written in place (a windowed layer's shifted buffer
     is copied back into its slot of the stack)."""
-    require_dense(cfg)
+    require_ported(cfg)
     pos = cache["pos"]
     tok = _tokens(batch["token"], pos.device)
     x = embed_tokens(params["embed"], tok[:, None])  # (B, 1, d)
-    stacked = cache["layers"]
-    layers = params["layers"]
-    for i in range(_n_layers(layers)):
-        layer_cache = {k: c[i] for k, c in stacked.items()}
-        x, new_cache = _decode_dense_block(cfg, _layer(layers, i), x,
-                                           layer_cache, pos)
-        for k, c in new_cache.items():
-            if c is not layer_cache[k]:
-                stacked[k][i].copy_(c)
-    logits = _logits(cfg, params, x[:, 0])
-    return logits, {"pos": pos + 1, "layers": stacked}
+    new: Dict[str, Any] = {"pos": pos + 1}
+    for key, block in _stacks(cfg, _decode_dense_block, _decode_moe_block):
+        if key not in params:
+            continue
+        stacked, layers = cache[key], params[key]
+        for i in range(_n_layers(layers)):
+            layer_cache = {k: c[i] for k, c in stacked.items()}
+            x, new_cache = block(cfg, _layer(layers, i), x, layer_cache, pos)
+            for k, c in new_cache.items():
+                if c is not layer_cache[k]:
+                    stacked[k][i].copy_(c)
+        new[key] = stacked
+    return _logits(cfg, params, x[:, 0]), new

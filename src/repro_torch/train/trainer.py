@@ -82,12 +82,47 @@ def make_optimizer(cfg: TrainConfig) -> Optimizer:
 def loss_and_grads(params: Dict, batch: Dict, arch: ArchConfig):
     """(loss, grads) of :func:`repro_torch.lm.model.loss_fn` at
     ``params``, the counterpart of ``jax.value_and_grad(loss_fn)``: the
-    gradients come in the parameters' dtypes and structure."""
+    gradients come in the parameters' dtypes and structure.  The leaves
+    of :func:`_not_differentiated` get zeros, as JAX gives them; any other
+    leaf that does not reach the loss raises."""
     live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    leaves = tree_leaves(live)
     with torch.enable_grad():
         loss = model_lib.loss_fn(live, batch, arch)
-        grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
+        raw = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = []
+    for path, leaf, g in zip(_leaf_paths(live), leaves, raw):
+        if g is None:
+            if not _not_differentiated(path, arch):
+                raise RuntimeError(f"parameter {'/'.join(map(str, path))} "
+                                   f"does not reach the loss")
+            g = torch.zeros_like(leaf)
+        grads.append(g)
+    grads = iter(grads)
     return loss.detach(), tree_map(lambda _: next(grads), live)
+
+
+def _not_differentiated(path: tuple, arch: ArchConfig) -> bool:
+    """Whether the loss reads the leaf at ``path`` only where no gradient
+    flows: a MoE router's aux-free ``bias`` moves the top-k selection only,
+    and an audio encoder takes frame embeddings in place of its token table
+    (read by an untied head never) and ``modality_proj`` (vision's)."""
+    if path[-2:] == ("router", "bias"):
+        return True
+    return arch.modality == "audio" and (
+        path[0] == "modality_proj"
+        or (path == ("embed", "table") and not arch.tie_embeddings))
+
+
+def _leaf_paths(tree: Any, prefix: tuple = ()) -> list:
+    """The key path of each leaf, in :func:`tree_leaves` order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in _leaf_paths(v, prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in _leaf_paths(v, prefix + (i,))]
+    return [prefix]
 
 
 def make_train_step(arch: ArchConfig, tcfg: TrainConfig,
@@ -133,20 +168,35 @@ def synthetic_token_stream(arch: ArchConfig, batch: int, seq: int,
                            ) -> Iterator[Dict[str, torch.Tensor]]:
     """Markov-ish synthetic corpus, deterministic per (seed, step) so a
     restart at step k replays exactly the same batch k; the reference's
-    tokens, bit for bit, as int32 tensors on ``device``."""
-    if arch.modality is not None:
-        raise model_lib.unported(arch, f"the {arch.modality} modality "
-                                       f"frontend")
+    batches, bit for bit, as tensors on ``device``: int32 ``tokens``; for
+    the audio front end float32 frame ``embeds`` and int32 ``labels``; for
+    the vision one the text ``tokens`` after ``n_prefix_embeds`` float32
+    ``image_embeds`` (drawn from the same ``RandomState`` calls in the same
+    order)."""
+    model_lib.require_ported(arch)
     vocab = arch.vocab_size
     step = start_step
+
+    def put(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(device)
+
     while True:
         rng = np.random.RandomState((seed * 1_000_003 + step) % (2 ** 31))
         base = rng.randint(0, vocab, size=(batch, seq), dtype=np.int64)
         # inject local structure so the loss can fall: repeat previous token
         rep = rng.rand(batch, seq) < 0.35
         base[:, 1:] = np.where(rep[:, 1:], base[:, :-1], base[:, 1:])
-        tokens = torch.from_numpy((base % vocab).astype(np.int32))
-        yield {"tokens": tokens.to(device)}
+        out = {"tokens": put((base % vocab).astype(np.int32))}
+        if arch.modality == "audio":
+            emb = rng.randn(batch, seq, arch.d_model).astype(np.float32)
+            out = {"embeds": put(emb),
+                   "labels": put((base % vocab).astype(np.int32))}
+        elif arch.modality == "vision":
+            n = arch.n_prefix_embeds
+            out = {"tokens": put((base[:, :seq - n] % vocab).astype(np.int32)),
+                   "image_embeds": put(rng.randn(batch, n, arch.d_model)
+                                       .astype(np.float32))}
+        yield out
         step += 1
 
 

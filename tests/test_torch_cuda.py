@@ -657,7 +657,8 @@ def test_flash_attention_kernel_matches_plain(dev, dtype, atol, row_rtol):
                                      .amax(-1).clamp_min(1e-30)).max())
                         assert rel <= row_rtol, (causal, dh, bh, s, group, rel)
     with pytest.raises(ValueError, match="head dims up to"):
-        fa.flash_attention_cuda(*(torch.zeros(1, 8, 129, device=dev)
+        fa.flash_attention_cuda(*(torch.zeros(1, 8, fa.HEAD_DIMS[-1] + 1,
+                                              device=dev)
                                   for _ in range(3)))
     with pytest.raises(TypeError, match="float tensors"):
         fa.flash_attention_cuda(*(torch.zeros(1, 8, 64, device=dev,
@@ -865,3 +866,56 @@ def test_kernel_wrappers_raise_under_grad(dev, wrapper):
     with torch.no_grad():
         out = call()
     assert launcher.launches == before + 1 and not out.requires_grad
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 3e-2)])
+def test_mla_attention_launches_the_dh192_instance(dev, dtype, atol):
+    """MLA's prefill on the card: one flash_attention launch on the dh-192
+    instance (q/k 128 + 64, v zero-padded to 192 and sliced back), within
+    the kernel's bounds of the materialized-scores oracle route."""
+    from repro_torch.compile.lowerings.common import require_full_float32
+    from repro_torch.configs.base import MLAConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.lm import mla
+
+    require_full_float32(dev)
+    m = MLAConfig(q_lora_rank=64, kv_lora_rank=32, qk_nope_head_dim=128,
+                  qk_rope_head_dim=64, v_head_dim=128)
+    g = torch.Generator(device=dev).manual_seed(0)
+    p = mla.mla_params(g, 64, 4, m, dtype)
+    x = torch.randn(2, 77, 64, generator=g, device=dev).to(dtype)
+    before = fa.flash_attention_cuda.launches
+    got = mla.mla_attention(p, x, n_heads=4, m=m, rope_theta=1e4)
+    assert fa.flash_attention_cuda.launches == before + 1
+    want = mla.mla_attention(p, x, n_heads=4, m=m, rope_theta=1e4,
+                             impl="ref")
+    assert fa.flash_attention_cuda.launches == before + 1
+    scale = float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= atol * max(
+        scale, 1.0)
+
+
+def test_moe_routing_tables_on_the_card_equal_the_host(dev):
+    """The top-k selection and the dispatch on the card, from the same
+    float32 scores, equal the host's bit for bit, with experts that
+    overflow (the tables are built from unique indices only)."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.lm import moe
+
+    cfg = MoEConfig(n_experts=64, top_k=6, d_ff_expert=8, n_shared=1,
+                    router_aux_free=True, capacity_factor=1.0)
+    g = torch.Generator(device=dev).manual_seed(1)
+    p = moe.moe_params(g, 32, cfg, "glu", torch.float32)
+    p["router"]["bias"] = torch.randn(64, generator=g, device=dev) * 0.1
+    s = moe.scores(p, torch.randn(4096, 32, generator=g, device=dev), cfg)
+    cap = moe.capacity(4096, cfg)
+    host = {k: v.cpu() for k, v in p["router"].items()}
+    w_d, e_d = moe.select(p, s, cfg)
+    w_h, e_h = moe.select({"router": host}, s.cpu(), cfg)
+    assert torch.equal(e_d.cpu(), e_h) and torch.equal(w_d.cpu(), w_h)
+    tables_d = moe.dispatch(w_d, e_d, 64, cap)
+    tables_h = moe.dispatch(w_h, e_h, 64, cap)
+    for d, h in zip(tables_d, tables_h):
+        assert torch.equal(d.cpu(), h)
+    assert int(torch.bincount(e_h.reshape(-1), minlength=64).max()) > cap

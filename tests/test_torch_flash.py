@@ -165,3 +165,23 @@ def test_head_dim_above_the_largest_instance_raises():
     q = torch.zeros(1, 4, tfa.HEAD_DIMS[-1] + 1)
     with pytest.raises(ValueError, match="head dims up to"):
         tfa.pad_head_dim(q, q, q)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_mla_head_dim_with_padded_v_matches_reference_kernel(causal):
+    """MLA's shape on the kernel's dh-192 instance: q and k of 128 + 64
+    dims, v of 128 zero-padded to 192 (``src/repro/lm/mla.py``'s padding),
+    against the Pallas kernel in interpret mode at the same padded inputs;
+    the padded output columns are zero, and the first 128 are the attention
+    over the unpadded v."""
+    q, k, v = _qkv(192, 2, 128, 192)
+    v[..., 128:] = 0.0
+    want = np.asarray(jops.flash_attention(*map(jnp.asarray, (q, k, v)),
+                                           causal=causal, bq=64, bk=64))
+    got = tops.flash_attention(*_port((q, k, v)), causal=causal).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5)
+    assert not got[..., 128:].any()
+    # the unpadded v gives the same first 128 columns (the scale is q.k's)
+    tq, tk, tv = _port((q, k, v))
+    short = tref.flash_attention_ref(tq, tk, tv[..., :128], causal)
+    np.testing.assert_allclose(got[..., :128], short.numpy(), atol=2e-6)

@@ -38,7 +38,7 @@ from repro.lm import layers as jlayers
 from repro.lm import model as JM
 from repro_torch import compile as tcompile
 from repro_torch.compile.fingerprint import fingerprint_params
-from repro_torch.configs import ARCH_IDS, ArchConfig, MoEConfig
+from repro_torch.configs import ARCH_IDS, ArchConfig
 from repro_torch.configs import get_config as tget_config
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.core import quantize as tquant
@@ -50,6 +50,9 @@ from repro_torch.lm import model as TM
 from repro_torch.serve import InferenceService
 
 GATES = ("exact", "rational", "pwl2", "pwl4")
+# the dense family (the other attention families:
+# tests/test_torch_lm_families.py)
+DENSE_IDS = tuple(a for a in ARCH_IDS if tget_config(a).family == "dense")
 
 
 def _rel(got, want) -> float:
@@ -277,7 +280,7 @@ def test_quantize_kv_bit_for_bit():
 # --------------------------------------------------------------------------
 # forward and decode
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", DENSE_IDS)
 def test_forward_matches_reference(arch):
     jcfg, tcfg = _cfgs(arch)
     jp, tp = _params(arch, jcfg)
@@ -386,7 +389,7 @@ def _decode(cfg, params, tok, device="cpu"):
     return torch.stack(out, 1), cache
 
 
-@pytest.mark.parametrize("arch,kv,atol", [(a, "bfloat16", 2e-3) for a in ARCH_IDS]
+@pytest.mark.parametrize("arch,kv,atol", [(a, "bfloat16", 2e-3) for a in DENSE_IDS]
                          + [("qwen2-0.5b", "int8", 0.07)])
 def test_decode_matches_forward(arch, kv, atol):
     _, tcfg = _cfgs(arch)
@@ -421,9 +424,10 @@ def test_serve_step_matches_reference(kv):
 
 
 def test_unported_families_raise():
-    cfg = dataclasses.replace(
-        tget_config("qwen2-0.5b").reduced(),
-        moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=64))
+    """The recurrent block patterns are not ported yet (MoE, MLA and the
+    front ends are: ``tests/test_torch_lm_families.py``)."""
+    cfg = dataclasses.replace(tget_config("qwen2-0.5b").reduced(),
+                              block_pattern="mamba_hybrid")
     with pytest.raises(NotImplementedError, match="A13"):
         TM.init_params(cfg, torch.Generator())
     rwkv = ArchConfig(name="x", family="ssm", n_layers=1, d_model=64,
