@@ -82,7 +82,11 @@ Phases, each of which raises on failure:
      (G 1) and of 8 rows (G 7, the grouped form path E launches); head dims
      56, 80 and 112 (zero-padded to the next instance) in float32, bf16 and
      float16, and float16 at dh 64 (the float32 instance, rounded once:
-     within 2^-8, one float16 ulp below 8).  Two
+     within 2^-8, one float16 ulp below 8); and with a sliding window
+     (scores masked where q - k >= window, the key tiles before a query
+     tile's window skipped), causal and full, float32 and bf16, windows 1,
+     63, 64, 65, S - 1, S and S + 1 at S 300 and 2048, at (BH 56, dh 64,
+     G 7) and zamba2's (BH 32, dh 112 padded to 128).  Two
      controls at (56, 2048, 64) bf16 causal G 7, printed beside the
      kernel's readings: the plain version with P rounded to bf16 (what the
      kernel does) must pass both bounds, and with one key tile dropped from
@@ -213,6 +217,22 @@ Phases, each of which raises on failure:
       InferenceService: no flash_attention launch, one silu_pwl4 launch a
       step per gated MLP or expert stack at the pwl4 gate, deepseek-v3's
       latent cache int8 there.  Grep ``4I`` for the lines.
+   J. the recurrent half of the LM stack (after I), one model at a time at
+      its published widths and full depth with seeded weights
+      (RECURRENT_RUNS): zamba2-7b (81 layers: 13 groups of 5 Mamba2 layers,
+      each followed by the one shared attention + MLP block with its
+      window of 4096, then 3 Mamba2 layers) and rwkv6-1.6b (24 layers).
+      In float32: zamba2's prefill at 1 x 6144 (past the window) through
+      the kernel within 1e-4 of the oracle's attention, its decode over 1 x
+      64 steps within 2e-3 of the forward; rwkv6's decode against forward
+      in float64 within 1e-6 (its float32 distance printed).  Then the bf16
+      prefill (zamba2 2 x 8192, 13 windowed flash_attention launches, the
+      last held to the plain version on its first heads; rwkv6 4 x 2048,
+      no attention), profiled as in I; ``generate`` (4 x 32) through an
+      InferenceService at flt and fxp8/qnm/int8-KV/pwl4 (two silu_pwl4 or
+      pwl4 launches a Mamba2 or RWKV layer a step there); and
+      ``launch/train.py`` at the reduced config for 3 steps in its own
+      process.  Grep ``4J`` for the lines.
    In A, B and D, labels equal the plain versions' on the card (in D, each
    member's own predict); in A and B the rows where ``ref`` and ``cuda``
    differ are printed as information.
@@ -223,7 +243,11 @@ Phases, each of which raises on failure:
    ``enable_gqa`` for the grouped form), and its dh-192 instance at path
    I's MLA shape (BH 256, S 8192, v padded from 128; its first heads held
    to the plain version) beside the MLA function's bound and that library
-   call (kept as ``dh192_*`` in the record), the
+   call (kept as ``dh192_*`` in the record), and with a window of 4096 at
+   path J's zamba2 shape (BH 64, S 8192, dh 112; its first heads held to
+   the plain version) beside the window's bound, the same kernel without
+   the window and ``scaled_dot_product_attention`` with the boolean window
+   mask (kept as ``window_*``), the
    prefill forward and the kernel's share of it, decode ms/token at both
    served targets; each recorded kernel's device time from a
    torch.profiler trace besides (below ~0.04 ms the CUDA-event loop
@@ -325,6 +349,11 @@ FLASH_FP16_ATOL = 2.0 ** -8
 # head dims between the kernel's instances (deepseek-v3 56, hubert 80,
 # zamba2 112): zero-padded to the next instance by the wrapper
 FLASH_PADDED_DIMS = (56, 80, 112)
+# sliding windows: ragged and tile-aligned S, each with windows 1, 63, 64,
+# 65, S - 1, S and S + 1; at (BH 56, dh 64, G 7) and at zamba2's dh 112
+# (padded to 128) with 32 heads, ungrouped
+FLASH_WINDOW_LENGTHS = (300, 2048)
+FLASH_WINDOW_HEADS = ((64, 56, 7), (112, 32, 1))  # (dh, BH, G)
 SVM_LENGTHS = (1, 31, 33, 300, 1696)  # 1696: the fit predicate's limit
 SVM_BATCHES = (1, 31, 3089, 65536)
 SVM_FLEET_SIZES = (1, 2, 4, 8)
@@ -543,6 +572,7 @@ class KernelCheck:
         self.pwl_bias_cases = 0  # pwl_activation cases with the fused bias
         self.flash_err = {}  # dtype -> max abs err of flash_attention
         self.flash_row_rel = 0.0  # bf16: max per-row relative error
+        self.flash_window_cases = 0  # flash_attention cases with a window
 
     def _compare(self, name, got, want, what):
         torch = self.torch
@@ -598,18 +628,22 @@ class KernelCheck:
                                  f"the plain version, over {atol}")
         return err
 
-    def flash_case(self, gen, dtype, causal, dh, s, bh, group):
+    def flash_case(self, gen, dtype, causal, dh, s, bh, group, window=None):
         """The kernel against its plain version (K/V repeated to the query
         heads, scores materialized in float32): atol 2e-5 in float32, 3e-2
         in bfloat16, the reference's bounds (tests/test_kernels.py), and in
-        bfloat16 the per-row relative bound."""
+        bfloat16 the per-row relative bound; within a sliding ``window``
+        when one is given."""
         torch, fa = self.torch, self.K.fa
         q = torch.randn(bh, s, dh, generator=gen, device="cuda").to(dtype)
         k, v = (torch.randn(bh // group, s, dh, generator=gen, device="cuda")
                 .to(dtype) for _ in range(2))
-        got = fa.flash_attention_cuda(q, k, v, causal)
-        want = fa.flash_attention_plain(q, k, v, causal)
-        what = f"{dtype} causal={causal} (BH {bh}, S {s}, dh {dh}, G {group})"
+        got = fa.flash_attention_cuda(q, k, v, causal, window)
+        want = fa.flash_attention_plain(q, k, v, causal, window=window)
+        what = (f"{dtype} causal={causal} (BH {bh}, S {s}, dh {dh}, G "
+                f"{group}, window {window})")
+        if window is not None:
+            self.flash_window_cases += 1
         atol = {torch.float32: 2e-5, torch.bfloat16: FLASH_BF16_ATOL,
                 torch.float16: FLASH_FP16_ATOL}[dtype]
         err = self._compare_close("flash_attention", got, want, atol, what)
@@ -1185,12 +1219,21 @@ class KernelCheck:
                 for s in (7, 65, 2048):
                     for causal in (True, False):
                         self.flash_case(gen, dtype, causal, dh, s, 56, 7)
+        # sliding windows (zamba2's shared block), causal and not
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                for s in FLASH_WINDOW_LENGTHS:
+                    for window in (1, 63, 64, 65, s - 1, s, s + 1):
+                        for dh, bh, group in FLASH_WINDOW_HEADS:
+                            self.flash_case(gen, dtype, causal, dh, s, bh,
+                                            group, window)
         self.flash_controls(gen)
         log(f"phase 3: {self.cases} kernel-vs-plain cases, bit-exact but "
             f"flash_attention (within 2e-5 in float32, {FLASH_BF16_ATOL} in "
             f"bf16: max abs err {self.flash_err}; bf16 rows within "
             f"{FLASH_BF16_ROW_RTOL} of their largest value: max "
-            f"{self.flash_row_rel:.4e}) (max abs err {self.max_abs_err}; "
+            f"{self.flash_row_rel:.4e}; {self.flash_window_cases} of them "
+            f"with a sliding window) (max abs err {self.max_abs_err}; "
             f"{self.wrapped} SVM cases, {self.mlp_wrapped} MLP cases and "
             f"{self.layer_wrapped} fxp_layer cases wrapped the int32 dot; "
             f"fxp_layer routes {self.layer_routes}; fxp_qmatmul cases that "
@@ -2514,7 +2557,9 @@ def serve_trained(torch, K, h1):
                 projected_s=state_bytes / 1e6 / save_mbs)
 
 
-def _run_train_cli(cfg, ckpt_dir):
+def _run_train_cli(ckpt_dir, arch=LM_ARCH, steps=REDUCED_STEPS,
+                   batch=REDUCED_BATCH, seq=REDUCED_SEQ, lr=REDUCED_LR,
+                   every=REDUCED_EVERY, what="H3"):
     """launch/train.py at the reduced config in a process of its own:
     (first loss, last loss, the printed lines)."""
     shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -2523,18 +2568,18 @@ def _run_train_cli(cfg, ckpt_dir):
         [os.path.join(ROOT, "src")] + [p for p in [env.get("PYTHONPATH")]
                                        if p])
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-           LM_ARCH, "--steps", str(REDUCED_STEPS), "--batch",
-           str(REDUCED_BATCH), "--seq", str(REDUCED_SEQ), "--lr",
-           str(REDUCED_LR),
-           "--checkpoint-every", str(REDUCED_EVERY), "--ckpt-dir", ckpt_dir]
+           arch, "--steps", str(steps), "--batch", str(batch), "--seq",
+           str(seq), "--lr", str(lr), "--checkpoint-every", str(every),
+           "--ckpt-dir", ckpt_dir]
     r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
                        text=True, timeout=300)
     if r.returncode != 0:
-        raise AssertionError(f"H3: {' '.join(cmd[2:])} exited "
+        raise AssertionError(f"{what}: {' '.join(cmd[2:])} exited "
                              f"{r.returncode}: {r.stderr[-3000:]}")
     done = [l for l in r.stdout.splitlines() if l.startswith("done at step")]
-    if not done or f"done at step {REDUCED_STEPS} on cuda" not in done[-1]:
-        raise AssertionError(f"H3: the launcher printed {r.stdout[-2000:]}")
+    if not done or f"done at step {steps} on cuda" not in done[-1]:
+        raise AssertionError(f"{what}: the launcher printed "
+                             f"{r.stdout[-2000:]}")
     first, last = (float(v) for v in done[-1].split("loss")[1].split("->"))
     return first, last, r.stdout.strip().splitlines()
 
@@ -2548,7 +2593,7 @@ def train_reduced(torch, K):
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     cli_dir = os.path.join(TRAIN_DIR, "cli")
-    first, last, lines = _run_train_cli(cfg, cli_dir)
+    first, last, lines = _run_train_cli(cli_dir)
     mgr = K.ckpt.CheckpointManager(os.path.join(cli_dir, cfg.name))
     steps = mgr.all_steps()
     if steps != [REDUCED_EVERY, REDUCED_STEPS]:
@@ -2778,14 +2823,14 @@ def captured_flash(K):
     ops, wrapper = K.ops, K.ops.flash_attention_cuda
     seen = {"launches": 0}
 
-    def spy(q, k, v, causal=True):
-        out = wrapper(q, k, v, causal)
+    def spy(q, k, v, causal=True, window=None):
+        out = wrapper(q, k, v, causal, window)
         g = q.shape[0] // k.shape[0]
         n_kv = max(1, FLASH_CHECK_HEADS // g)
         seen.update(q=q[:n_kv * g].clone(), k=k[:n_kv].clone(),
                     v=v[:n_kv].clone(), out=out[:n_kv * g].clone(),
-                    causal=causal, group=g, shape=tuple(q.shape),
-                    launches=seen["launches"] + 1)
+                    causal=causal, window=window, group=g,
+                    shape=tuple(q.shape), launches=seen["launches"] + 1)
         return out
 
     ops.flash_attention_cuda = spy
@@ -2801,7 +2846,8 @@ def check_captured_flash(torch, K, seen, what):
     within FLASH_BF16_ATOL x max(1, rms of v) absolute (phase 3's bound is
     for unit-normal v; an output is a convex mix of v's rows)."""
     q, k, v, out = (seen[n] for n in ("q", "k", "v", "out"))
-    want = K.fa.flash_attention_plain(q, k, v, seen["causal"])
+    want = K.fa.flash_attention_plain(q, k, v, seen["causal"],
+                                      window=seen["window"])
     err = float((out.float() - want.float()).abs().max())
     rel = row_rel_err(out, want)
     v_rms = float(v.float().square().mean().sqrt())
@@ -2809,7 +2855,9 @@ def check_captured_flash(torch, K, seen, what):
     del want
     where = (f"the last of {seen['launches']} launches, (BH, S, dh) "
              f"{seen['shape']}, G {seen['group']}, "
-             f"{'causal' if seen['causal'] else 'full'}, query heads 0.."
+             f"{'causal' if seen['causal'] else 'full'}"
+             + (f", window {seen['window']}" if seen["window"] else "")
+             + ", query heads 0.."
              f"{q.shape[0] - 1}")
     if (err > atol or rel > FLASH_BF16_ROW_RTOL
             or not bool(torch.isfinite(out).all())):
@@ -2947,21 +2995,15 @@ def _routing_tables(torch, K, cfg, params, calls):
                         for t, c, n in overflow))
 
 
-def _to_bf16(torch, tree):
-    """Every floating leaf but a MoE router's to bf16, in place, one leaf
-    at a time (the float32 leaf is freed as its copy is made): the weights
-    ``init_params`` would draw for the bf16 config from the same seed."""
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            if k != "router":
-                _to_bf16(torch, v)
-        elif v.is_floating_point():
-            tree[k] = v.to(torch.bfloat16)
-
-
 def _gated_mlps(cfg):
     """pwl_activation launches per decode step at the pwl4 gate: one per
-    gated MLP or expert stack (silu only)."""
+    gated MLP or expert stack (silu only), two per Mamba2 layer (its SiLU
+    gates) and two per RWKV-6 layer (its SiLU gate and receptance)."""
+    if cfg.block_pattern == "rwkv":
+        return 2 * cfg.n_layers
+    if cfg.block_pattern == "mamba_hybrid":
+        n_shared, n_mamba = cfg._layer_split()
+        return 2 * n_mamba + (n_shared if cfg.activation == "silu" else 0)
     if cfg.activation != "silu":
         return 0
     if cfg.moe is None:
@@ -2997,7 +3039,7 @@ def family_run(torch, K, arch, n_layers, prefill, n_img, decode):
     f32_logits, f32_experts = _float32_checks(torch, K, cfg32, params,
                                               n_img_check)
 
-    _to_bf16(torch, params)
+    M.cast_params_(params, torch.bfloat16)
     torch.cuda.empty_cache()
     check = _family_batch(torch, cfg, 1, FAMILY_CHECK_SEQ - n_img_check,
                           n_img_check, 5)
@@ -3121,7 +3163,8 @@ def family_decode(torch, K, cfg, params, decode, quantized):
             cache = art.extras["init_cache"](1, 2)
             layout = {k: (str(v.dtype).replace("torch.", ""),
                           tuple(v.shape[-1:]))
-                      for k, v in cache["layers"].items()}
+                      for key in ("layers", "shared_attn", "groups")
+                      for k, v in cache.get(key, {}).items()}
             if quantized and name != "flt" and cfg.mla is not None and (
                     layout.get("c_kv_q", ("",))[0] != "int8"):
                 raise AssertionError(f"{cfg.name} at {name}: the latent "
@@ -3163,6 +3206,208 @@ def main_path_families(torch, K):
     if launches["flash_attention"] == 0:
         raise AssertionError("main path I never launched flash_attention")
     log(f"  kernel launches on path I: {launches}")
+    return launches, records
+
+
+# --------------------------------------------------------------------------
+# phase 4J: the recurrent half of the LM stack (the Mamba2 hybrid, RWKV-6)
+# at published widths and full depth
+# --------------------------------------------------------------------------
+# (arch, bf16 prefill (batch, tokens), tokens of the float32 kernel-vs-oracle
+# prefill check or None for a model without attention, the dtype in which
+# decode is held to forward)
+RECURRENT_RUNS = (
+    # S 8192 is twice the shared block's window of 4096; the float32 check
+    # at 6144 also runs past it
+    ("zamba2-7b", (2, 8192), 6144, "float32"),
+    # launch-bound by its WKV loop: 2048 steps x 24 layers.  At full depth
+    # its float32 decode and forward part by ~4e-3 of the largest logit,
+    # rounding that the 24 layers amplify (in float64 the two agree to
+    # float64 rounding: tests/test_torch_rwkv6.py), so decode is held to
+    # forward in float64
+    ("rwkv6-1.6b", (4, 2048), None, "float64"),
+)
+RECURRENT_DECODE_STEPS = 64  # float32 decode against forward, batch 1
+RECURRENT_DECODE = (4, 32)  # generate at flt and fxp8/qnm/int8-KV/pwl4
+RECURRENT_TRAIN = dict(steps=3, batch=2, seq=64, every=3, lr=1e-3)
+
+
+def recurrent_run(torch, K, arch, prefill, check_seq, decode_dtype):
+    """One model of path J (see :func:`main_path_recurrent`)."""
+    M = K.lm_model
+    start = launch_counts(K)
+    cfg = K.configs.get_config(arch)
+    n_flash = cfg._layer_split()[0]  # zamba2's shared-block calls; rwkv 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = M.init_params(cfg32, torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in _leaves(params))
+    torch.cuda.synchronize()
+    log(f"phase 4J {arch}: full depth ({cfg.n_layers} layers), published "
+        f"widths (d_model {cfg.d_model}, {cfg.n_heads} heads, dh "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
+        + (f"; Mamba2 d_state {cfg.ssm.d_state}, expand {cfg.ssm.expand}, "
+           f"head_dim {cfg.ssm.head_dim}, {cfg.ssm.n_groups} groups, chunk "
+           f"{cfg.ssm.chunk}; {n_flash} shared-block calls, window "
+           f"{cfg.sliding_window}" if cfg.ssm else "")
+        + f"): {n_params} seeded float32 parameters in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    notes = []
+    if check_seq:
+        batch = {"tokens": _lm_tokens(torch, cfg, (1, check_seq), 5)}
+        before = launch_counts(K)
+        f32 = M.forward(params, batch, cfg32)
+        ref = M.forward(params, batch, cfg32, attn_impl="ref")
+        expect_launches(K, before, {"flash_attention": n_flash},
+                        f"{arch} float32 prefill (kernel, then oracle)")
+        rel = _rel_err(f32, ref)
+        del f32, ref
+        if not rel <= 1e-4:
+            raise AssertionError(f"{arch} float32 prefill 1 x {check_seq}: "
+                                 f"kernel route {rel} from the oracle's "
+                                 f"attention (bound 1e-4)")
+        notes.append(f"float32 prefill 1 x {check_seq}: kernel route "
+                     f"({n_flash} windowed launches) within {rel:.3e} of the "
+                     f"oracle's attention (bound 1e-4)")
+    tok = _lm_tokens(torch, cfg, (1, RECURRENT_DECODE_STEPS), 6)
+    fwd = M.forward(params, {"tokens": tok}, cfg32)
+    t0 = time.perf_counter()
+    dec = _decode_logits(torch, M, cfg32, params, tok,
+                         RECURRENT_DECODE_STEPS + 2)
+    torch.cuda.synchronize()
+    t_dec = (time.perf_counter() - t0) * 1e3 / RECURRENT_DECODE_STEPS
+    rel = _rel_err(dec, fwd)
+    del fwd, dec
+    if decode_dtype == "float32" and not rel < 2e-3:
+        raise AssertionError(f"{arch} float32 decode against forward: rel err "
+                             f"{rel} (bound 2e-3)")
+    notes.append(f"float32 decode 1 x {RECURRENT_DECODE_STEPS} steps "
+                 f"{rel:.3e} from the forward"
+                 + (" (bound 2e-3)" if decode_dtype == "float32" else "")
+                 + f", {t_dec:.1f} ms/step")
+    if decode_dtype == "float64":
+        p64 = _tree_map(lambda t: t.to(torch.float64)
+                        if t.is_floating_point() else t, params)
+        cfg64 = dataclasses.replace(cfg, dtype="float64")
+        fwd = M.forward(p64, {"tokens": tok}, cfg64)
+        dec = _decode_logits(torch, M, cfg64, p64, tok,
+                             RECURRENT_DECODE_STEPS + 2)
+        rel = _rel_err(dec, fwd)
+        del p64, fwd, dec
+        torch.cuda.empty_cache()
+        if not rel <= 1e-6:
+            raise AssertionError(f"{arch} float64 decode against forward: rel "
+                                 f"err {rel} (bound 1e-6)")
+        notes.append(f"float64 (the same weights): decode within {rel:.3e} of "
+                     f"the forward (bound 1e-6; the logits rounded to "
+                     f"float32)")
+    log("  " + "; ".join(notes))
+
+    M.cast_params_(params, torch.bfloat16)  # the float32 leaves stay
+    torch.cuda.empty_cache()
+    b, s = prefill
+    batch = {"tokens": _lm_tokens(torch, cfg, (b, s), 7)}
+    torch.cuda.reset_peak_memory_stats()
+    before = launch_counts(K)
+    t0 = time.perf_counter()
+    with captured_flash(K) as seen:
+        logits = M.forward(params, batch, cfg)
+        torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    expect_launches(K, before, {"flash_attention": n_flash},
+                    f"{arch} bf16 prefill")
+    if (logits.shape != (b, s, cfg.vocab_size)
+            or logits.dtype != torch.float32
+            or not bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"{arch} prefill logits {logits.dtype}"
+                             f"{tuple(logits.shape)} not finite float32 of "
+                             f"the expected shape")
+    del logits
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if n_flash:
+        if seen["window"] != cfg.sliding_window:
+            raise AssertionError(f"{arch}: the shared block launched with "
+                                 f"window {seen['window']}")
+        log("  bf16 prefill " + check_captured_flash(torch, K, seen,
+                                                     f"{arch} bf16 prefill"))
+    del seen
+    fwd = lambda: M.forward(params, batch, cfg)  # noqa: E731
+    ms, host_ms = cuda_ms(torch, fwd, 2)
+    # rwkv6's WKV loop makes ~10^5 launches a forward: its trace without
+    # aten op events is minutes shorter to read, and path J reads no op
+    prof = _kernel_profile(torch, fwd, cpu=False)
+    if not prof["launches"]:  # no runtime events: count the kernels run
+        prof["launches"] = prof["activities"]
+    dev_ms = sum(prof["by_kind"].values())
+    one = dict(chips=1, tp=1, dp_in_pod=1, pods=1, microbatches=1)
+    cost = K.roofline.analytic_cost(
+        cfg, K.configs.ShapeSpec("j", s, b, "prefill"), **one)
+    bound_ms = max(cost.flops_global / BF16_TENSOR_OPS_PER_S,
+                   cost.hbm_bytes_global / HBM_BYTES_PER_S) * 1e3
+    top = sorted(prof["device_ms"].items(), key=lambda kv: -kv[1])[:4]
+    log(f"  bf16 prefill {b} x {s}: {n_flash} flash_attention launches, "
+        f"first call {t_first:.2f} s; {ms:.2f} ms ({host_ms:.2f} ms host); "
+        f"peak memory {peak:.2f} GiB; bound {bound_ms:.3f} ms "
+        f"({cost.flops_global / 1e12:.2f} Tflop at the bf16 rate, "
+        f"analytic_cost); device time by kind (torch.profiler): "
+        + ", ".join(f"{k} {v:.2f} ms ({v / dev_ms:.1%})"
+                    for k, v in prof["by_kind"].items())
+        + f"; {prof['launches']} launches, idle "
+        f"{max(0.0, 1 - dev_ms / ms):.1%} of the {ms:.2f} ms (the profiled "
+        f"call's wall {prof['wall_ms']:.2f} ms); top kernels "
+        + "; ".join(f"{n[:60]} {v:.2f} ms" for n, v in top))
+    del batch, fwd
+    record = dict(prefill_ms=ms, device_ms=dev_ms, bound_ms=bound_ms,
+                  peak_gib=peak, launches=prof["launches"],
+                  flash_device_ms=prof["by_kind"]["flash_attention"],
+                  by_kind=prof["by_kind"])
+    record["decode"] = family_decode(torch, K, cfg, params, RECURRENT_DECODE,
+                                     True)
+    record["flash_launches"] = (launch_counts(K)["flash_attention"]
+                                - start["flash_attention"])
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    first, last, _ = _run_train_cli(
+        os.path.join(ROOT, "build", "recurrent_ckpt", arch), arch=arch,
+        what=f"J {arch}", **RECURRENT_TRAIN)
+    if not (math.isfinite(first) and math.isfinite(last)):
+        raise AssertionError(f"J {arch}: launch/train.py losses {first}, "
+                             f"{last}")
+    log(f"  launch/train.py --arch {arch} (reduced) --steps "
+        f"{RECURRENT_TRAIN['steps']} --batch {RECURRENT_TRAIN['batch']} "
+        f"--seq {RECURRENT_TRAIN['seq']} on the card in "
+        f"{time.perf_counter() - t0:.1f} s: loss {first:.4f} -> {last:.4f}")
+    return record
+
+
+def main_path_recurrent(torch, K):
+    """Main path J: the recurrent half of the LM stack at published widths
+    and full depth, one model at a time (each freed before the next),
+    seeded weights.  For each model: float32 checks (zamba2's kernel route
+    within 1e-4 of the oracle's attention at 1 x 6144, past its window;
+    decode against forward over 1 x 64 steps within 2e-3; rwkv6's decode
+    against forward in float64 within 1e-6, the float32 distance printed:
+    see RECURRENT_RUNS), then the bf16
+    prefill (zamba2 2 x 8192: one windowed flash_attention launch per
+    shared-block call, the last held to the plain version on its first
+    heads; rwkv6 4 x 2048), profiled; ``generate`` through an
+    InferenceService at flt and fxp8/qnm/int8-KV/pwl4 (two pwl_activation
+    launches a Mamba2 or RWKV layer a step there); and launch/train.py at
+    the reduced config for three steps."""
+    reset_launches(K)
+    records = {}
+    for run in RECURRENT_RUNS:
+        t0 = time.perf_counter()
+        records[run[0]] = recurrent_run(torch, K, *run)
+        log(f"  {run[0]} took {time.perf_counter() - t0:.1f} s")
+    launches = launch_counts(K)
+    if launches["flash_attention"] == 0 or launches["pwl_activation"] == 0:
+        raise AssertionError(f"main path J launched {launches}")
+    log(f"  kernel launches on path J: {launches}")
     return launches, records
 
 
@@ -3673,18 +3918,22 @@ def serving_record(torch, K, arts_d, rows):
             f" ms over {len(ms)} requests in {wall:.2f} s; {extra}")
 
 
-def _kernel_profile(torch, fn):
+def _kernel_profile(torch, fn, cpu=True):
     """Device time by kernel kind and by name (ms), the number of kernel
     launches (the host's launch calls) and of device activities (kernels
     and copies, and their count by name) of one call of ``fn``, from
     torch.profiler's CPU and CUDA activity; with each aten op's own device
-    time and the wall time under the profiler."""
+    time and the wall time under the profiler.  ``cpu=False`` records the
+    CUDA activity alone (no aten op events, no op times): the trace of a
+    call with ~10^5 launches is then minutes shorter to read."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
@@ -3882,6 +4131,74 @@ def time_flash_mla(torch, K, T, launches_mla):
     del q, k, v, out, q4, k4, v4
 
 
+def time_flash_window(torch, K, T, launches_window):
+    """The kernel with a sliding window at path J's zamba2 shape — 32 heads
+    x batch 2, 8192 tokens, dh 112 (padded to 128 by the wrapper), window
+    4096, bf16, causal — its first FLASH_CHECK_HEADS heads held to the plain
+    version (FLASH_BF16_ATOL and the row bound), beside its bound, the same
+    kernel without the window, and scaled_dot_product_attention with the
+    same boolean window mask (a yardstick the port never calls); kept in
+    flash_attention's record as ``window_*``.  The bound counts the
+    (query, key) pairs the window leaves: q.k and p.v over 112 dims a
+    pair, each input read and the output written once."""
+    fa = K.fa
+    b, h, s, dh, w = 2, 32, 8192, 112, 4096
+    bh = b * h
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn(bh, s, dh, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    out = fa.flash_attention_cuda(q, k, v, True, w)
+    n = FLASH_CHECK_HEADS
+    want = fa.flash_attention_plain(q[:n], k[:n], v[:n], True, window=w)
+    err = float((out[:n].float() - want.float()).abs().max())
+    rel = row_rel_err(out[:n], want)
+    del want
+    if (err > FLASH_BF16_ATOL or rel > FLASH_BF16_ROW_RTOL
+            or not bool(torch.isfinite(out).all())):
+        raise AssertionError(f"flash_attention window {w} at (BH {bh}, S "
+                             f"{s}, dh {dh}): heads 0..{n - 1} max abs err "
+                             f"{err} (bound {FLASH_BF16_ATOL}), row rel err "
+                             f"{rel} (bound {FLASH_BF16_ROW_RTOL})")
+    kern = lambda: fa.flash_attention_cuda(q, k, v, True, w)  # noqa: E731
+    ms, host_ms = cuda_ms(torch, kern, 10)
+    dev = device_ms(torch, kern, iters=5)
+    causal_ms, _ = cuda_ms(torch, lambda: fa.flash_attention_cuda(q, k, v,
+                                                                  True), 5)
+    pairs = w * (w + 1) // 2 + (s - w) * w  # a head's pairs in the window
+    flops = 2 * bh * pairs * (dh + dh)
+    nbytes = _nbytes(q, k, v, out)
+    bound_ms, bound_by = T.dev.bound(nbytes, flops, BF16_TENSOR_OPS_PER_S)
+    pos = torch.arange(s, device="cuda")
+    diff = pos[:, None] - pos[None, :]
+    mask = (diff >= 0) & (diff < w)  # True: the key is attended
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4 = (t.view(b, h, s, dh) for t in (q, k, v))
+    lib = lambda: sdpa(q4, k4, v4, attn_mask=mask)  # noqa: E731
+    lib_ms, _ = cuda_ms(torch, lib, 5)
+    lib_err = float((lib().reshape(bh, s, dh).float() - out.float())
+                    .abs().max())
+    rec = T.records["flash_attention"]
+    rec.update(window_ms=ms, window_device_ms=dev, window_bound_ms=bound_ms,
+               window_bound_by=bound_by, window_library_ms=lib_ms,
+               window_causal_ms=causal_ms, window_max_abs_err=err,
+               window_row_rel_err=rel, window_launches=launches_window,
+               window_shape=f"(BH {bh} = batch {b} x {h} heads, S {s}, dh "
+                            f"{dh} padded to 128, window {w}) bf16 causal: "
+                            f"one shared-block call of path J's zamba2 "
+                            f"prefill")
+    log(f"  flash_attention window at {rec['window_shape']}: heads 0.."
+        f"{n - 1} within {err:.3e} (max abs, bound {FLASH_BF16_ATOL}) and "
+        f"{rel:.3e} (row, bound {FLASH_BF16_ROW_RTOL}) of the plain version; "
+        f"{ms:.3f} ms ({host_ms:.3f} ms host; profiler device {dev:.3f} ms), "
+        f"{flops / ms / 1e9:.1f} Tflop/s of the window's {flops / 1e12:.4f} "
+        f"Tflop ({pairs} pairs a head); bound {bound_ms:.3f} ms ({bound_by}; "
+        f"{nbytes} bytes); the same kernel without the window {causal_ms:.3f}"
+        f" ms; scaled_dot_product_attention with the window mask "
+        f"{lib_ms:.3f} ms (max abs diff {lib_err:.3e}; kernel / library "
+        f"{ms / lib_ms:.2f}x); {launches_window} launches on path J (zamba2)")
+    del q, k, v, out, q4, k4, v4, mask, diff
+
+
 def time_lm_gate(torch, K, T, lm):
     """Path E's pwl4 SiLU gate: the kernel (silu_pwl4) at the decode (4,
     4864) and bf16 prefill (4 x 2048, 4864) shapes beside its plain version,
@@ -4024,12 +4341,13 @@ def flt_pwl_predict(torch, K, x_big):
 
 
 def timing(torch, K, dev, d6, d5, check, arts_a, arts_b, arts_d, tree_model,
-           launches, lm, families):
+           launches, lm, families, recurrent):
     x_big = np.resize(d6.x_test, (max(TIMED_BATCHES), d6.x_test.shape[1]))
     n_test = len(d6.x_test)
     T = Timer(torch, dev, check, launches)
     time_lm(torch, K, T, lm)
     time_flash_mla(torch, K, T, families[FAMILY_QUANT]["flash_launches"])
+    time_flash_window(torch, K, T, recurrent["zamba2-7b"]["flash_launches"])
     time_lm_gate(torch, K, T, lm)
     time_mlp(torch, K, T, arts_a, x_big, n_test)
     time_tree_svm(torch, K, T, arts_b, tree_model, x_big, n_test)
@@ -4179,14 +4497,17 @@ def main() -> int:
     t0 = time.perf_counter()
     launches_i, families = main_path_families(torch, K)
     log(f"  phase 4I took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches_j, recurrent = main_path_recurrent(torch, K)
+    log(f"  phase 4J took {time.perf_counter() - t0:.1f} s")
     by_path = {"A": launches_a, "B": launches_b, "C": launches_c,
                "D": launches_d, "E": launches_e, "G": launches_g,
-               "H": launches_h, "I": launches_i}
+               "H": launches_h, "I": launches_i, "J": launches_j}
     launches = {n: (sum(p[n] for p in by_path.values()),
                     {k: p[n] for k, p in by_path.items()})
                 for n in KernelCheck.NAMES}
     kernels = timing(torch, K, dev, d6, d5, check, arts_a, arts_b, arts_d,
-                     tree_model, launches, lm, families)
+                     tree_model, launches, lm, families, recurrent)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(dev.smi_line)

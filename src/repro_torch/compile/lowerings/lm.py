@@ -110,7 +110,6 @@ class LMLowering(Lowering):
         cfg: ArchConfig = qparams["cfg"]
         if cfg.encoder_only:
             raise ValueError(f"{cfg.name} is encoder-only: no decode serving")
-        M.require_ported(cfg)
         params = _to(qparams["params"], device)
 
         def step(p, cache, batch):

@@ -9,7 +9,7 @@ both packages compile the same program from the same parameters.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -72,17 +72,22 @@ def _tensor_from_numpy(a: Any) -> torch.Tensor:
 
 
 def lm_params_from_numpy(tree: Dict[str, Any], device: Any,
-                         dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+                         dtype: Optional[torch.dtype] = None,
+                         _path: Tuple[str, ...] = ()) -> Dict[str, Any]:
     """The port's LM parameter tree from the reference's, leaf for leaf:
     nested dicts of numpy arrays (``np.asarray`` of each JAX leaf) become
     the same dicts of tensors on ``device``, bit for bit (bfloat16
     included), floating leaves cast to ``dtype`` when one is given — but
-    a MoE router's (``router/w`` and its ``bias``), which stay float32:
-    the reference keeps and computes the router in float32 whatever the
-    model's dtype."""
+    the leaves the reference keeps in float32 whatever the model's dtype
+    (:func:`repro_torch.lm.model.float32_leaf`: a MoE router's, Mamba2's
+    ``A_log``/``dt_bias``/``D``, RWKV-6's anchors, decay base, bonus and
+    norms), which keep theirs."""
     if isinstance(tree, dict):
-        return {k: lm_params_from_numpy(v, device,
-                                        None if k == "router" else dtype)
+        return {k: lm_params_from_numpy(v, device, dtype, _path + (k,))
                 for k, v in tree.items()}
+    from repro_torch.lm.model import float32_leaf
+
     t = _tensor_from_numpy(tree).to(device)
-    return t if dtype is None or not t.is_floating_point() else t.to(dtype)
+    if dtype is None or not t.is_floating_point() or float32_leaf(_path):
+        return t
+    return t.to(dtype)

@@ -1,6 +1,7 @@
 // flash_attention: causal or full softmax attention over (BH, S, dh) query
 // tensors and (BH / G, S, dh) key/value tensors, float32 or bfloat16, with
-// the online (max, sum, acc) softmax in float32.
+// the online (max, sum, acc) softmax in float32, optionally within a sliding
+// window.
 //
 // Replaces the Pallas kernel
 // repro/kernels/flash_attention.py::flash_attention_pallas (body _kernel),
@@ -16,10 +17,21 @@
 //   output acc / max(l, 1e-30), cast to the input type.
 // Unlike the TPU kernel it takes any S: key rows past S are zero-filled and
 // masked (their p is exactly 0), query rows past S are computed and not
-// written.  Every block walks its key tiles upward from key 0, and tile 0
-// holds key 0, which no row masks, so each row's max is finite from the
-// first tile on and a masked entry's exp(-1e30 - m) is 0, as in the TPU
-// kernel.
+// written.
+//
+// The sliding window is the reference LM's blockwise_attention mask
+// (repro/lm/attention.py, the TPU kernel's source): with window > 0 the
+// score at (q, k) is masked to -1e30 where q - k >= window, causal or not.
+// It is a runtime argument of the same instances.  Key tiles wholly before
+// q0 - window + 1 (q0 the block's first query) are masked for every row of
+// the block and are skipped, not loaded: the loop's first tile moves up as
+// the causal bound moves its last, so a causal windowed block walks about
+// window / 64 + 1 tiles.  A row of the first tile walked may have every key
+// masked there (its window starts in a later tile): its running max is then
+// -1e30 and its p are exp(0) = 1, and the first tile that holds one of its
+// keys sets alpha = exp(-1e30 - m) = 0, which clears l and acc.  Every row
+// keeps its diagonal key, so every row's max is finite by the last tile and
+// a masked entry's exp(-1e30 - m) is 0, as in the TPU kernel.
 //
 // Grouped-query attention is in the kernel: query row bh reads key/value row
 // bh / G (G query heads per KV head; for bh = b*H + h with G dividing H that
@@ -28,7 +40,8 @@
 //
 // Bound on the H100: operations.  4*S^2*dh/2 flops per causal head against
 // 2*S*dh*(1 + 2/G) input and output elements: at S = 2048 the work is ~1000x
-// the bytes, so the bf16 tensor cores' 989 Tflop/s set the bound.
+// the bytes, so the bf16 tensor cores' 989 Tflop/s set the bound.  Within a
+// window W the pairs are about S*W, still ~W/2 flops a byte.
 //
 // bfloat16 (the LM's prefill) runs FlashAttention-2 on the tensor cores
 // (mma.sync m16n8k16, bf16 operands, float32 accumulators):
@@ -112,7 +125,8 @@ template <int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
-                       int s, float scale, int causal, int group) {
+                       int s, float scale, int causal, int window,
+                       int group) {
   constexpr int kQS = DH + 1, kKS = DH + 1, kDims = DH / kLanes;
   extern __shared__ float smem[];
   float* qs = smem;
@@ -141,7 +155,8 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int k_tiles = (s + kBK - 1) / kBK;
   const int n_tiles = causal ? min(k_tiles, qt + 1) : k_tiles;
-  for (int kt = 0; kt < n_tiles; ++kt) {
+  const int kt_lo = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
+  for (int kt = kt_lo; kt < n_tiles; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's K, V and P are consumed
     load_tile<DH>(k + kv_base, k0, s, ks, kKS, kBK);
@@ -174,7 +189,9 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < kKeys; ++j) {
         const int kpos = k0 + lane + kLanes * j;
         float x = sc[i][j] * scale;
-        if (kpos >= s || (causal && kpos > qpos)) x = kNegInf;
+        if (kpos >= s || (causal && kpos > qpos) ||
+            (window > 0 && qpos - kpos >= window))
+          x = kNegInf;
         sc[i][j] = x;
         mt = fmaxf(mt, x);
       }
@@ -229,7 +246,8 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int DH>
 int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int s, float scale, int causal, int group, cudaStream_t stream) {
+           int s, float scale, int causal, int window, int group,
+           cudaStream_t stream) {
   const size_t smem = smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -239,7 +257,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
   flash_attention_kernel<DH><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), s, scale, causal,
-      group);
+      window, group);
   return (int)cudaGetLastError();
 }
 
@@ -354,7 +372,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const bf16_t* __restrict__ q,
                        const bf16_t* __restrict__ k,
                        const bf16_t* __restrict__ v, bf16_t* __restrict__ o,
-                       int s, float scale_log2, int causal, int group) {
+                       int s, float scale_log2, int causal, int window,
+                       int group) {
   constexpr int kChunks = DH / 8;    // 16-byte chunks per row
   constexpr int kKSteps = DH / 16;   // k-steps of Q.K^T
   constexpr int kDBlocks = DH / 8;   // 8-wide output column blocks
@@ -374,10 +393,12 @@ flash_attention_kernel(const bf16_t* __restrict__ q,
   const int row_b = row_a + 8;
   const int k_tiles = (s + kBK - 1) / kBK;
   const int n_tiles = causal ? min(k_tiles, qt + 1) : k_tiles;
+  // the first key tile that holds a key of the block's window
+  const int kt_lo = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
 
   load_tile_async<DH>(q + q_base, q0, s, qs);
-  load_tile_async<DH>(k + kv_base, 0, s, ks);
-  load_tile_async<DH>(v + kv_base, 0, s, vs);
+  load_tile_async<DH>(k + kv_base, kt_lo * kBK, s, ks);
+  load_tile_async<DH>(v + kv_base, kt_lo * kBK, s, vs);
   cp_async_commit();
 
   uint32_t qf[kKSteps][4];
@@ -388,11 +409,11 @@ flash_attention_kernel(const bf16_t* __restrict__ q,
     for (int e = 0; e < 4; ++e) oacc[d][e] = 0.0f;
   float m_a = kNegInf, m_b = kNegInf, l_a = 0.0f, l_b = 0.0f;
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int st = kt % kStages;
+  for (int kt = kt_lo; kt < n_tiles; ++kt) {
+    const int st = (kt - kt_lo) % kStages;
     const int k0 = kt * kBK;
     if (kt + 1 < n_tiles) {  // the next tile's copy overlaps this one's math
-      const int nst = (kt + 1) % kStages;
+      const int nst = (kt + 1 - kt_lo) % kStages;
       load_tile_async<DH>(k + kv_base, k0 + kBK, s, ks + nst * kBK * DH);
       load_tile_async<DH>(v + kv_base, k0 + kBK, s, vs + nst * kBK * DH);
       cp_async_commit();
@@ -401,7 +422,7 @@ flash_attention_kernel(const bf16_t* __restrict__ q,
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (kt == 0) {
+    if (kt == kt_lo) {
 #pragma unroll
       for (int kk = 0; kk < kKSteps; ++kk)
         ldsm_x4(smem_u32(qs + swz<DH>(warp * 16 + lane % 16,
@@ -430,8 +451,10 @@ flash_attention_kernel(const bf16_t* __restrict__ q,
       }
     }
 
-    // scale (log2 domain), mask where a tile can hold masked keys, row max
-    const bool need_mask = (k0 + kBK > s) || (causal && kt == qt);
+    // scale (log2 domain), mask where a tile can hold masked keys (the
+    // ragged edge, the diagonal, the window's lower edge), row max
+    const bool need_mask = (k0 + kBK > s) || (causal && kt == qt) ||
+                           (window > 0 && q0 + kBQ - 1 - k0 >= window);
     float mt_a = kNegInf, mt_b = kNegInf;
 #pragma unroll
     for (int nb = 0; nb < kNBlocks; ++nb) {
@@ -441,7 +464,9 @@ flash_attention_kernel(const bf16_t* __restrict__ q,
         if (need_mask) {
           const int key = k0 + nb * 8 + (lane % 4) * 2 + (e & 1);
           const int row = e < 2 ? row_a : row_b;
-          if (key >= s || (causal && key > row)) x = kNegInf;
+          if (key >= s || (causal && key > row) ||
+              (window > 0 && row - key >= window))
+            x = kNegInf;
         }
         sc[nb][e] = x;
       }
@@ -530,7 +555,8 @@ flash_attention_kernel(const bf16_t* __restrict__ q,
 
 template <int DH>
 int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int s, float scale, int causal, int group, cudaStream_t stream) {
+           int s, float scale, int causal, int window, int group,
+           cudaStream_t stream) {
   const size_t smem = smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -540,7 +566,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
   flash_attention_kernel<DH><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16_t*>(q), static_cast<const bf16_t*>(k),
       static_cast<const bf16_t*>(v), static_cast<bf16_t*>(o), s,
-      scale * kLog2e, causal, group);
+      scale * kLog2e, causal, window, group);
   return (int)cudaGetLastError();
 }
 
@@ -548,12 +574,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
 
 template <int DH>
 int launch_dtype(const void* q, const void* k, const void* v, void* o, int bh,
-                 int s, int dtype, float scale, int causal, int group,
-                 cudaStream_t stream) {
+                 int s, int dtype, float scale, int causal, int window,
+                 int group, cudaStream_t stream) {
   if (dtype == 0)
-    return f32::launch<DH>(q, k, v, o, bh, s, scale, causal, group, stream);
+    return f32::launch<DH>(q, k, v, o, bh, s, scale, causal, window, group,
+                           stream);
   if (dtype == 1)
-    return bf16::launch<DH>(q, k, v, o, bh, s, scale, causal, group, stream);
+    return bf16::launch<DH>(q, k, v, o, bh, s, scale, causal, window, group,
+                            stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -565,12 +593,14 @@ int launch_dtype(const void* q, const void* k, const void* v, void* o, int bh,
 // 1 bfloat16.  dh: 32, 64, 128 or 192 (MLA's 128 + 64 rotary dims; the
 // 192 instance holds 96 float32 accumulators a thread in bf16 and 161.5 KB
 // of shared memory in float32).  scale: float32(1/sqrt(dh)).  causal: 0
-// or 1.  Launches on the calling thread's current device.  Returns the CUDA
+// or 1.  window: the sliding window (q - k >= window masked), <= 0 for
+// none.  Launches on the calling thread's current device.  Returns the CUDA
 // error code of the launch (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int bh, int s,
                                       int dh, int dtype, float scale,
-                                      int causal, int group, void* stream) {
+                                      int causal, int window, int group,
+                                      void* stream) {
   if (bh <= 0 || s <= 0 || (s + kBQ - 1) / kBQ > 65535 || group <= 0 ||
       bh % group != 0)
     return (int)cudaErrorInvalidValue;
@@ -578,16 +608,16 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   switch (dh) {
     case 32:
       return launch_dtype<32>(q, k, v, o, bh, s, dtype, scale, causal,
-                              group, st);
+                              window, group, st);
     case 64:
       return launch_dtype<64>(q, k, v, o, bh, s, dtype, scale, causal,
-                              group, st);
+                              window, group, st);
     case 128:
       return launch_dtype<128>(q, k, v, o, bh, s, dtype, scale, causal,
-                               group, st);
+                               window, group, st);
     case 192:
       return launch_dtype<192>(q, k, v, o, bh, s, dtype, scale, causal,
-                               group, st);
+                               window, group, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

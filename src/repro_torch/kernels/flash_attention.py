@@ -1,4 +1,5 @@
-"""Causal or full softmax attention over (BH, S, dh), in one launch.
+"""Causal or full softmax attention over (BH, S, dh), optionally within a
+sliding window, in one launch.
 
 Replaces the Pallas kernel
 ``repro/kernels/flash_attention.py::flash_attention_pallas`` (body
@@ -9,7 +10,11 @@ with BH = B * H query heads, k and v are (BH / G, S, dh) with G query
 heads per KV head, G read off the shapes, and query row ``bh`` reads KV
 row ``bh // G`` (for ``bh = b*H + h`` that is ``b*(H/G) + h//G``, the
 reference LM's ``_grouped_scores``).  G = 1 is the JAX kernel's
-signature, equal-shape q, k, v.  Two versions of the same function:
+signature, equal-shape q, k, v.  A sliding ``window`` (an int >= 1, or None)
+masks the score at (q, k) where ``q - k >= window``, causal or not: the
+reference LM's ``blockwise_attention`` mask, whose codegen the TPU kernel
+is; the kernel skips the key tiles before a query tile's window.  Two
+versions of the same function:
 
 * :func:`flash_attention_cuda` launches the hand-written Hopper kernel
   (``csrc/flash_attention.cu``): one block per (bh, 64-query tile).  In
@@ -47,7 +52,8 @@ from . import build
 from .ref import flash_attention_ref
 
 __all__ = ["flash_attention_plain", "flash_attention_cuda", "check_shapes",
-           "expand_kv", "pad_head_dim", "HEAD_DIMS", "REPLACES"]
+           "check_window", "expand_kv", "pad_head_dim", "HEAD_DIMS",
+           "REPLACES"]
 
 HEAD_DIMS = (32, 64, 128, 192)  # the kernel's template instances
 REPLACES = "src/repro/kernels/flash_attention.py:71"  # flash_attention_pallas
@@ -80,16 +86,27 @@ def expand_kv(t: torch.Tensor, group: int) -> torch.Tensor:
     return t if group == 1 else t.repeat_interleave(group, dim=0)
 
 
+def check_window(window: int | None) -> int:
+    """The kernel's window argument: 0 for None, else ``window`` (>= 1)."""
+    if window is None:
+        return 0
+    if int(window) != window or window < 1:
+        raise ValueError(f"window must be None or an int >= 1, got {window!r}")
+    return int(window)
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True,
-                          scale: float | None = None) -> torch.Tensor:
+                          causal: bool = True, scale: float | None = None,
+                          window: int | None = None) -> torch.Tensor:
     """The kernel's function in PyTorch ops, with K/V repeated to the query
     heads and the scores materialized in float32: (BH, S, dh) ->
     (BH, S, dh) in ``q``'s dtype.  ``scale`` multiplies the scores
-    (default ``float32(1/sqrt(dh))``)."""
+    (default ``float32(1/sqrt(dh))``); ``window`` masks ``q - k >=
+    window``."""
     group = check_shapes(q, k, v)
+    check_window(window)
     return flash_attention_ref(q, expand_kv(k, group), expand_kv(v, group),
-                               causal, scale)
+                               causal, scale, window)
 
 
 def pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -114,7 +131,7 @@ def _lib():
     fn = build.load("flash_attention").flash_attention_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-            ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+            ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -127,11 +144,13 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True) -> torch.Tensor:
+                         causal: bool = True,
+                         window: int | None = None) -> torch.Tensor:
     """Launch the CUDA kernel on a (BH, S, dh) q and (BH / G, S, dh) k and v
-    on one CUDA device; returns a new (BH, S, dh) tensor of ``q``'s
-    dtype."""
+    on one CUDA device, within a sliding ``window`` when one is given;
+    returns a new (BH, S, dh) tensor of ``q``'s dtype."""
     group = check_shapes(q, k, v)
+    win = check_window(window)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention_cuda needs q, k, v on one CUDA "
                          f"device, got {q.device}, {k.device}, {v.device}")
@@ -151,7 +170,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      bh, s, dh_kernel, _DTYPES[q.dtype], scale,
-                     int(bool(causal)), group, stream)
+                     int(bool(causal)), win, group, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
                            f"{err}")

@@ -238,14 +238,16 @@ def tree_predict(tree: TreeArrays, x: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, impl: str = "cuda") -> torch.Tensor:
+                    causal: bool = True, impl: str = "cuda",
+                    window: Optional[int] = None) -> torch.Tensor:
     """(BH, S, dh) softmax attention, causal or full, any S, in one
     dispatch; float32 or bfloat16.  k and v hold BH / G rows, G >= 1: query
     row ``bh`` reads key/value row ``bh // G`` (G = 1 is the JAX kernel's
-    equal-shape signature)."""
+    equal-shape signature).  ``window`` (an int >= 1) masks the scores
+    where ``q - k >= window``: a sliding window, causal or not."""
     _tick()
     route = _route(impl, q)
     if route == "cuda":
         _no_backward("flash_attention", q, k, v)
-        return flash_attention_cuda(q, k, v, causal)
-    return flash_attention_plain(q, k, v, causal)
+        return flash_attention_cuda(q, k, v, causal, window)
+    return flash_attention_plain(q, k, v, causal, window=window)

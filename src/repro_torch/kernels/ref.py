@@ -150,20 +150,24 @@ def tree_ensemble_ref(tree: TreeArrays, x: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True,
-                        scale: float | None = None) -> torch.Tensor:
+                        causal: bool = True, scale: float | None = None,
+                        window: int | None = None) -> torch.Tensor:
     """(BH, S, dh) softmax attention with float32 internals: the scores
     ``q . k^T * scale`` (default ``float32(1/sqrt(dh))``), masked to -1e30
-    above the diagonal when ``causal``, a softmax over the keys and
-    ``p . v``, cast back to ``q``'s dtype."""
+    above the diagonal when ``causal`` and where ``q - k >= window`` when a
+    window is given (the reference LM's predicate), a softmax over the keys
+    and ``p . v``, cast back to ``q``'s dtype."""
     s = q.shape[1]
     if scale is None:
         scale = float(np.float32(1.0 / math.sqrt(q.shape[-1])))
     scores = torch.einsum("bqd,bkd->bqk", q.to(torch.float32),
                           k.to(torch.float32)) * scale
+    pos = torch.arange(s, device=q.device)
     if causal:
-        pos = torch.arange(s, device=q.device)
         scores = torch.where(pos[:, None] >= pos[None, :], scores, -1e30)
+    if window is not None:
+        scores = torch.where(pos[:, None] - pos[None, :] < window, scores,
+                             -1e30)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bqk,bkd->bqd", p, v.to(torch.float32))
     return out.to(q.dtype)

@@ -4,18 +4,17 @@ cached decode.
 The PyTorch counterpart of :mod:`repro.lm.attention`.  Prefill
 (:func:`attention`) routes by where its tensors lie:
 
-* on a CUDA tensor with no sliding window, the hand-written
-  ``flash_attention`` kernel (:func:`repro_torch.kernels.ops.flash_attention`)
-  on (B*Hq, S, dh) queries and (B*Hkv, S, dh) keys and values, whatever S
-  is: K/V heads are not repeated, the kernel groups the G = Hq / Hkv query
-  heads of each KV head itself (query row bh reads KV row bh // G);
+* on a CUDA tensor, the hand-written ``flash_attention`` kernel
+  (:func:`repro_torch.kernels.ops.flash_attention`) on (B*Hq, S, dh)
+  queries and (B*Hkv, S, dh) keys and values, whatever S is: K/V heads are
+  not repeated, the kernel groups the G = Hq / Hkv query heads of each KV
+  head itself (query row bh reads KV row bh // G).  A sliding ``window``
+  (zamba2's shared block) is the kernel's runtime argument: the same one
+  launch, with the key tiles before each query tile's window skipped.  A
+  kernel that fails to build or launch raises; nothing falls back;
 * on the CPU, the reference's own branch: the streaming-softmax
   :func:`blockwise_attention` when ``S % chunk == 0 and S > chunk``, else
-  :func:`full_attention` with materialized scores;
-* with a sliding ``window`` (no dense config has one), the kernel does not
-  compute the function — it masks only the causal triangle — so a windowed
-  attention takes the CPU branch's functions on either device.  The kernel
-  is never tried and given up on;
+  :func:`full_attention` with materialized scores, each with the window;
 * with ``impl="train"`` (the training route of
   :func:`repro_torch.lm.model.loss_fn`), the CPU branch's functions on
   either device: autograd differentiates them, as JAX differentiates the
@@ -156,17 +155,19 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _kernel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      causal: bool, impl: str) -> torch.Tensor:
+                      causal: bool, impl: str,
+                      window: Optional[int] = None) -> torch.Tensor:
     """One ``flash_attention`` dispatch over (B*Hq, S, dh) queries and
     (B*Hkv, S, dh) keys and values: the kernel groups the G = Hq / Hkv
     query heads of each KV head itself (query head h reads KV head h // G,
-    as the grouped form does)."""
+    as the grouped form does), within ``window`` when one is given."""
     b, s, hq, dh = q.shape
 
     def fold(t):  # (B, S, H, dh) -> contiguous (B*H, S, dh)
         return t.transpose(1, 2).reshape(b * t.shape[2], s, dh)
 
-    out = ops.flash_attention(fold(q), fold(k), fold(v), causal, impl=impl)
+    out = ops.flash_attention(fold(q), fold(k), fold(v), causal, impl=impl,
+                              window=window)
     return out.view(b, hq, s, dh).transpose(1, 2)
 
 
@@ -188,8 +189,8 @@ def attention(params: Dict, x: torch.Tensor, *, n_heads: int,
         positions = torch.arange(s, device=x.device)[None, :]
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
-    if impl != "train" and on_card(x) and window is None:
-        out = _kernel_attention(q, k, v, causal, impl)
+    if impl != "train" and on_card(x):
+        out = _kernel_attention(q, k, v, causal, impl, window)
     elif s % chunk == 0 and s > chunk:
         out = blockwise_attention(q, k, v, causal, chunk, window)
     else:

@@ -5,7 +5,10 @@ parameters are plain dicts of tensors.  Compute dtype follows the input;
 norm statistics and RoPE angles always run in float32.  The paper's PWL
 sigmoid (C3) is available for every sigmoid-derived gate (sigmoid, silu)
 via ``gate_sigmoid`` — exact by default; on the card a ``pwl4`` SiLU gate is
-one ``pwl_activation`` launch (:func:`gated_silu`).
+one ``pwl_activation`` launch (:func:`gated_silu`).  The norms compute in
+float32, or in the input's dtype where it is wider (:func:`wide`): a
+float64 model runs in float64 end to end, a check that two float32 runs
+differ by rounding alone.
 """
 
 from __future__ import annotations
@@ -21,7 +24,12 @@ from repro_torch.core.activations import get_sigmoid
 __all__ = ["rmsnorm", "layernorm", "make_norm_params", "apply_norm",
            "init_linear", "mlp_params", "apply_mlp", "activation_fn",
            "rope_freqs", "apply_rope", "init_embed", "gated_silu", "wval",
-           "apply_linear", "embed_tokens", "unembed", "on_card"]
+           "apply_linear", "embed_tokens", "unembed", "on_card", "wide"]
+
+
+def wide(dtype: torch.dtype) -> torch.dtype:
+    """float32, or ``dtype`` where it is the wider (float64)."""
+    return torch.promote_types(dtype, torch.float32)
 
 
 def on_card(x: torch.Tensor) -> bool:
@@ -35,21 +43,22 @@ def on_card(x: torch.Tensor) -> bool:
 # --------------------------------------------------------------------------
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
-    """``x / rms(x) * (1 + scale)`` in float32, cast back to ``x``'s dtype."""
-    x32 = x.to(torch.float32)
+    """``x / rms(x) * (1 + scale)`` in float32 (or wider), cast back to
+    ``x``'s dtype."""
+    x32 = x.to(wide(x.dtype))
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps)
-    return (out * (1.0 + scale.to(torch.float32))).to(x.dtype)
+    return (out * (1.0 + scale.to(x32.dtype))).to(x.dtype)
 
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
-    x32 = x.to(torch.float32)
+    x32 = x.to(wide(x.dtype))
     mean = torch.mean(x32, dim=-1, keepdim=True)
     var = torch.var(x32, dim=-1, keepdim=True, correction=0)
     out = (x32 - mean) * torch.rsqrt(var + eps)
-    return (out * (1.0 + scale.to(torch.float32))
-            + bias.to(torch.float32)).to(x.dtype)
+    return (out * (1.0 + scale.to(x32.dtype))
+            + bias.to(x32.dtype)).to(x.dtype)
 
 
 def make_norm_params(kind: str, d: int, dtype: torch.dtype,

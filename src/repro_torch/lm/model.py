@@ -1,18 +1,27 @@
-"""Model assembly for the ``"attn"`` block pattern: init / forward / loss /
-decode.
+"""Model assembly: init / forward / loss / decode for every block pattern.
 
-The PyTorch counterpart of :mod:`repro.lm.model` for its attention stacks:
-dense decoders (GQA or MHA attention, glu or standard MLP, rmsnorm or
-layernorm), MoE stacks (:mod:`.moe`, after ``first_k_dense`` dense
-layers), MLA attention (:mod:`.mla`), an encoder (bidirectional, no
-decode) and the modality front ends (audio frame embeddings in place of
-tokens; vision patch embeddings through ``modality_proj``, prepended).
+The PyTorch counterpart of :mod:`repro.lm.model`, for all three block
+patterns:
+
+* ``attn``: dense decoders (GQA or MHA attention, glu or standard MLP,
+  rmsnorm or layernorm), MoE stacks (:mod:`.moe`, after ``first_k_dense``
+  dense layers), MLA attention (:mod:`.mla`), an encoder (bidirectional,
+  no decode) and the modality front ends (audio frame embeddings in place
+  of tokens; vision patch embeddings through ``modality_proj``,
+  prepended);
+* ``mamba_hybrid`` (zamba2): ``n_layers // shared_attn_every`` groups of
+  ``shared_attn_every - 1`` Mamba2 layers (:mod:`.mamba2`), each group
+  followed by one *shared* attention + MLP block (the same parameters at
+  every call, with the config's sliding window), then a tail of the
+  remaining Mamba2 layers;
+* ``rwkv``: a stack of RWKV-6 layers (:mod:`.rwkv6`).
+
 The parameter tree keeps the reference's layout — nested dicts, the layers
-stacked on a leading axis — so weights carry across one to one
-(:func:`repro_torch.convert.lm_params_from_numpy`); a Python loop over the
-stacked index takes the place of the reference's ``lax.scan``.  The
-recurrent families (``mamba_hybrid``: zamba2; ``rwkv``) raise
-``NotImplementedError`` (roadmap item A13).
+stacked on leading axes (zamba2's ``groups`` on two) — and its dtypes,
+float32 leaves in a bf16 model included (:func:`float32_leaf`), so weights
+carry across one to one (:func:`repro_torch.convert.lm_params_from_numpy`);
+a Python loop over the stacked index takes the place of the reference's
+``lax.scan``.
 
 Public API:
   init_params(cfg, generator)            -> params tree on the generator's device
@@ -25,8 +34,10 @@ Two routes run the same layer stack (:func:`_stack`):
 
 * the serving route (``forward``, ``serve_step``), under
   ``torch.inference_mode()``: on the card each layer's attention is one
-  ``flash_attention`` launch (MLA's on the kernel's dh-192 instance) and a
-  pwl4 gate one ``pwl_activation`` launch per MLP or expert stack;
+  ``flash_attention`` launch (MLA's on the kernel's dh-192 instance,
+  zamba2's shared block with its window) and a pwl4 gate one
+  ``pwl_activation`` launch per MLP or expert stack, per Mamba2 gate and
+  per RWKV gate;
 * the training route (``loss_fn``, or ``forward(..., attn_impl="train")``):
   the reference's own branch on any device — ``blockwise_attention`` when
   ``S % attn_chunk == 0 and S > attn_chunk``, else ``full_attention`` — and
@@ -38,7 +49,8 @@ Two routes run the same layer stack (:func:`_stack`):
 
 ``init_params`` runs under ``torch.no_grad()``, so its tensors are normal
 tensors that the trainer can differentiate.  ``serve_step`` updates the
-cache's buffers in place and returns the same buffers under an advanced
+cache's buffers in place (KV caches, Mamba2's conv and SSM states, RWKV's
+WKV state and shifts) and returns the same buffers under an advanced
 ``pos``.
 """
 
@@ -52,13 +64,15 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 
 from . import attention as attn_mod
+from . import mamba2 as mamba_mod
 from . import mla as mla_mod
 from . import moe as moe_mod
+from . import rwkv6 as rwkv_mod
 from .layers import (apply_linear, apply_mlp, apply_norm, embed_tokens,
                      init_embed, init_linear, make_norm_params, mlp_params)
 
 __all__ = ["init_params", "forward", "loss_fn", "init_cache", "serve_step",
-           "require_ported", "ATTN_IMPLS"]
+           "float32_leaf", "cast_params_", "ATTN_IMPLS"]
 
 # Attention routes of the layer stack: "cuda" launches the flash_attention
 # kernel on a CUDA tensor, "ref" computes the kernel's function through its
@@ -71,19 +85,38 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def unported(cfg: ArchConfig, kind: str) -> NotImplementedError:
-    """The error for a part of ``cfg`` that the port does not run yet."""
-    return NotImplementedError(
-        f"{cfg.name}: {kind} is not ported to repro_torch yet (roadmap "
-        f"item A13, the rest of the LM stack); the port runs the attn "
-        f"block pattern")
+def float32_leaf(path: Tuple[str, ...]) -> bool:
+    """Whether the reference keeps the parameter at key ``path`` in float32
+    whatever the model's dtype: a MoE router's leaves, Mamba2's ``A_log``,
+    ``dt_bias`` and ``D``, and RWKV-6's token-shift anchors, decay base,
+    bonus, group-norm scale and LayerNorms (:data:`.rwkv6.FLOAT32_LEAVES`)."""
+    if "router" in path[:-1]:
+        return True
+    if len(path) >= 2 and path[-2] == "mamba":
+        return path[-1] in mamba_mod.FLOAT32_LEAVES
+    return (len(path) == 2 and path[0] == "layers"
+            and path[1] in rwkv_mod.FLOAT32_LEAVES)
 
 
-def require_ported(cfg: ArchConfig) -> None:
-    """Raise unless ``cfg`` runs the ``"attn"`` block pattern (dense, MoE,
-    MLA, encoder or modality front end), the one the port runs."""
-    if cfg.block_pattern != "attn":
-        raise unported(cfg, f"the {cfg.block_pattern} block pattern")
+def cast_params_(tree: Dict, dtype: torch.dtype,
+                 _path: Tuple[str, ...] = ()) -> Dict:
+    """Every floating leaf of ``tree`` to ``dtype``, in place and one leaf
+    at a time (the old leaf is freed as its copy is made), but those
+    :func:`float32_leaf` names, which stay as they are.  Returns ``tree``."""
+    for k, v in tree.items():
+        path = _path + (k,)
+        if isinstance(v, dict):
+            cast_params_(v, dtype, path)
+        elif v.is_floating_point() and not float32_leaf(path):
+            tree[k] = v.to(dtype)
+    return tree
+
+
+def _hybrid_structure(cfg: ArchConfig) -> Tuple[int, int, int]:
+    """(groups, Mamba2 layers per group, tail layers) of the hybrid."""
+    k = cfg.ssm.shared_attn_every
+    n_groups = cfg.n_layers // k
+    return n_groups, k - 1, cfg.n_layers - n_groups * k
 
 
 def _layer(stacked: Dict, i: int) -> Dict:
@@ -117,11 +150,11 @@ def _tokens(tokens: Any, device: torch.device) -> torch.Tensor:
 # ===========================================================================
 # Parameter construction
 # ===========================================================================
-def _layer_params(generator: torch.Generator, cfg: ArchConfig, n: int,
+def _layer_params(generator: torch.Generator, cfg: ArchConfig, lead: tuple,
                   ffn: Callable[[tuple], Dict], ffn_key: str) -> Dict:
-    """``n`` stacked layers: norms, attention (MLA or GQA) and the FFN
+    """Layers stacked on ``lead``: norms, attention (MLA or GQA) and the FFN
     ``ffn(lead)`` under ``ffn_key`` (the reference's leaf order)."""
-    dt, dev, lead = _dtype(cfg), generator.device, (n,)
+    dt, dev = _dtype(cfg), generator.device
     p = {"ln1": make_norm_params(cfg.norm, cfg.d_model, dt, dev, lead),
          "ln2": make_norm_params(cfg.norm, cfg.d_model, dt, dev, lead)}
     if cfg.mla is not None:
@@ -137,33 +170,48 @@ def _layer_params(generator: torch.Generator, cfg: ArchConfig, n: int,
 
 @torch.no_grad()
 def init_params(cfg: ArchConfig, generator: torch.Generator) -> Dict:
-    """Seeded parameters (the reference's layout and init scales) on the
-    generator's device: normal tensors, not inference tensors, so that
-    :func:`loss_fn` can be differentiated with respect to them."""
-    require_ported(cfg)
+    """Seeded parameters (the reference's layout, init scales and dtypes)
+    on the generator's device: normal tensors, not inference tensors, so
+    that :func:`loss_fn` can be differentiated with respect to them."""
     dt, dev = _dtype(cfg), generator.device
     params: Dict[str, Any] = {
         "embed": init_embed(generator, cfg.vocab_size, cfg.d_model, dt)}
     if cfg.modality is not None:
         params["modality_proj"] = init_linear(generator, cfg.d_model,
                                               cfg.d_model, dt)
+
+    def dense(lead, d_ff=cfg.d_ff):
+        return _layer_params(
+            generator, cfg, lead,
+            lambda lead: mlp_params(generator, cfg.d_model, d_ff,
+                                    cfg.mlp_type, dt, lead), "mlp")
+
+    def mamba(lead):
+        return {"ln": make_norm_params(cfg.norm, cfg.d_model, dt, dev, lead),
+                "mamba": mamba_mod.mamba2_params(generator, cfg.d_model,
+                                                 cfg.ssm, dt, lead)}
+
     mo = cfg.moe
-    if mo is not None:
+    if cfg.block_pattern == "rwkv":
+        params["layers"] = rwkv_mod.rwkv6_params(
+            generator, cfg.d_model, cfg.d_ff, cfg.n_heads, dt,
+            lead=(cfg.n_layers,))
+    elif cfg.block_pattern == "mamba_hybrid":
+        n_groups, per_group, tail = _hybrid_structure(cfg)
+        params["groups"] = mamba((n_groups, per_group))
+        if tail:
+            params["tail"] = mamba((tail,))
+        params["shared_attn"] = dense(())
+    elif mo is not None:
         if mo.first_k_dense:
-            params["dense_layers"] = _layer_params(
-                generator, cfg, mo.first_k_dense,
-                lambda lead: mlp_params(generator, cfg.d_model,
-                                        mo.d_ff_dense or cfg.d_ff,
-                                        cfg.mlp_type, dt, lead), "mlp")
+            params["dense_layers"] = dense((mo.first_k_dense,),
+                                           mo.d_ff_dense or cfg.d_ff)
         params["layers"] = _layer_params(
-            generator, cfg, cfg.n_layers - mo.first_k_dense,
+            generator, cfg, (cfg.n_layers - mo.first_k_dense,),
             lambda lead: moe_mod.moe_params(generator, cfg.d_model, mo,
                                             cfg.mlp_type, dt, lead), "moe")
     else:
-        params["layers"] = _layer_params(
-            generator, cfg, cfg.n_layers,
-            lambda lead: mlp_params(generator, cfg.d_model, cfg.d_ff,
-                                    cfg.mlp_type, dt, lead), "mlp")
+        params["layers"] = dense((cfg.n_layers,))
     params["final_norm"] = make_norm_params(cfg.norm, cfg.d_model, dt, dev)
     if not cfg.tie_embeddings:
         params["head"] = init_linear(generator, cfg.d_model, cfg.vocab_size,
@@ -246,13 +294,47 @@ def _logits(cfg: ArchConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
     return apply_linear(params["head"], x).to(torch.float32)
 
 
+def _mamba_block(cfg: ArchConfig, p: Dict, x: torch.Tensor,
+                 attn_impl: str) -> torch.Tensor:
+    return x + mamba_mod.mamba2_forward(
+        p["mamba"], apply_norm(cfg.norm, p["ln"], x), cfg.d_model, cfg.ssm,
+        cfg.gate_sigmoid, fused=attn_impl != "train")
+
+
+def _rwkv_block(cfg: ArchConfig, p: Dict, x: torch.Tensor,
+                attn_impl: str) -> torch.Tensor:
+    return rwkv_mod.rwkv6_forward(p, x, cfg.n_heads, cfg.gate_sigmoid,
+                                  fused=attn_impl != "train")
+
+
 def _stacks(cfg: ArchConfig, dense: Callable, moe: Callable) -> List:
-    """(params key, block) of each layer stack in order: a MoE config's
-    leading dense layers (absent when ``first_k_dense`` is 0), then its MoE
-    layers; a dense config's layers."""
+    """(params key, block) of each attention-pattern stack in order: a MoE
+    config's leading dense layers (absent when ``first_k_dense`` is 0),
+    then its MoE layers; a dense config's layers."""
     if cfg.moe is None:
         return [("layers", dense)]
     return [("dense_layers", dense), ("layers", moe)]
+
+
+def _layer_calls(cfg: ArchConfig, params: Dict) -> List[Tuple[Callable,
+                                                              Dict]]:
+    """(block, layer parameters) of every layer call of the forward, in
+    order.  The hybrid calls the one ``shared_attn`` block after each group
+    of Mamba2 layers, then runs its tail."""
+    if cfg.block_pattern == "rwkv":
+        return [(_rwkv_block, p) for p in _unbind_layers(params["layers"])]
+    if cfg.block_pattern == "mamba_hybrid":
+        calls = []
+        for group in _unbind_layers(params["groups"]):
+            calls += [(_mamba_block, p) for p in _unbind_layers(group)]
+            calls.append((_dense_block, params["shared_attn"]))
+        if "tail" in params:
+            calls += [(_mamba_block, p)
+                      for p in _unbind_layers(params["tail"])]
+        return calls
+    return [(block, p)
+            for key, block in _stacks(cfg, _dense_block, _moe_block)
+            if key in params for p in _unbind_layers(params[key])]
 
 
 def _stack(params: Dict, batch: Dict, cfg: ArchConfig,
@@ -262,18 +344,13 @@ def _stack(params: Dict, batch: Dict, cfg: ArchConfig,
     if attn_impl not in ATTN_IMPLS:
         raise KeyError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                        f"{attn_impl!r}")
-    require_ported(cfg)
     x = _embed_inputs(cfg, params, batch)
     remat = attn_impl == "train" and cfg.remat and torch.is_grad_enabled()
-    for key, block in _stacks(cfg, _dense_block, _moe_block):
-        if key not in params:
-            continue
-        for p in _unbind_layers(params[key]):
-            if remat:
-                x = checkpoint(block, cfg, p, x, attn_impl,
-                               use_reentrant=False)
-            else:
-                x = block(cfg, p, x, attn_impl)
+    for block, p in _layer_calls(cfg, params):
+        if remat:
+            x = checkpoint(block, cfg, p, x, attn_impl, use_reentrant=False)
+        else:
+            x = block(cfg, p, x, attn_impl)
     return _logits(cfg, params, x)
 
 
@@ -325,21 +402,40 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device: Any) -> Dict:
     """The decode cache: ``pos`` and, per stack (``dense_layers`` first
     when a MoE config has them, then ``layers``), an MLA latent cache or a
-    GQA KV cache stacked over its layers."""
-    require_ported(cfg)
+    GQA KV cache stacked over its layers; RWKV's state per layer; the
+    hybrid's Mamba2 states (``groups``, ``tail``) and one KV cache of
+    ``min(sliding_window, max_len)`` slots a group for the shared block."""
     device = torch.device(device)
     dt, kv_q = _dtype(cfg), cfg.kv_cache_dtype == "int8"
 
-    def mk(n):
+    def mk(n, length=max_len):
         if cfg.mla is not None:
-            return mla_mod.init_mla_cache(batch, max_len, cfg.mla, dt, device,
+            return mla_mod.init_mla_cache(batch, length, cfg.mla, dt, device,
                                           quantized=kv_q, lead=(n,))
-        return attn_mod.init_kv_cache(batch, max_len, cfg.n_kv_heads,
+        return attn_mod.init_kv_cache(batch, length, cfg.n_kv_heads,
                                       cfg.head_dim, dt, device,
                                       quantized=kv_q, lead=(n,))
 
     cache: Dict[str, Any] = {"pos": torch.zeros((), dtype=torch.int32,
                                                 device=device)}
+    if cfg.block_pattern == "rwkv":
+        cache["layers"] = rwkv_mod.init_rwkv_cache(
+            batch, cfg.d_model, cfg.n_heads, dt, device,
+            lead=(cfg.n_layers,))
+        return cache
+    if cfg.block_pattern == "mamba_hybrid":
+        n_groups, per_group, tail = _hybrid_structure(cfg)
+
+        def states(lead):
+            return mamba_mod.init_mamba_cache(batch, cfg.d_model, cfg.ssm,
+                                              dt, device, lead)
+
+        cache["groups"] = states((n_groups, per_group))
+        if tail:
+            cache["tail"] = states((tail,))
+        cache["shared_attn"] = mk(
+            n_groups, min(cfg.sliding_window or max_len, max_len))
+        return cache
     n_dense = cfg.moe.first_k_dense if cfg.moe is not None else 0
     if n_dense:
         cache["dense_layers"] = mk(n_dense)
@@ -379,26 +475,59 @@ def _decode_moe_block(cfg, p, x, layer_cache, pos):
     return x, new_cache
 
 
+def _decode_mamba_block(cfg, p, x, layer_cache, pos):
+    out, new_cache = mamba_mod.mamba2_decode(
+        p["mamba"], apply_norm(cfg.norm, p["ln"], x), layer_cache,
+        cfg.d_model, cfg.ssm, cfg.gate_sigmoid)
+    return x + out, new_cache
+
+
+def _decode_rwkv_block(cfg, p, x, layer_cache, pos):
+    return rwkv_mod.rwkv6_decode(p, x, layer_cache, cfg.n_heads,
+                                 cfg.gate_sigmoid)
+
+
+def _decode_calls(cfg: ArchConfig, params: Dict) -> List:
+    """(block, layer parameters, cache key, index into the stacked cache)
+    of every layer call of a decode step, in the forward's order."""
+    if cfg.block_pattern == "rwkv":
+        return [(_decode_rwkv_block, _layer(params["layers"], i), "layers",
+                 i) for i in range(cfg.n_layers)]
+    if cfg.block_pattern == "mamba_hybrid":
+        n_groups, per_group, _ = _hybrid_structure(cfg)
+        calls = []
+        for g in range(n_groups):
+            group = _layer(params["groups"], g)
+            calls += [(_decode_mamba_block, _layer(group, j), "groups",
+                       (g, j)) for j in range(per_group)]
+            calls.append((_decode_dense_block, params["shared_attn"],
+                          "shared_attn", g))
+        if "tail" in params:
+            calls += [(_decode_mamba_block, _layer(params["tail"], i),
+                       "tail", i) for i in range(_n_layers(params["tail"]))]
+        return calls
+    return [(block, _layer(params[key], i), key, i)
+            for key, block in _stacks(cfg, _decode_dense_block,
+                                      _decode_moe_block)
+            if key in params for i in range(_n_layers(params[key]))]
+
+
 @torch.inference_mode()
 def serve_step(params: Dict, cache: Dict, batch: Dict,
                cfg: ArchConfig) -> Tuple[torch.Tensor, Dict]:
     """One decode step: new tokens (B,) -> logits (B, vocab), cache.  The
     cache's buffers are written in place (a windowed layer's shifted buffer
     is copied back into its slot of the stack)."""
-    require_ported(cfg)
     pos = cache["pos"]
     tok = _tokens(batch["token"], pos.device)
     x = embed_tokens(params["embed"], tok[:, None])  # (B, 1, d)
-    new: Dict[str, Any] = {"pos": pos + 1}
-    for key, block in _stacks(cfg, _decode_dense_block, _decode_moe_block):
-        if key not in params:
-            continue
-        stacked, layers = cache[key], params[key]
-        for i in range(_n_layers(layers)):
-            layer_cache = {k: c[i] for k, c in stacked.items()}
-            x, new_cache = block(cfg, _layer(layers, i), x, layer_cache, pos)
-            for k, c in new_cache.items():
-                if c is not layer_cache[k]:
-                    stacked[k][i].copy_(c)
-        new[key] = stacked
+    for block, p, key, i in _decode_calls(cfg, params):
+        stacked = cache[key]
+        layer_cache = {k: c[i] for k, c in stacked.items()}
+        x, new_cache = block(cfg, p, x, layer_cache, pos)
+        for k, c in new_cache.items():
+            if c is not layer_cache[k]:
+                stacked[k][i].copy_(c)
+    new = {"pos": pos + 1}
+    new.update((k, v) for k, v in cache.items() if k != "pos")
     return _logits(cfg, params, x[:, 0]), new

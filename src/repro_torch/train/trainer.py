@@ -173,7 +173,6 @@ def synthetic_token_stream(arch: ArchConfig, batch: int, seq: int,
     the vision one the text ``tokens`` after ``n_prefix_embeds`` float32
     ``image_embeds`` (drawn from the same ``RandomState`` calls in the same
     order)."""
-    model_lib.require_ported(arch)
     vocab = arch.vocab_size
     step = start_step
 

@@ -695,6 +695,66 @@ def test_flash_attention_padded_head_dims_and_float16(dev, dtype, atol):
                 assert err <= atol, (dh, s, causal, err)
 
 
+@pytest.mark.parametrize("dtype,atol,row_rtol", [(torch.float32, 2e-5, None),
+                                                 (torch.bfloat16, 3e-2, 4e-2)])
+def test_flash_attention_window_matches_plain(dev, dtype, atol, row_rtol):
+    """A sliding window in the kernel (scores masked where q - k >= window,
+    the key tiles before a query tile's window skipped), causal and not:
+    windows 1, 63, 64, 65, S - 1, S and S + 1 at ragged and tile-aligned S,
+    grouped (G 7, dh 64) and at zamba2's dh 112 (padded to 128), within
+    the kernel's bounds of the plain version."""
+    from repro_torch.compile.lowerings.common import require_full_float32
+    from repro_torch.kernels import flash_attention as fa
+
+    require_full_float32(dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    for causal in (True, False):
+        for s in (65, 300, 2048):
+            for window in (1, 63, 64, 65, s - 1, s, s + 1):
+                for dh, bh, group in ((64, 56, 7), (112, 32, 1)):
+                    q = torch.randn(bh, s, dh, generator=g, device=dev)
+                    k, v = (torch.randn(bh // group, s, dh, generator=g,
+                                        device=dev) for _ in range(2))
+                    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+                    before = fa.flash_attention_cuda.launches
+                    got = ops.flash_attention(q, k, v, causal, window=window)
+                    assert fa.flash_attention_cuda.launches == before + 1
+                    want = fa.flash_attention_plain(q, k, v, causal,
+                                                    window=window)
+                    assert bool(torch.isfinite(got).all())
+                    diff = (got.float() - want.float()).abs()
+                    what = (causal, s, window, dh, group)
+                    assert float(diff.max()) <= atol, what
+                    if row_rtol is not None:
+                        rel = float((diff.amax(-1) / want.float().abs()
+                                     .amax(-1).clamp_min(1e-30)).max())
+                        assert rel <= row_rtol, what
+
+
+def test_zamba2_prefill_launches_the_windowed_kernel(dev):
+    """A reduced zamba2 forward on the card: one flash_attention launch per
+    shared-block call (window 64 at S 192), logits within 1e-4 of the same
+    forward through the oracle's attention, and of the host's."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.lm import model as M
+
+    cfg = get_config("zamba2-7b").reduced()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    tok = torch.from_numpy(np.random.RandomState(0).randint(
+        1, cfg.vocab_size, (2, 192)).astype(np.int32)).to(dev)
+    n_groups = cfg.n_layers // cfg.ssm.shared_attn_every
+    before = fa.flash_attention_cuda.launches
+    logits = M.forward(params, {"tokens": tok}, cfg)
+    assert fa.flash_attention_cuda.launches == before + n_groups
+    plain = M.forward(params, {"tokens": tok}, cfg, attn_impl="ref")
+    assert fa.flash_attention_cuda.launches == before + n_groups
+    scale = float(plain.abs().max())
+    assert float((logits - plain).abs().max()) <= 1e-4 * scale
+    host = M.forward(_to_cpu(params), {"tokens": tok.cpu()}, cfg)
+    assert float((logits.cpu() - host).abs().max()) <= 1e-4 * scale
+
+
 def test_lm_forward_on_card_launches_kernel_per_layer(dev):
     """A reduced qwen2 forward on the card: one flash_attention launch per
     layer, logits equal to the same forward through the oracle's

@@ -20,6 +20,7 @@ import repro  # noqa: F401  (enables jax x64, as the reference runs)
 from repro.kernels import ops as jops
 from repro.kernels import flash_attention as jfa
 from repro.kernels import ref as jref
+from repro.lm import attention as jattn
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -185,3 +186,68 @@ def test_mla_head_dim_with_padded_v_matches_reference_kernel(causal):
     tq, tk, tv = _port((q, k, v))
     short = tref.flash_attention_ref(tq, tk, tv[..., :128], causal)
     np.testing.assert_allclose(got[..., :128], short.numpy(), atol=2e-6)
+
+
+def _fold(t):
+    """(B, S, H, dh) -> (B*H, S, dh), the LM's layout for the kernel."""
+    b, s, h, dh = t.shape
+    return t.transpose(1, 2).reshape(b * h, s, dh)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [1, 63, 64, 65, 127, 128, 133])
+def test_flash_attention_window_matches_reference_attention(causal, window):
+    """A sliding window (the score at (q, k) masked where q - k >= window,
+    causal or not) in the kernel's function, against the reference LM's
+    ``blockwise_attention`` (chunk 32, the mask the TPU kernel's docstring
+    names as its source) and ``full_attention`` with the same window, at
+    S 128, 8 query heads over 2 KV heads (G 4): windows of 1, around the
+    tile width, S - 1, S and above S."""
+    b, s, hq, hkv, dh = 2, 128, 8, 2, 32
+    rng = np.random.RandomState(window + 1000 * causal)
+    q = rng.randn(b, s, hq, dh).astype(np.float32)
+    k, v = (rng.randn(b, s, hkv, dh).astype(np.float32) for _ in range(2))
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    want_block = np.asarray(jattn.blockwise_attention(jq, jk, jv, causal, 32,
+                                                      window))
+    want_full = np.asarray(jattn.full_attention(jq, jk, jv, causal, window))
+    tq, tk, tv = (_fold(torch.from_numpy(a)) for a in (q, k, v))
+    for got in (tfa.flash_attention_plain(tq, tk, tv, causal, window=window),
+                tops.flash_attention(tq, tk, tv, causal, window=window),
+                tref.flash_attention_ref(tq, tfa.expand_kv(tk, 4),
+                                         tfa.expand_kv(tv, 4), causal,
+                                         window=window)):
+        got = got.view(b, hq, s, dh).transpose(1, 2).numpy()
+        np.testing.assert_allclose(got, want_block, atol=2e-5)
+        np.testing.assert_allclose(got, want_full, atol=2e-5)
+    if window == 1 and causal:  # each query sees only its own key
+        np.testing.assert_allclose(got, np.repeat(v, 4, axis=2), atol=1e-6)
+    if window >= s and causal:  # no key is left out: the causal function
+        np.testing.assert_array_equal(
+            tfa.flash_attention_plain(tq, tk, tv, causal, window=window),
+            tfa.flash_attention_plain(tq, tk, tv, causal))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_window_at_ragged_lengths(causal):
+    """Any S with a window (S 100 and 1, window 7): against the reference's
+    ``full_attention``, which the LM takes when the chunk does not divide
+    S."""
+    for s in (1, 100):
+        rng = np.random.RandomState(s)
+        q, k, v = (rng.randn(1, s, 4, 64).astype(np.float32)
+                   for _ in range(3))
+        want = np.asarray(jattn.full_attention(*map(jnp.asarray, (q, k, v)),
+                                               causal, 7))
+        got = tops.flash_attention(*(_fold(torch.from_numpy(a))
+                                     for a in (q, k, v)), causal, window=7)
+        np.testing.assert_allclose(
+            got.view(1, 4, s, 64).transpose(1, 2).numpy(), want, atol=2e-5)
+
+
+def test_window_must_be_a_positive_int():
+    q, k, v = _port(_qkv(3, 2, 16, 32))
+    for bad in (0, -4, 2.5):
+        with pytest.raises(ValueError, match="window"):
+            tops.flash_attention(q, k, v, window=bad)
+    assert tfa.check_window(None) == 0 and tfa.check_window(5) == 5

@@ -424,17 +424,31 @@ def test_serve_step_matches_reference(kv):
 
 
 def test_unported_families_raise():
-    """The recurrent block patterns are not ported yet (MoE, MLA and the
-    front ends are: ``tests/test_torch_lm_families.py``)."""
-    cfg = dataclasses.replace(tget_config("qwen2-0.5b").reduced(),
-                              block_pattern="mamba_hybrid")
-    with pytest.raises(NotImplementedError, match="A13"):
-        TM.init_params(cfg, torch.Generator())
-    rwkv = ArchConfig(name="x", family="ssm", n_layers=1, d_model=64,
-                      n_heads=2, n_kv_heads=2, d_ff=64, vocab_size=32,
-                      block_pattern="rwkv")
-    with pytest.raises(NotImplementedError, match="rwkv"):
-        TM.init_cache(rwkv, 1, 4, "cpu")
+    """The recurrent block patterns, once refused by the port, now run:
+    zamba2's and rwkv6's reduced configs get the reference's parameter and
+    cache trees (every path, shape and dtype) and a forward within 1e-4 of
+    the reference's (their own tests: ``tests/test_torch_lm_recurrent.py``,
+    ``test_torch_mamba2.py``, ``test_torch_rwkv6.py``)."""
+    for arch in ("zamba2-7b", "rwkv6-1.6b"):
+        jcfg, tcfg = _cfgs(arch)
+        assert tcfg.block_pattern in ("mamba_hybrid", "rwkv")
+        want = _flat(_np(JM.init_params(jcfg, jax.random.PRNGKey(0))))
+        got = _flat(TM.init_params(tcfg, torch.Generator().manual_seed(0)))
+        assert sorted(got) == sorted(want)
+        for path, w in want.items():
+            assert tuple(got[path].shape) == w.shape, path
+            assert str(got[path].dtype).replace("torch.", "") == \
+                str(w.dtype), path
+        want = _flat(_np(JM.init_cache(jcfg, 2, 16)))
+        got = _flat(TM.init_cache(tcfg, 2, 16, "cpu"))
+        assert sorted(got) == sorted(want)
+        for path, w in want.items():
+            assert tuple(got[path].shape) == w.shape, path
+        jp, tp = _params(arch, jcfg)
+        tok = _tokens(jcfg, 2, 64)
+        want = JM.forward(jp, {"tokens": jnp.asarray(tok)}, jcfg)
+        got = TM.forward(tp, {"tokens": _t(tok)}, tcfg)
+        assert _rel(got, want) <= 1e-4
 
 
 def test_bf16_params_round_trip_bit_for_bit():

@@ -182,18 +182,16 @@ def test_token_stream_bit_for_bit(seed, start):
 
 def test_token_stream_raises_for_unported_modalities():
     """The audio and vision streams are ported (the reference's batches bit
-    for bit); a block pattern the port does not run yet still raises."""
-    for arch in ("hubert-xlarge", "llava-next-mistral-7b"):
+    for bit), and so, now that the port runs them, are the recurrent block
+    patterns' (zamba2, rwkv6): nothing raises any more."""
+    for arch in ("hubert-xlarge", "llava-next-mistral-7b", "zamba2-7b",
+                 "rwkv6-1.6b"):
         jc, tc = _cfgs(arch)
         want = next(JT.synthetic_token_stream(jc, 2, 16, seed=4))
         got = next(TT.synthetic_token_stream(tc, 2, 16, seed=4))
         assert sorted(got) == sorted(want)
         for k in want:
             np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
-    cfg = dataclasses.replace(tget_config("qwen2-0.5b").reduced(),
-                              block_pattern="rwkv")
-    with pytest.raises(NotImplementedError, match="A13"):
-        next(TT.synthetic_token_stream(cfg, 2, 8))
 
 
 # --------------------------------------------------------------------------
@@ -414,12 +412,18 @@ def test_serving_route_under_grad_raises(monkeypatch):
 
 
 def test_loss_fn_rejects_unported_families():
-    cfg = tget_config("qwen2-0.5b").reduced()
-    _, tp = _params(_cfgs("qwen2-0.5b")[0])
-    for kw in (dict(block_pattern="rwkv"), dict(block_pattern="mamba_hybrid")):
-        with pytest.raises(NotImplementedError, match="A13"):
-            TM.loss_fn(tp, {"tokens": torch.zeros(1, 4, dtype=torch.int32)},
-                       dataclasses.replace(cfg, **kw))
+    """The recurrent block patterns, once refused, now train: ``loss_fn``
+    of zamba2 and rwkv6 at their reduced configs within LOSS_RTOL of the
+    reference's on the stream's batch (their gradients:
+    ``tests/test_torch_lm_recurrent.py``)."""
+    for arch in ("zamba2-7b", "rwkv6-1.6b"):
+        jc, tc = _cfgs(arch)
+        jp, tp = _params(jc)
+        jb, tb = _batches(jc, tc, 2, 64, seed=3)
+        want = float(JM.loss_fn(jp, jb, jc))
+        got = TM.loss_fn(tp, tb, tc)
+        assert got.dtype == torch.float32
+        assert abs(float(got) - want) <= LOSS_RTOL * abs(want)
 
 
 # --------------------------------------------------------------------------

@@ -99,9 +99,10 @@ def test_mla_kernel_route_matches_reference(shape, impl, monkeypatch):
     shapes = []
     plain = tfa.flash_attention_plain
 
-    def spy(q, k, v, causal=True, scale=None):
+    def spy(q, k, v, causal=True, scale=None, window=None):
+        assert window is None  # MLA has no sliding window
         shapes.append((tuple(q.shape), tuple(k.shape), causal))
-        return plain(q, k, v, causal, scale)
+        return plain(q, k, v, causal, scale, window=window)
 
     monkeypatch.setattr(tmla, "on_card", lambda x: True)
     monkeypatch.setattr(tops, "flash_attention_plain", spy)
