@@ -233,6 +233,32 @@ Phases, each of which raises on failure:
       pwl4 launches a Mamba2 or RWKV layer a step there); and
       ``launch/train.py`` at the reduced config for 3 steps in its own
       process.  Grep ``4J`` for the lines.
+   K. data-parallel classifier serving over a mesh (after J; MESH_ARTS:
+      path A's MLP at fxp16 and auto8 and logistic at fxp16, path B's
+      depth-12 tree and D6 rbf SVM at fxp16, all on the card).  K1:
+      ``spmd`` over ``make_serving_mesh()`` (every visible card) at 1, 3,
+      64, 3089 and 65536 rows: labels and ``predict_with_stats`` counts
+      equal the single-device artifact's bit for bit, one launch of the
+      kernel a replica a predict (twice that on the first padded call: the
+      pad-row probe), ``predict`` ms at 3089 and 65536 rows beside the
+      single-device artifact's (in turns), and on two or more cards each
+      replica's launch in a torch.profiler trace of its own card.  K2:
+      ``fused`` over ``make_host_mesh(4)`` with the same artifacts: one
+      launch a call untracked; 12 calls under a FaultPlan that faults
+      ``mesh.replica`` on replica 0 three times (evicted after two, a
+      failed probe, then re-admitted): labels bit for bit, 4 launches a
+      call, the tracker's snapshot with an eviction, a probe and a
+      re-admission; at ``Target(batch_policy="fixed", batch_size=64)``
+      capacity 256 and 257 rows raise the reference's error.  K3: one
+      InferenceService with the MLP registered single-device, on the K1
+      mesh and on the K2 mesh (a second K1 registration a cache hit; three
+      cache keys); 8 client threads send 240 requests of 1, 16 and 256
+      rows to each endpoint in turn, every label equal to the
+      single-device artifact's; requests/s and p50/p99 printed; the fused
+      endpoint's snapshot has ``replica_health``.  K4: ``launch/serve.py
+      --classifier mlp --dp <cards>`` serves (in process); ``--dp <cards +
+      1>`` raises ``make_serving_mesh``'s error.  Grep ``4K`` for the
+      lines.
    In A, B and D, labels equal the plain versions' on the card (in D, each
    member's own predict); in A and B the rows where ``ref`` and ``cuda``
    differ are printed as information.
@@ -3412,6 +3438,297 @@ def main_path_recurrent(torch, K):
 
 
 # --------------------------------------------------------------------------
+# phase 4K: data-parallel classifier serving over a device mesh (spmd over
+# the cards, fused over a host mesh with replica health, the serving plane
+# and --dp)
+# --------------------------------------------------------------------------
+# (key in arts_a / arts_b, kernel): D6's MLP at fxp16 and auto8, the
+# logistic at fxp16, the depth-12 tree and the rbf SVM at fxp16
+MESH_ARTS = ((("mlp", "fxp16"), "fxp_mlp_model"),
+             (("mlp", "auto8"), "fxp_mlp_model"),
+             (("logistic", "fxp16"), "fxp_layer"),
+             (("tree", "D6", "fxp16"), "tree_ensemble"),
+             (("svm-rbf", "D6", "fxp16"), "fxp_svm_model"))
+MESH_BATCHES = (1, 3, 64, 3089, 65536)
+MESH_TIMED = (3089, 65536)
+MESH_HOST_REPLICAS = 4
+MESH_FIXED_BATCH = 64
+MESH_REQUEST_ROWS = (1, 16, 256)
+MESH_CLIENTS = 8
+
+
+def _mesh_predicts(K, sharded, single, x, batches, per_call, what):
+    """Each batch through the mesh artifact: labels and stats equal to the
+    single-device artifact's bit for bit, ``per_call`` launches of the
+    kernel a predict (twice that on the wrapper's first padded call, which
+    runs its pad-row probe)."""
+    name, n = per_call
+    probed = False
+    for b in batches:
+        padded = K.sharding.replica_bucket(b, sharded.replicas)[1] > b
+        want = n * (2 if padded and not probed else 1)
+        probed = probed or padded
+        before = launch_counts(K)
+        got = sharded.predict_with_stats(x[:b])
+        expect_launches(K, before, {name: want}, f"{what} batch {b}")
+        ref = single.predict_with_stats(x[:b])
+        if not np.array_equal(got[0], ref[0]) or got[1] != ref[1]:
+            raise AssertionError(
+                f"{what} batch {b}: {int((got[0] != ref[0]).sum())} labels "
+                f"differ, stats {got[1]} vs {ref[1]}")
+
+
+def _per_device_launches(torch, sharded, x, kernel):
+    """The devices whose trace holds the kernel in one predict (spmd on two
+    or more cards: each replica's launch on its own card)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sharded.predict(x)
+        torch.cuda.synchronize()
+    return sorted({e.device_index for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and kernel in e.name})
+
+
+def _mesh_times(torch, sharded, single, x, what):
+    """predict ms (host clock, labels on the host) of the mesh artifact
+    beside the single-device artifact, in turns, at MESH_TIMED rows."""
+    for b in MESH_TIMED:
+        times = {"single": [], "mesh": []}
+        for _ in range(6):
+            for side in ("single", "mesh", "mesh", "single"):
+                art = single if side == "single" else sharded
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                art.predict(x[:b])
+                times[side].append((time.perf_counter() - t0) * 1e3)
+        med = {k: float(np.median(v)) for k, v in times.items()}
+        log(f"  4K {what} predict at {b} rows: mesh {med['mesh']:.4f} ms, "
+            f"single {med['single']:.4f} ms (median of 12 in turns; "
+            f"{med['mesh'] / med['single']:.3f}x)")
+
+
+def mesh_spmd(torch, K, dev, arts, x):
+    """K1: spmd over make_serving_mesh() (every visible card)."""
+    mesh = K.sharding.make_serving_mesh()
+    replicas = K.sharding.dp_size(mesh)
+    if replicas != dev.count:
+        raise AssertionError(f"serving mesh of {replicas} replicas on "
+                             f"{dev.count} cards")
+    for key, kernel in MESH_ARTS:
+        single = arts[key]
+        sharded = single.specialize_mesh(mesh)
+        what = f"K1 spmd {' '.join(key)} x{replicas}"
+        if sharded.mesh_strategy != "spmd" or sharded.replicas != replicas:
+            raise AssertionError(f"{what}: {sharded.mesh_strategy} "
+                                 f"x{sharded.replicas}")
+        _mesh_predicts(K, sharded, single, x, MESH_BATCHES,
+                       (kernel, replicas), what)
+        _mesh_times(torch, sharded, single, x, what)
+        if replicas >= 2:
+            seen = _per_device_launches(torch, sharded, x[:3089], kernel)
+            if seen != list(range(replicas)):
+                raise AssertionError(f"{what}: {kernel} traced on devices "
+                                     f"{seen}")
+            log(f"  4K {what}: {kernel} traced on devices {seen}")
+    if replicas < 2:
+        log("  4K K1: one card, so the per-card profiler check (one replica "
+            "a card) did not run")
+    return mesh
+
+
+def mesh_fused(torch, K, arts, x):
+    """K2: fused over make_host_mesh(4) with the CUDA artifacts: untracked,
+    under a mesh.replica fault plan, and at a fixed batch."""
+    S = K.serve
+    host = K.sharding.make_host_mesh(MESH_HOST_REPLICAS)
+    for key, kernel in MESH_ARTS:
+        single = arts[key]
+        sharded = single.specialize_mesh(host)
+        what = f"K2 fused {' '.join(key)} x{MESH_HOST_REPLICAS}"
+        if sharded.mesh_strategy != "fused" or sharded.device != single.device:
+            raise AssertionError(f"{what}: {sharded.mesh_strategy} on "
+                                 f"{sharded.device}")
+        _mesh_predicts(K, sharded, single, x, MESH_BATCHES[:4], (kernel, 1),
+                       what + " untracked")
+        golden = single.predict(x[:64])
+        plan = S.FaultPlan([S.FaultRule(site="mesh.replica", match="0",
+                                        transient=True, count=3)])
+        with S.faults.inject(plan):
+            for i in range(12):
+                before = launch_counts(K)
+                if not np.array_equal(sharded.predict(x[:64]), golden):
+                    raise AssertionError(f"{what}: call {i} under the fault "
+                                         f"plan changed a label")
+                expect_launches(K, before, {kernel: MESH_HOST_REPLICAS},
+                                f"{what} tracked call {i}")
+        snap = sharded.replica_health.snapshot()
+        if (snap["evictions"] < 1 or snap["probes"] < 1
+                or snap["readmissions"] < 1
+                or snap["healthy"] != list(range(MESH_HOST_REPLICAS))):
+            raise AssertionError(f"{what}: replica health {snap}")
+        log(f"  4K {what}: labels equal the single-device artifact's at "
+            f"{MESH_BATCHES[:4]} rows, one launch a call; 12 calls under the "
+            f"fault plan bit for bit, {MESH_HOST_REPLICAS} launches each; "
+            f"health {snap}")
+    model = K.models.init_mlp([561, 64, 6], seed=0)  # path A's MLP
+    fixed = K.tc.compile(model, K.tc.Target(
+        number_format="fxp16", backend="cuda", batch_policy="fixed",
+        batch_size=MESH_FIXED_BATCH)).specialize_mesh(host)
+    cap = MESH_FIXED_BATCH * MESH_HOST_REPLICAS
+    if fixed.max_supported_batch != cap:
+        raise AssertionError(f"K2 fixed capacity {fixed.max_supported_batch}")
+    golden = arts[("mlp", "fxp16")].predict(x[:cap])
+    before = launch_counts(K)
+    labels = fixed.predict(x[:cap])
+    expect_launches(K, before, {"fxp_mlp_model": MESH_HOST_REPLICAS},
+                    "K2 fixed")
+    if not np.array_equal(labels, golden):
+        raise AssertionError("K2 fixed: labels differ")
+    want = (f"batch {cap + 1} exceeds the mesh capacity {cap} "
+            f"({MESH_HOST_REPLICAS} replicas x fixed batch_size "
+            f"{MESH_FIXED_BATCH}); recompile or grow the mesh")
+    try:
+        fixed.predict(x[:cap + 1])
+    except ValueError as e:
+        if str(e) != want:
+            raise AssertionError(f"K2 fixed: {e}") from e
+    else:
+        raise AssertionError(f"K2 fixed: {cap + 1} rows did not raise")
+    log(f"  4K K2 fixed batch {MESH_FIXED_BATCH}: capacity {cap}, {cap} rows "
+        f"equal in {MESH_HOST_REPLICAS} launches, {cap + 1} rows raise: "
+        f"{want}")
+    return host
+
+
+def _mesh_clients(svc, names, x, golden):
+    """MESH_CLIENTS threads send requests of MESH_REQUEST_ROWS rows in turns
+    to each endpoint of ``names`` in turn (all of one endpoint's before the
+    next): latencies and wall seconds by endpoint; every label must equal
+    ``golden``."""
+    jobs = [(k * 97 % (len(x) - 256), MESH_REQUEST_ROWS[k % 3])
+            for k in range(240)]
+    out = {}
+    for name in names:
+        lat, errors = [0.0] * len(jobs), []
+
+        def client(c):
+            try:
+                for i in range(c, len(jobs), MESH_CLIENTS):
+                    lo, n = jobs[i]
+                    t0 = time.perf_counter()
+                    got = svc.predict(name, x[lo:lo + n])
+                    lat[i] = time.perf_counter() - t0
+                    if not np.array_equal(got, golden[lo:lo + n]):
+                        errors.append((name, lo, n))
+            except Exception as e:  # reported below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(MESH_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"K3 {name}: {errors[:3]}")
+        out[name] = (lat, time.perf_counter() - t0, len(jobs))
+    return out
+
+
+def mesh_serving(torch, K, spmd_mesh, host_mesh, x):
+    """K3: one InferenceService on the card with a single-device, an spmd
+    and a fused endpoint of one model; K4: launch/serve.py --dp."""
+    S = K.serve
+    model = K.models.init_mlp([561, 64, 6], seed=0)  # path A's MLP
+    target = K.tc.Target(number_format="fxp16", backend="cuda")
+    svc = S.InferenceService()
+    try:
+        policy = S.BatchingPolicy(max_batch=256, max_wait_ms=2.0)
+        ep_single = svc.register("single", model, target, policy=policy)
+        ep_spmd = svc.register("spmd", model, target, mesh=spmd_mesh,
+                               policy=policy)
+        ep_fused = svc.register("fused", model, target, mesh=host_mesh,
+                                policy=policy)
+        again = svc.register("spmd_again", model, target, mesh=spmd_mesh,
+                             policy=policy)
+        cache = svc.stats()["_cache"]
+        keys = {ep.artifact.cache_key for ep in (ep_single, ep_spmd, ep_fused)}
+        if (again.artifact is not ep_spmd.artifact or cache["hits"] != 1
+                or cache["misses"] != 3 or len(keys) != 3):
+            raise AssertionError(f"K3 cache {cache}, {len(keys)} keys")
+        if (ep_spmd.artifact.mesh_strategy, ep_fused.artifact.mesh_strategy) \
+                != ("spmd", "fused"):
+            raise AssertionError("K3 strategies")
+        golden = ep_single.artifact.predict(x)
+        runs = _mesh_clients(svc, ("single", "spmd", "fused"), x, golden)
+        stats = svc.stats()
+    finally:
+        svc.close()
+    health = stats["fused"].get("replica_health")
+    if health is None or "replica_health" in stats["spmd"]:
+        raise AssertionError(f"K3 replica_health: {health}")
+    for name, (lat, wall, n) in runs.items():
+        log(f"  4K K3 {name:6s} endpoint: {n} requests of "
+            f"{MESH_REQUEST_ROWS} rows from {MESH_CLIENTS} threads, every "
+            f"label equal to the single-device artifact's: "
+            f"{_latency_line(lat, wall, n)}")
+    log(f"  4K K3 cache {stats['_cache']}; fused replica_health {health}")
+
+
+def mesh_cli(K, dev):
+    """K4: launch/serve.py --classifier mlp --dp <cards> serves; --dp
+    <cards + 1> raises make_serving_mesh's error."""
+    import io
+    from repro_torch.launch import serve as cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["--classifier", "mlp", "--dp", str(dev.count),
+                  "--requests", "256"])
+    text = out.getvalue()
+    want = (f"replicas={dev.count} (spmd)" if dev.count > 1
+            else "replicas=1,")
+    if want not in text or "256 rows:" not in text:
+        raise AssertionError(f"K4 --dp {dev.count}: {text}")
+    log("  4K K4 --dp {}: {}".format(dev.count, " | ".join(
+        text.strip().splitlines())))
+    n = dev.count + 1
+    try:
+        cli.main(["--classifier", "mlp", "--dp", str(n)])
+    except ValueError as e:
+        if f"requested {n} devices but only {dev.count} are available" \
+                not in str(e):
+            raise AssertionError(f"K4 --dp {n}: {e}") from e
+        log(f"  4K K4 --dp {n} raises: {e}")
+    else:
+        raise AssertionError(f"K4 --dp {n} did not raise")
+
+
+def main_path_mesh(torch, K, dev, d6, arts_a, arts_b):
+    """Main path K: the classifier artifacts of paths A and B served
+    data-parallel over meshes (K1 spmd on the cards, K2 fused on a host
+    mesh with replica health, K3 the serving plane, K4 --dp)."""
+    arts = {**arts_a, **arts_b}
+    x = np.resize(d6.x_test, (max(MESH_BATCHES), d6.x_test.shape[1]))
+    reset_launches(K)
+    t0 = time.perf_counter()
+    spmd_mesh = mesh_spmd(torch, K, dev, arts, x)
+    host_mesh = mesh_fused(torch, K, arts, x)
+    mesh_serving(torch, K, spmd_mesh, host_mesh, d6.x_test)
+    mesh_cli(K, dev)
+    launches = launch_counts(K)
+    for _, kernel in MESH_ARTS:
+        if launches[kernel] == 0:
+            raise AssertionError(f"main path K never launched {kernel}")
+    log(f"phase 4K: mesh path in {time.perf_counter() - t0:.1f} s; kernel "
+        f"launches {launches}")
+    return launches
+
+
+# --------------------------------------------------------------------------
 # phase 5: timing
 # --------------------------------------------------------------------------
 def cuda_ms(torch, fn, iters):
@@ -4422,6 +4739,7 @@ def namespace():
     from repro_torch.lm import moe
     from repro_torch.models.svm import _pick_prototypes
     from repro_torch import roofline
+    from repro_torch import sharding
     from repro_torch.kernels import ops
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train import optim, trainer
@@ -4433,7 +4751,7 @@ def namespace():
         fa=flash_attention, lm_model=lm_model, lm_layers=lm_layers, moe=moe,
         acts=acts, emit=emit, ckpt=ckpt, optim=optim, trainer=trainer,
         roofline=roofline, ops=ops, configs=configs, tune=tune,
-        kref=kernels_ref,
+        kref=kernels_ref, sharding=sharding,
         launchers={"fxp_layer": fxp_layer.fxp_layer_cuda,
                    "fxp_mlp_model": fxp_model.fxp_mlp_model_cuda,
                    "fxp_qmatmul": fxp_qmatmul.fxp_qmatmul_cuda,
@@ -4500,9 +4818,11 @@ def main() -> int:
     t0 = time.perf_counter()
     launches_j, recurrent = main_path_recurrent(torch, K)
     log(f"  phase 4J took {time.perf_counter() - t0:.1f} s")
+    launches_k = main_path_mesh(torch, K, dev, d6, arts_a, arts_b)
     by_path = {"A": launches_a, "B": launches_b, "C": launches_c,
                "D": launches_d, "E": launches_e, "G": launches_g,
-               "H": launches_h, "I": launches_i, "J": launches_j}
+               "H": launches_h, "I": launches_i, "J": launches_j,
+               "K": launches_k}
     launches = {n: (sum(p[n] for p in by_path.values()),
                     {k: p[n] for k, p in by_path.items()})
                 for n in KernelCheck.NAMES}

@@ -15,13 +15,17 @@ dispatched through the lowering registry by model kind: ``tree``,
 (an :class:`LMModel`: weight-only quantized decode serving, whose artifact
 carries ``generate`` in its ``extras``).
 ``compile(..., device="cpu")`` runs the kernels' plain PyTorch versions on
-the host.  :func:`fleet_signature` and :func:`stack_fleet` fuse compatible
+the host.  :func:`specialize_mesh` (``art.specialize_mesh(mesh)``) serves a
+classifier artifact data-parallel over a device mesh's replicas
+(:mod:`repro_torch.sharding`).  :func:`fleet_signature` and :func:`stack_fleet` fuse compatible
 artifacts into one stacked program (:class:`FleetStack`) for the serving
 plane's fleet megabatching.
 """
 
-from .api import compile, compile_from_params, resolve_device
-from .artifact import ArtifactIntegrityError, CompiledArtifact, load
+from .api import (compile, compile_from_params, resolve_device,
+                  resolve_mesh_strategy, specialize_mesh)
+from .artifact import (ArtifactIntegrityError, CompiledArtifact, load,
+                       mesh_descriptor)
 from .fingerprint import fingerprint_params
 from .fleet import FleetStack, fleet_signature, stack_fleet
 from .registry import (Lowered, Lowering, get_lowering, lowering_kinds,
@@ -34,6 +38,9 @@ __all__ = [
     "compile",
     "compile_from_params",
     "resolve_device",
+    "specialize_mesh",
+    "resolve_mesh_strategy",
+    "mesh_descriptor",
     "CompiledArtifact",
     "ArtifactIntegrityError",
     "load",

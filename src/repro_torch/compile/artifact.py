@@ -3,8 +3,10 @@
 The counterpart of :mod:`repro.compile.artifact`.  A
 :class:`CompiledArtifact` holds the extracted parameters, the specialized
 predict program and the memory model of one compile, and what the serving
-plane reads off it (``max_supported_batch``, ``pretune``, and
-``mesh``/``replicas`` of a single-device artifact).  It emits its C
+plane reads off it (``max_supported_batch``, ``pretune``, and the mesh
+specialization: ``mesh``, ``replicas``, ``mesh_strategy``,
+``replica_health``, made by :meth:`CompiledArtifact.specialize_mesh`).  It
+emits its C
 (:meth:`CompiledArtifact.emit_c`) and reports its footprint, measured from
 the compiled C where asked (:meth:`CompiledArtifact.report`).
 
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.fixedpoint import FxpStats
+from repro_torch.sharding.rules import device_id, device_platform
 from repro_torch.train.checkpoint import (LEAF_KEY, atomic_write_bytes,
                                           compress_bytes, decode_leaf,
                                           decompress_bytes, encode_leaf,
@@ -40,7 +43,8 @@ from repro_torch.train.checkpoint import (LEAF_KEY, atomic_write_bytes,
 
 from .target import Target
 
-__all__ = ["CompiledArtifact", "ArtifactIntegrityError", "load"]
+__all__ = ["CompiledArtifact", "ArtifactIntegrityError", "load",
+           "mesh_descriptor"]
 
 
 class ArtifactIntegrityError(ValueError):
@@ -48,6 +52,23 @@ class ArtifactIntegrityError(ValueError):
     mismatch, undecodable container, truncation).  Raised *before* any
     corrupted member is deserialized: a flipped bit in stored weights must
     fail loudly at load, never become a silently-wrong classifier."""
+
+
+def mesh_descriptor(mesh: Optional[Any],
+                    strategy: Optional[str]) -> Optional[Tuple]:
+    """Hashable (axes, platform, device ids, strategy) descriptor of a mesh
+    specialization: the cache-key component of mesh-specialized artifacts.
+
+    Device identity is part of the key: two same-shaped meshes over
+    *disjoint* device sets (splitting a host's cards between endpoints) must
+    not alias to one artifact, or the second endpoint would silently serve
+    on the first mesh's cards.  ``None`` for single-device artifacts."""
+    if mesh is None:
+        return None
+    devs = list(mesh.devices.flat)
+    return (tuple((a, int(mesh.shape[a])) for a in mesh.axis_names),
+            device_platform(devs[0]) if devs else "cpu",
+            tuple(device_id(d) for d in devs), strategy)
 
 
 _ARCHIVE_FORMAT = "repro-compiled-artifact"
@@ -103,12 +124,19 @@ class CompiledArtifact:
     # Calibrated per-tensor formats (repro_torch.quant.QuantPlan); None for
     # fixed and float targets.
     quant_plan: Optional[Any] = dataclasses.field(default=None, repr=False)
+    # Mesh specialization (None / 1 / None for single-device artifacts).
+    mesh: Optional[Any] = dataclasses.field(default=None, repr=False)
+    replicas: int = 1
+    mesh_strategy: Optional[str] = None
+    # Replica health tracker (repro_torch.sharding.ReplicaHealthTracker) of
+    # a mesh artifact on the fused strategy; None elsewhere.  Surfaced into
+    # /v1/stats by the serving router.
+    replica_health: Optional[Any] = dataclasses.field(default=None, repr=False)
 
-    # A single-device artifact: mesh specialization (data-parallel replicas
-    # over several cards) arrives with the multi-GPU slice.  The serving
-    # plane reads both, as it does the reference's.
-    mesh = None
-    replicas = 1
+    @property
+    def mesh_key(self) -> Optional[Tuple]:
+        """Hashable mesh descriptor for cache keying (None = single-device)."""
+        return mesh_descriptor(self.mesh, self.mesh_strategy)
 
     @property
     def plan_key(self) -> Optional[Tuple]:
@@ -123,11 +151,11 @@ class CompiledArtifact:
         return self.extras.get("kernel_strategy")
 
     @property
-    def cache_key(self) -> Tuple[str, Target, Optional[Tuple], Optional[str],
-                                 str]:
+    def cache_key(self) -> Tuple[str, Target, Optional[Tuple],
+                                 Optional[Tuple], Optional[str], str]:
         # kernel_strategy keys too: the routing depends on the shared-memory
         # budget override, which is ambient state beyond the Target.
-        return (self.fingerprint, self.target, self.plan_key,
+        return (self.fingerprint, self.target, self.mesh_key, self.plan_key,
                 self.kernel_strategy, str(self.device))
 
     @property
@@ -135,10 +163,19 @@ class CompiledArtifact:
         """Largest batch one predict call accepts (None = unbounded): the
         micro-batching scheduler clamps its bucket ladder to it, so a
         ``batch_policy='fixed'`` artifact is never fed a batch it would
-        reject."""
+        reject.  A mesh-specialized artifact serves one fixed batch *per
+        replica*, so its ceiling scales with the replica count."""
         if self.target.batch_policy == "fixed":
-            return self.target.batch_size
+            return self.target.batch_size * max(1, self.replicas)
         return None
+
+    def specialize_mesh(self, mesh: Any,
+                        strategy: str = "auto") -> "CompiledArtifact":
+        """Replica-aware data-parallel artifact over ``mesh`` (new artifact;
+        see :func:`repro_torch.compile.api.specialize_mesh`)."""
+        from .api import specialize_mesh as _specialize_mesh
+
+        return _specialize_mesh(self, mesh, strategy)
 
     def pretune(self, example, batches: Optional[Tuple[int, ...]] = None
                 ) -> "CompiledArtifact":
@@ -150,14 +187,17 @@ class CompiledArtifact:
         (default: the power-of-two ladder up to ``max_supported_batch``, or
         64).  The first call builds and loads the artifact's CUDA kernels,
         so the first live request pays neither the build nor a cold
-        allocation.  Returns self.
+        allocation.  A mesh-specialized artifact walks the *mesh-level*
+        ladder: replicas x the per-replica power-of-two shards, up to the
+        per-replica cap (64 x replicas by default).  Returns self.
         """
         row = np.asarray(example)
         if row.ndim > 1:
             row = row[0]
         if batches is None:
-            top = self.max_supported_batch or 64
-            ladder, b = [], 1
+            r = max(1, self.replicas)
+            top = self.max_supported_batch or 64 * r
+            ladder, b = [], r
             while b < top:
                 ladder.append(b)
                 b *= 2

@@ -21,8 +21,12 @@ HOST:PORT`` turns classifier mode into a long-lived network server
 (``--rate-limit``/``--queue-high``), SLO tracking (``--slo-ms``), and, with
 ``--degrade`` and a calibrated ``--format``, load-adaptive precision falling
 back to ``--fallback-format`` under overload.  ``--backend`` takes the
-port's names (``ref|cuda|emit``); ``--dp`` above 1 (data-parallel replicas
-over several cards) arrives with the multi-GPU slice and raises.
+port's names (``ref|cuda|emit``).  ``--dp N`` shards the endpoint
+data-parallel across an N-replica serving mesh with replica-aware buckets:
+N cards (``repro_torch.sharding.make_serving_mesh``, which raises when the
+host has fewer), or with ``--device cpu`` N host replicas
+(``make_host_mesh``, the counterpart of the reference's emulated host
+devices).
 """
 
 from __future__ import annotations
@@ -37,7 +41,6 @@ from repro_torch.compile import LMModel, Target, resolve_device
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.lm import model as M
 from repro_torch.serve import BatchingPolicy, InferenceService
-from repro_torch.serve.cache import MULTI_GPU_SLICE
 
 __all__ = ["main"]
 
@@ -82,14 +85,18 @@ def _serve_http(svc, args) -> None:
 
 
 def serve_classifier(args) -> None:
-    """Serve a synthetic-blobs classifier endpoint, trained on the device."""
+    """Serve a synthetic-blobs classifier endpoint, trained on the device,
+    optionally DP-sharded."""
     from repro_torch.models import (synthetic_blobs, train_decision_tree,
                                     train_logistic, train_mlp)
     from repro_torch.serve import DegradationPolicy
+    from repro_torch.sharding.rules import make_host_mesh, make_serving_mesh
 
-    if args.dp > 1:
-        raise NotImplementedError(MULTI_GPU_SLICE)
     device = resolve_device(args.device)
+    mesh = None
+    if args.dp > 1:
+        mesh = (make_host_mesh(args.dp) if device.type == "cpu"
+                else make_serving_mesh(args.dp))
     x, y, c = synthetic_blobs(2048)
     trainers = {
         "tree": lambda: train_decision_tree(x[:1024], y[:1024], c,
@@ -104,15 +111,18 @@ def serve_classifier(args) -> None:
 
     svc = InferenceService(device=device)
     try:
-        ep = svc.register(args.classifier, model, target,
-                          policy=BatchingPolicy(max_batch=64),
+        ep = svc.register(args.classifier, model, target, mesh=mesh,
+                          policy=BatchingPolicy(max_batch=64 * max(1, args.dp)),
                           # auto* formats calibrate on the training split
                           calibration=x[:1024] if target.is_calibrated else None,
                           # build the kernels over the bucket ladder at
                           # registration instead of on the first requests
                           pretune=x[:1] if args.pretune else False)
+        art = ep.artifact
         print(f"endpoint {args.classifier}: {target.number_format}/"
-              f"{target.backend} on {device}, buckets={ep.policy.buckets()}"
+              f"{target.backend} on {device}, replicas={art.replicas}"
+              + (f" ({art.mesh_strategy})" if art.mesh is not None else "")
+              + f", buckets={ep.policy.buckets()}"
               + (" [pretuned]" if args.pretune else ""))
         if args.degrade:
             if not target.is_calibrated:
@@ -164,8 +174,8 @@ def main(argv=None) -> None:
                     help="'cuda' (default: the current CUDA device) or 'cpu'")
     # classifier-mode knobs
     ap.add_argument("--dp", type=int, default=1,
-                    help="data-parallel serving replicas (classifier mode; "
-                         "above 1 arrives with the multi-GPU slice)")
+                    help="data-parallel serving replicas (classifier mode): "
+                         "that many cards, or host replicas with --device cpu")
     ap.add_argument("--format",
                     choices=["flt", "fxp32", "fxp16", "fxp8",
                              "auto32", "auto16", "auto8"],

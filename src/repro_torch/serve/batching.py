@@ -86,7 +86,7 @@ class BatchingPolicy:
       the kernels' first build included).
     * ``replicas``    — data-parallel replica count of the endpoint's
       artifact (set by :class:`repro_torch.serve.router.Endpoint` from
-      ``CompiledArtifact.replicas``, 1 until the multi-GPU slice).  The
+      ``CompiledArtifact.replicas``; 1 for a single-device artifact).  The
       bucket ladder is *replica-aware*: every bucket is ``replicas`` x a
       power-of-two shard.
     """

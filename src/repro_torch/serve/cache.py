@@ -1,4 +1,5 @@
-"""Artifact cache: dedupe recompiles by ``(fingerprint, Target, device)``.
+"""Artifact cache: dedupe recompiles by ``(fingerprint, Target, mesh,
+device)``.
 
 The counterpart of :mod:`repro.serve.cache` for the PyTorch port.
 Compiling is the expensive step (quantize + lower + the weights' copy to the
@@ -6,10 +7,10 @@ card); hosting the same model under several endpoints, or re-registering it
 after a config reload, should not pay it twice.  The cache keys on the
 sha256 fingerprint of the *extracted* parameter tree (see
 :mod:`repro_torch.compile.fingerprint`) plus the frozen Target plus the
-QuantPlan descriptor for calibrated targets plus the device the artifact
-runs on, so equal parameters hit regardless of which model object they came
-from.  Mesh-specialized artifacts arrive with the multi-GPU slice: the
-``mesh`` argument raises until then.
+mesh descriptor (axes, platform, device ids, strategy) of replica-sharded
+artifacts plus the QuantPlan descriptor for calibrated targets plus the
+device the artifact is compiled on, so equal parameters hit regardless of
+which model object they came from.
 
 Compilation is *single-flight*: when N threads race a miss on the same key
 (a restart storm re-registering every endpoint at once), exactly one thread
@@ -27,18 +28,18 @@ from typing import Any, Dict, Optional, Tuple
 
 from repro_torch.compile import (CompiledArtifact, Target,
                                  compile_from_params, fingerprint_params,
-                                 get_lowering, model_kind, resolve_device)
+                                 get_lowering, mesh_descriptor, model_kind,
+                                 resolve_device, resolve_mesh_strategy,
+                                 specialize_mesh)
 
 from . import faults
 
 __all__ = ["ArtifactCache"]
 
-# (fingerprint, Target, QuantPlan descriptor or None, ambient kernel-routing
-#  token or None, device)
-CacheKey = Tuple[str, Target, Optional[Tuple], Optional[str], str]
-
-MULTI_GPU_SLICE = ("mesh-specialized artifacts arrive with the port's "
-                   "multi-GPU slice")
+# (fingerprint, Target, mesh descriptor or None, QuantPlan descriptor or
+#  None, ambient kernel-routing token or None, device)
+CacheKey = Tuple[str, Target, Optional[Tuple], Optional[Tuple], Optional[str],
+                 str]
 
 
 def _kernel_env_token(target: Target) -> Optional[str]:
@@ -59,7 +60,8 @@ def _kernel_env_token(target: Target) -> Optional[str]:
 
 class ArtifactCache:
     """LRU cache of compiled artifacts keyed by ``(fingerprint, Target,
-    plan, device)``, with single-flight compilation under concurrency."""
+    mesh, plan, device)``, with single-flight compilation under
+    concurrency."""
 
     # Calibration-plan memo bound: plans are tiny (a format table), but the
     # memo must not grow without limit under adversarial batch churn.
@@ -133,10 +135,13 @@ class ArtifactCache:
                        mesh: Any = None, strategy: str = "auto",
                        calibration: Any = None,
                        device: Any = None) -> CompiledArtifact:
-        """Return the cached artifact for (model params, target, plan,
+        """Return the cached artifact for (model params, target, mesh, plan,
         device), compiling on miss.  ``device`` resolves as
         :func:`repro_torch.compile.compile` resolves it: the current CUDA
-        device by default, the host only when asked for.  Extraction runs unconditionally (it is cheap and
+        device by default, the host only when asked for.  With a ``mesh``
+        the artifact compiled there is specialized for it
+        (:func:`repro_torch.compile.specialize_mesh` with ``strategy``)
+        inside the same single flight.  Extraction runs unconditionally (it is cheap and
         yields the fingerprint); the quantize/lower/specialize stages are
         what a hit skips.  Concurrent misses on one key compile once
         (single-flight); the racing callers receive the winner's artifact.
@@ -150,18 +155,20 @@ class ArtifactCache:
         memoized by (fingerprint, Target, batch sha256), so repeat
         registrations of one endpoint stay as cheap as fixed-format hits.
         """
-        if mesh is not None:
-            raise NotImplementedError(MULTI_GPU_SLICE)
         dev = resolve_device(device)
         kind = model_kind(model)
         lowering = get_lowering(kind)
         params = lowering.extract_params(model)
         fingerprint = fingerprint_params(kind, params)
+        mesh_key = None
+        if mesh is not None:
+            mesh_key = mesh_descriptor(mesh, resolve_mesh_strategy(mesh,
+                                                                   strategy))
         plan = None
         if target.is_calibrated:
             plan = self._plan_for(lowering, params, fingerprint, target,
                                   calibration)
-        key: CacheKey = (fingerprint, target,
+        key: CacheKey = (fingerprint, target, mesh_key,
                          None if plan is None else plan.descriptor(),
                          _kernel_env_token(target), str(dev))
         with self._lock:
@@ -186,7 +193,8 @@ class ArtifactCache:
                 self.hits += 1
             return art
         # Owner path.  Everything through put() runs inside the guard: a
-        # failure anywhere (compile, the cache insert itself) must clear the in-flight slot and resolve the waiters with
+        # failure anywhere (compile, mesh specialization, the cache insert
+        # itself) must clear the in-flight slot and resolve the waiters with
         # the exception — never leave them blocked, never cache a broken
         # entry.  The slot is popped *before* the future resolves so a
         # waiter that catches the error and retries starts a fresh flight.
@@ -194,6 +202,8 @@ class ArtifactCache:
             faults.fire("cache.compile", name=kind)
             art = compile_from_params(kind, params, target, plan=plan,
                                       device=dev)
+            if mesh is not None:
+                art = specialize_mesh(art, mesh, strategy)
             with self._lock:
                 self.misses += 1
             self._insert(key, art)

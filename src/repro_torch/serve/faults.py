@@ -16,13 +16,12 @@ site                      where it fires
                           (``name`` = lowering kind)
 ``artifact.load``         a byte filter over an archive (``corrupt`` rules
                           flip seeded bytes; ``name`` = path)
-``mesh.replica``          once per replica-shard execution of a mesh
-                          (``name`` = replica id)
+``mesh.replica``          once per replica-shard execution of a fused mesh
+                          artifact while its health is tracked
+                          (:func:`repro_torch.compile.specialize_mesh`;
+                          ``name`` = replica id)
 ``http.request``          once per parsed HTTP request (``name`` = path)
 ========================  ==================================================
-
-``mesh.replica`` is kept for the multi-GPU slice of the port; nothing
-fires it yet.
 
 Rules are matched by site + ``match`` substring (+ optional ``poison``
 sentinel contained in the batch), and fire deterministically: per-rule

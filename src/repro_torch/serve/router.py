@@ -297,12 +297,12 @@ class Endpoint:
 
     def snapshot(self) -> Dict[str, object]:
         """Full stats surface: serving stats + reliability counters +
-        breaker/governor state."""
+        breaker/governor/replica-health state (what ``/v1/stats`` shows)."""
         snap: Dict[str, object] = self.stats.snapshot()
         if self.batcher is not None:
             # Flat scalars (every plain-stats consumer keeps iterating
-            # numbers); breaker/governor state stay nested because they
-            # only appear when armed.
+            # numbers); breaker/governor/replica state stay nested because
+            # they only appear when armed.
             snap["expired_requests"] = self.batcher.n_expired
             snap["dispatch_retries"] = self.batcher.n_retries
             snap["dispatch_failures"] = self.batcher.n_dispatch_failures
@@ -312,6 +312,9 @@ class Endpoint:
             snap["breaker"] = self.breaker.snapshot()
         if self.governor is not None:
             snap["governor"] = self.governor.snapshot()
+        health = getattr(self.artifact, "replica_health", None)
+        if health is not None:
+            snap["replica_health"] = health.snapshot()
         return snap
 
     def close(self, timeout: Optional[float] = None) -> None:

@@ -27,8 +27,9 @@ coexist as two cache entries) that serves under overload — see
 :mod:`repro_torch.serve.degrade`.  An :class:`~repro_torch.compile.LMModel`
 registers like any model; ``svc.generate(name, tokens, n)`` decodes on it.
 ``svc.serve_http(...)`` builds the HTTP front end (:mod:`repro_torch.serve.net`)
-over the service.  Mesh-sharded endpoints arrive with a later slice of the
-port.
+over the service.  ``register(..., mesh=...)`` shards an endpoint
+data-parallel over a device mesh's replicas
+(:meth:`~repro_torch.compile.CompiledArtifact.specialize_mesh`).
 """
 
 from __future__ import annotations
@@ -38,11 +39,12 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
-from repro_torch.compile import CompiledArtifact, Target, resolve_device
+from repro_torch.compile import (CompiledArtifact, Target, mesh_descriptor,
+                                 resolve_device, resolve_mesh_strategy)
 
 from . import faults
 from .batching import BatchingPolicy
-from .cache import MULTI_GPU_SLICE, ArtifactCache
+from .cache import ArtifactCache
 from .degrade import DegradationPolicy
 from .reliability import BreakerPolicy, CircuitBreaker, RetryPolicy
 from .router import Endpoint, ModelRouter
@@ -101,8 +103,13 @@ class InferenceService:
         directly (required for artifacts whose input shape is not
         recoverable, e.g. trees registered without calibration).
 
-        ``mesh`` (data-parallel sharding over several cards) raises
-        ``NotImplementedError`` until the port's multi-GPU slice.
+        ``mesh`` shards the endpoint data-parallel across the mesh's
+        replicas (``CompiledArtifact.specialize_mesh``, strategy
+        ``mesh_strategy``): the scheduler's buckets become replica-aware and
+        each replica serves a power-of-two shard.  Mesh-specialized
+        artifacts are cached per (fingerprint, Target, mesh descriptor), so
+        single-device and sharded endpoints of one model coexist without
+        recompiling the lowering.
 
         ``calibration`` (a sample input batch) is required when ``target``
         uses a calibrated number format (``auto16``/``auto8``/``auto32``):
@@ -115,13 +122,23 @@ class InferenceService:
         """
         if (artifact is None) == (model is None):
             raise TypeError("pass either model (+ target) or artifact")
-        if mesh is not None:
-            raise NotImplementedError(MULTI_GPU_SLICE)
         if artifact is None:
             art = self.cache.get_or_compile(model, target or Target(),
+                                            mesh=mesh, strategy=mesh_strategy,
                                             calibration=calibration,
                                             device=self.device)
         else:
+            if mesh is not None:
+                want = mesh_descriptor(
+                    mesh, resolve_mesh_strategy(mesh, mesh_strategy))
+                if artifact.mesh is None:
+                    artifact = artifact.specialize_mesh(mesh, mesh_strategy)
+                elif artifact.mesh_key != want:
+                    raise ValueError(
+                        f"artifact is already specialized for mesh "
+                        f"{artifact.mesh_key} but register() was asked for "
+                        f"{want}; pass the unspecialized artifact (or drop "
+                        f"the mesh argument to host it as-is)")
             art = self.cache.put(artifact) if artifact.fingerprint else artifact
         ep = self.router.register(name, art, policy, retry=retry,
                                   breaker=breaker)

@@ -979,3 +979,78 @@ def test_moe_routing_tables_on_the_card_equal_the_host(dev):
     for d, h in zip(tables_d, tables_h):
         assert torch.equal(d.cpu(), h)
     assert int(torch.bincount(e_h.reshape(-1), minlength=64).max()) > cap
+
+
+def test_spmd_mesh_over_every_card_matches_single_device(dev, monkeypatch):
+    """spmd over make_serving_mesh() (every visible card): labels and stats
+    bit for bit the single-device artifact's, one launch per replica a
+    predict, each replica's launch on its own card."""
+    from repro_torch.sharding import make_serving_mesh
+
+    n_cards = torch.cuda.device_count()
+    seen = []
+
+    def spy(name):
+        launcher = getattr(ops, name)
+
+        def run(x, *args, **kw):
+            seen.append(x.device)
+            return launcher(x, *args, **kw)
+
+        monkeypatch.setattr(ops, name, run)
+
+    for name in ("fxp_mlp_model_cuda", "fxp_layer_cuda"):
+        spy(name)
+    rng = np.random.RandomState(6)
+    x = (rng.randn(3089, 561) * 2).astype(np.float32)
+    mesh = make_serving_mesh()
+    models = (init_mlp([561, 64, 6], seed=0),
+              LogisticModel((rng.randn(561, 6) * 0.1).astype(np.float32),
+                            np.zeros(6, np.float32)))
+    for model in models:
+        for number_format in ("fxp16", "auto8"):
+            art = tc.compile(model, tc.Target(number_format=number_format,
+                                              backend="cuda"),
+                             calibration=x[:64])
+            sharded = art.specialize_mesh(mesh)
+            assert sharded.mesh_strategy == "spmd"
+            assert sharded.replicas == n_cards
+            sharded.predict(x[:3])  # the pad-row probe runs once
+            for rows in (1, 3, 64, 3089):
+                want = art.predict_with_stats(x[:rows])
+                seen.clear()
+                got = sharded.predict_with_stats(x[:rows])
+                np.testing.assert_array_equal(got[0], want[0])
+                assert got[1] == want[1], (rows, got[1], want[1])
+                assert seen == [torch.device("cuda", i)
+                                for i in range(n_cards)], seen
+
+
+def test_fused_host_mesh_over_cuda_artifact_survives_replica_fault(dev):
+    """fused over make_host_mesh(4) with a CUDA artifact: one launch a call
+    while untracked; replica 0 faulting past evict_after, then succeeding,
+    leaves every label bit for bit, with an eviction, a probe and a
+    re-admission."""
+    from repro_torch.serve import FaultPlan, FaultRule, faults
+    from repro_torch.sharding import make_host_mesh
+
+    rng = np.random.RandomState(7)
+    x = (rng.randn(64, 561) * 2).astype(np.float32)
+    art = tc.compile(init_mlp([561, 64, 6], seed=0),
+                     tc.Target(number_format="fxp16", backend="cuda"))
+    sharded = art.specialize_mesh(make_host_mesh(4))
+    assert sharded.mesh_strategy == "fused" and sharded.device == art.device
+    golden = art.predict(x)
+    before = fxp_model.fxp_mlp_model_cuda.launches
+    np.testing.assert_array_equal(sharded.predict(x), golden)
+    assert fxp_model.fxp_mlp_model_cuda.launches == before + 1
+    plan = FaultPlan([FaultRule(site="mesh.replica", match="0",
+                                transient=True, count=3)])
+    with faults.inject(plan):
+        for _ in range(12):
+            before = fxp_model.fxp_mlp_model_cuda.launches
+            np.testing.assert_array_equal(sharded.predict(x), golden)
+            assert fxp_model.fxp_mlp_model_cuda.launches == before + 4
+    snap = sharded.replica_health.snapshot()
+    assert snap["evictions"] >= 1 and snap["probes"] >= 1
+    assert snap["readmissions"] >= 1 and snap["healthy"] == [0, 1, 2, 3]

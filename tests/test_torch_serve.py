@@ -38,6 +38,7 @@ from repro_torch.serve import (ArtifactCache, BatchingPolicy, BreakerPolicy,
                                FaultRule, InferenceService, MicroBatcher,
                                RetryPolicy, TransientError, faults)
 from repro_torch.serve.batching import StagingBuffer, _Request
+from repro_torch.sharding import make_host_mesh
 
 E = 3
 WAIT = 60  # seconds any one future may take
@@ -404,9 +405,10 @@ def test_cache_dedupes_and_keys_the_device(members):
     assert a is b and cache.stats()["misses"] == 1
     assert cache.stats()["hits"] == 1
     assert a.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        cache.get_or_compile(model_from_params(kind, params), target,
-                             mesh=object(), device="cpu")
+    # a mesh artifact of the same model keys apart (the multi-GPU slice)
+    m = cache.get_or_compile(model_from_params(kind, params), target,
+                             mesh=make_host_mesh(2), device="cpu")
+    assert m is not a and m.replicas == 2 and cache.stats()["misses"] == 2
 
 
 def test_cache_single_flight_under_racing_compiles(members, monkeypatch):
@@ -550,8 +552,10 @@ def test_register_pretune_and_unported_entry_points(pairs, blobs):
         from repro_torch.serve.net import HttpServer
         server = svc.serve_http(port=0)
         assert isinstance(server, HttpServer) and server.service is svc
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            svc.register("sharded", artifact=pairs["r1"][1], mesh=object())
+        # ported since: mesh-sharded endpoints (tests/test_torch_serve_mesh.py)
+        sharded = svc.register("sharded", artifact=pairs["r1"][1],
+                               mesh=make_host_mesh(2))
+        assert sharded.artifact.replicas == 2
         assert svc.endpoint("warm").artifact.max_supported_batch is None
     finally:
         svc.close()

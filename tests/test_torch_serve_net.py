@@ -16,8 +16,8 @@ The 38 cases of ``tests/test_serve_net.py``:
   and disconnecting clients, the 504 deadline, the open circuit and the
   injected fault;
 * the CLI: ``python -m repro_torch.launch.serve --classifier tree --format
-  auto16 --degrade --http ... --device cpu`` serves, and ``--dp 2`` raises
-  the multi-GPU slice's error.
+  auto16 --degrade --http ... --device cpu`` serves, ``--dp 2`` serves on
+  two host replicas, and more replicas than cards raise on the card.
 """
 
 import asyncio
@@ -922,9 +922,19 @@ def test_http_injected_fault_answers_500_and_recovers(golden_tree):
     svc.close()
 
 
-def test_serve_cli_dp_raises_multi_gpu_slice():
+def test_serve_cli_dp_raises_multi_gpu_slice(monkeypatch, capsys):
+    """--dp shards the endpoint over a mesh since the multi-GPU slice: N
+    host replicas with --device cpu; on the card, more replicas than cards
+    raise make_serving_mesh's error."""
+    import torch
+
     from repro_torch.launch import serve as serve_cli
 
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        serve_cli.main(["--classifier", "tree", "--dp", "2", "--device",
-                        "cpu"])
+    serve_cli.main(["--classifier", "tree", "--dp", "2", "--device", "cpu",
+                    "--requests", "32"])
+    assert "replicas=2 (fused)" in capsys.readouterr().out
+    monkeypatch.setattr(serve_cli, "resolve_device",
+                        lambda device: torch.device("cuda", 0))
+    n = max(2, torch.cuda.device_count() + 1)
+    with pytest.raises(ValueError, match="make_host_mesh"):
+        serve_cli.main(["--classifier", "tree", "--dp", str(n)])
