@@ -259,6 +259,34 @@ Phases, each of which raises on failure:
       --classifier mlp --dp <cards>`` serves (in process); ``--dp <cards +
       1>`` raises ``make_serving_mesh``'s error.  Grep ``4K`` for the
       lines.
+   L. the LM on a device mesh (after K; DTensor, one process a card).  L1:
+      ``launch/dryrun.py`` plans the 31 runnable cells on ``pod`` and on
+      ``multipod`` and qwen2-0.5b's train_4k on dp64tp4, each cell's
+      argument bytes a device printed against this card's memory (a cell
+      over it is a finding, not a failure), its dominant roofline term and
+      its plan time.  L2-L4 run on a ('data', 'model') mesh of every card
+      through ``launch.mesh.run_on_mesh``: (1, 1) on one card, in this
+      process (world size 1, NCCL); (2, 2) on four, a process a card.  L2:
+      path H's run (qwen2-0.5b, 8 x 512, lr 1e-3) from a seeded init, 3
+      float32 steps under the mesh with the loss and grad norm each within
+      1e-4 relative of the single-device ``make_train_step`` from the same
+      weights and batches, then 24 steps with bf16 parameters (finite, the
+      loss falling, no kernel launched): ms/step, tokens/s, peak memory a
+      card, launches of one profiled step, beside path H's.  L3 (elastic,
+      in memory): the float32 state after step 3 under mesh A gathered and
+      placed under mesh B for step 4, then back under A for step 5, each
+      within 1e-4 of the single-device steps (one card: A (1, 1), B the
+      single-device trainer; four: A (4, 1), B (2, 2)); then the same
+      legs through the checkpoint files at ``tests/test_elastic.py``'s
+      width (2 layers, d_model 64, batch 8 x 16): ``CheckpointManager``
+      saves the (params, optimizer state) of each leg and restores it into
+      a tree placed for the next (the ``like``), each leaf placed as its
+      ``like`` and each step within 1e-4 of the single-device steps.  L4: the bf16
+      prefill (4 x 2048) under rules makes exactly 24 flash_attention
+      launches on each rank (its local heads) and is no further from the
+      float32 logits than 1.5x the single-device kernel route; 8 float32
+      ``serve_step``s (batch 4) from a cache placed by ``cache_specs``
+      within 2e-3 of the single-device decode.  Grep ``4L`` for the lines.
    In A, B and D, labels equal the plain versions' on the card (in D, each
    member's own predict); in A and B the rows where ``ref`` and ``cuda``
    differ are printed as information.
@@ -3729,6 +3757,375 @@ def main_path_mesh(torch, K, dev, d6, arts_a, arts_b):
 
 
 # --------------------------------------------------------------------------
+# phase 4L: the LM on a device mesh (DTensor, one process a card)
+# --------------------------------------------------------------------------
+MESH_TRAIN_F32_STEPS = 3  # L2: float32 steps held to the single-device step
+MESH_STEP_RTOL = 1e-4  # L2/L3: loss and grad norm against the single device
+MESH_DECODE = (4, 8)  # L4: float32 serve_step (batch, steps)
+MESH_DECODE_RTOL = 2e-3  # path E's decode tolerance
+ELASTIC_BATCH = (8, 16)  # L3 through the files: tests/test_elastic.py's
+ELASTIC_DIR = os.path.join(ROOT, "build", "elastic_ckpt")
+DRYRUN_CELLS = 31  # tests/test_archs.py:103-113: runnable cells a mesh
+
+
+def dryrun_plans(torch, K):
+    """L1: the dry run (``launch/dryrun.py``) plans every runnable cell on
+    ``pod`` and ``multipod`` and qwen2-0.5b's train_4k on dp64tp4; each
+    cell's argument bytes a device against this card's memory (a cell over
+    it is a finding, printed as such), its dominant roofline term and its
+    plan time."""
+    from repro_torch.launch import dryrun
+
+    card = torch.cuda.get_device_properties(0).total_memory
+    cells = [(m, a, s) for m in ("pod", "multipod")
+             for a in K.configs.ARCH_IDS for s in K.configs.SHAPES]
+    cells.append(("dp64tp4", LM_ARCH, "train_4k"))
+    planned = {"pod": 0, "multipod": 0, "dp64tp4": 0}
+    over = []
+    t0 = time.perf_counter()
+    for mesh, arch, shape in cells:
+        rec = dryrun.run_cell(arch, shape, mesh, verbose=False)
+        if rec["status"] != "run":
+            continue
+        planned[mesh] += 1
+        arg = rec["memory_analysis"]["argument_size_in_bytes"]
+        fits = arg <= card
+        if not fits:
+            over.append(f"{arch} {shape} {mesh}")
+        log(f"  4L1 {arch} x {shape} x {mesh}: {arg} argument bytes a "
+            f"device ({arg / card:.1%} of this card's {card}: "
+            f"{'fits' if fits else 'DOES NOT FIT one card'}), dominant "
+            f"{rec['roofline']['dominant']}, plan {rec['plan_s']:.4f} s")
+    if planned != {"pod": DRYRUN_CELLS, "multipod": DRYRUN_CELLS,
+                   "dp64tp4": 1}:
+        raise AssertionError(f"L1: planned {planned}, expected "
+                             f"{DRYRUN_CELLS} on pod and on multipod")
+    log(f"  4L1: planned {planned} in {time.perf_counter() - t0:.1f} s; "
+        f"{len(over)} cells over one card's memory: {over}")
+    return planned
+
+
+def card_mesh(torch, K, shape):
+    """A ('data', 'model') mesh over the first prod(shape) cards."""
+    n = int(np.prod(shape))
+    devs = np.empty(n, dtype=object)
+    devs[:] = [torch.device("cuda", i) for i in range(n)]
+    return K.sharding.Mesh(devs.reshape(shape), ("data", "model"))
+
+
+def _place_state(K, cfg, mesh, params, state):
+    """(params, optimizer state) placed on ``mesh`` by ``param_specs``: the
+    moments like the params, the step counter replicated."""
+    M, S = K.lm_model, K.sharding
+    pspecs = M.param_specs(cfg, S.Rules(mesh))
+    return (S.device_put_tree(params, pspecs, mesh),
+            K.optim.OptState(
+                S.device_put(state.step, S.NamedSharding(mesh, ())),
+                S.device_put_tree(state.mu, pspecs, mesh),
+                S.device_put_tree(state.nu, pspecs, mesh)))
+
+
+def mesh_steps(torch, K, cfg, tcfg, mesh, params, state, batches,
+               profile=False, gather=True):
+    """``make_train_step`` from (params, state) over ``batches``: on
+    ``mesh`` (full values placed by :func:`_place_state`; DTensors taken as
+    they are), or with ``mesh`` None the single-device trainer.  Returns
+    the losses, grad norms, step ms, (params, state) after (full values,
+    or as stepped with ``gather`` False), the parameter and moment bytes
+    this rank holds, and with ``profile`` one more step under
+    torch.profiler."""
+    S, TT = K.sharding, K.trainer
+    rules = S.Rules(mesh) if mesh is not None else None
+    if mesh is not None and not S.is_dtensor(state.step):
+        params, state = _place_state(K, cfg, mesh, params, state)
+    held = sum(t.to_local().numel() * t.element_size() if mesh is not None
+               else t.numel() * t.element_size()
+               for t in _leaves({"p": params, "mu": state.mu, "nu": state.nu}))
+    step = TT.make_train_step(cfg, tcfg, TT.make_optimizer(tcfg), rules)
+    losses, norms, times = [], [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    prof = _step_profile(torch, lambda: step(params, state, batches[-1])) \
+        if profile else None
+    if gather:
+        params, state = S.full_value(params), S.full_value(state)
+    return dict(losses=losses, norms=norms, ms=times, params=params,
+                state=state, profile=prof, held_gb=held / 2**30)
+
+
+def _steps_rel(got, want, what):
+    """Max relative distance of the losses and grad norms."""
+    rel = max(abs(g - w) / abs(w) for g, w in
+              zip(got["losses"] + got["norms"], want["losses"] + want["norms"]))
+    if not rel <= MESH_STEP_RTOL:
+        raise AssertionError(f"{what}: losses {got['losses']} / norms "
+                             f"{got['norms']} against the single device's "
+                             f"{want['losses']} / {want['norms']}: {rel} > "
+                             f"{MESH_STEP_RTOL}")
+    return rel
+
+
+def _part(run, lo, hi):
+    return {k: run[k][lo:hi] for k in ("losses", "norms")}
+
+
+def mesh_train(torch, K, meshes, rank0):
+    """L2 and L3 on this rank: the float32 steps against the single-device
+    trainer, the elastic steps in memory, then the bf16 run."""
+    M, TT = K.lm_model, K.trainer
+    cfg = K.configs.get_config(LM_ARCH)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    tcfg = TT.TrainConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                          total_steps=TRAIN_STEPS, seed=TRAIN_SEED)
+    stream = TT.synthetic_token_stream(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                       TRAIN_SEED, device=dev)
+    batches = [next(stream) for _ in range(TRAIN_STEPS)]
+    n = MESH_TRAIN_F32_STEPS
+    init = M.init_params(cfg32, torch.Generator(dev).manual_seed(TRAIN_SEED))
+    state0 = TT.make_optimizer(tcfg).init(init)
+    # the single-device trainer (path H's code) from the same weights
+    ref = mesh_steps(torch, K, cfg32, tcfg, None, init, state0,
+                     batches[:n + 2])
+    l2 = mesh_steps(torch, K, cfg32, tcfg, meshes["L2"], init, state0,
+                    batches[:n])
+    rel2 = _steps_rel(l2, _part(ref, 0, n), "L2 float32")
+    # L3: the float32 state after step 3 under mesh A, gathered and placed
+    # under mesh B for step 4, then back under A for step 5
+    a = l2 if meshes["A"] is meshes["L2"] else mesh_steps(
+        torch, K, cfg32, tcfg, meshes["A"], init, state0, batches[:n])
+    rel3a = _steps_rel(a, _part(ref, 0, n), "L3 steps 1-3 under A")
+    b = mesh_steps(torch, K, cfg32, tcfg, meshes["B"], a["params"],
+                   a["state"], batches[n:n + 1])
+    c = mesh_steps(torch, K, cfg32, tcfg, meshes["A"], b["params"],
+                   b["state"], batches[n + 1:n + 2])
+    rel3 = max(rel3a, _steps_rel(b, _part(ref, n, n + 1), "L3 step 4"),
+               _steps_rel(c, _part(ref, n + 1, n + 2), "L3 step 5"))
+    f32_losses = ref["losses"]
+    del ref, l2, a, b, c, init, state0
+    torch.cuda.empty_cache()
+    # bf16 parameters and float32 moments, as path H
+    init = M.init_params(cfg, torch.Generator(dev).manual_seed(TRAIN_SEED))
+    state0 = TT.make_optimizer(tcfg).init(init)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = launch_counts(K)
+    run = mesh_steps(torch, K, cfg, tcfg, meshes["L2"], init, state0,
+                     batches, profile=True)
+    expect_launches(K, before, {}, "L2 bf16 training steps")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    losses = run["losses"]
+    if not all(math.isfinite(v) for v in losses + run["norms"]):
+        raise AssertionError(f"L2 bf16: non-finite loss or norm {losses}")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"L2 bf16: the loss did not fall: {losses}")
+    ms = float(np.median(run["ms"][3:]))
+    prof = run["profile"]
+    if rank0:
+        log(f"  4L2 float32 on {meshes['L2']}: {n} steps within {rel2:.3e} "
+            f"of the single-device step (losses {f32_losses[:n]}, bound "
+            f"{MESH_STEP_RTOL}); 4L3 elastic in memory, A {meshes['A']}, B "
+            f"{meshes['B'] or 'the single-device trainer'}: steps 1-5 "
+            f"within {rel3:.3e}")
+        log(f"  4L2 bf16 {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}: "
+            f"losses {[round(v, 4) for v in losses]}; {ms:.2f} ms/step "
+            f"(median of steps 4-{TRAIN_STEPS}; all "
+            f"{[round(t, 1) for t in run['ms']]}), "
+            f"{TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.0f} tokens/s; one step "
+            f"profiled: {prof['device_ms']:.2f} ms device time in "
+            f"{prof['launches']} launches, {prof['wall_ms']:.1f} ms wall")
+    return dict(rel2=rel2, rel3=rel3, ms=ms, peak_gb=peak_gb,
+                held_gb=run["held_gb"],
+                tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
+                launches_per_step=prof["launches"],
+                device_ms=prof["device_ms"])
+
+
+def _elastic_cfg(K):
+    """The reduced qwen2 of ``tests/test_elastic.py:28-31``."""
+    return dataclasses.replace(
+        K.configs.get_config(LM_ARCH).reduced(), n_layers=2, d_model=64,
+        n_heads=4, n_kv_heads=2, d_head=16, d_ff=128, vocab_size=256,
+        remat=False, dtype="float32")
+
+
+def mesh_elastic_files(torch, K, meshes, rank0):
+    """L3 through the checkpoint files, at ``tests/test_elastic.py``'s
+    width: steps 1-3 under mesh A, (params, optimizer state) saved by
+    ``CheckpointManager`` (each DTensor leaf gathered, rank 0 writes, a
+    barrier), restored into a tree placed for mesh B (the ``like``) for
+    step 4, saved again and restored under A for step 5; each step within
+    1e-4 of the single-device steps, each restored leaf placed as its
+    ``like``."""
+    import torch.distributed as dist
+
+    M, S, TT = K.lm_model, K.sharding, K.trainer
+    cfg = _elastic_cfg(K)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    tcfg = TT.TrainConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                          total_steps=TRAIN_STEPS, seed=TRAIN_SEED)
+    stream = TT.synthetic_token_stream(cfg, *ELASTIC_BATCH, TRAIN_SEED,
+                                       device=dev)
+    n = MESH_TRAIN_F32_STEPS
+    batches = [next(stream) for _ in range(n + 2)]
+    init = M.init_params(cfg, torch.Generator(dev).manual_seed(TRAIN_SEED))
+    state0 = TT.make_optimizer(tcfg).init(init)
+    ref = mesh_steps(torch, K, cfg, tcfg, None, init, state0, batches)
+    if rank0:
+        shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    dist.barrier()
+    mgr = K.ckpt.CheckpointManager(ELASTIC_DIR)
+    legs = ((meshes["A"], 0, n), (meshes["B"], n, n + 1),
+            (meshes["A"], n + 1, n + 2))
+    params, state, rel = init, state0, 0.0
+    for i, (mesh, lo, hi) in enumerate(legs):
+        if i:
+            like = (_place_state(K, cfg, mesh, init, state0)
+                    if mesh is not None else (init, state0))
+            _, tree, _ = mgr.restore({"params": like[0], "opt": like[1]}, i)
+            params, state = tree["params"], tree["opt"]
+            for got, want in zip(TT.tree_leaves(tree),
+                                 TT.tree_leaves(list(like))):
+                if S.is_dtensor(got) != S.is_dtensor(want) or (
+                        S.is_dtensor(want)
+                        and got.placements != want.placements):
+                    raise AssertionError(f"L3 files: a leaf restored as "
+                                         f"{got!r:.80}, its like {want!r:.80}")
+        run = mesh_steps(torch, K, cfg, tcfg, mesh, params, state,
+                         batches[lo:hi], gather=False)
+        rel = max(rel, _steps_rel(run, _part(ref, lo, hi),
+                                  f"L3 files, steps {lo + 1}-{hi}"))
+        if i < len(legs) - 1:
+            mgr.save(i + 1, {"params": run["params"], "opt": run["state"]})
+    if rank0:
+        log(f"  4L3 elastic through the checkpoint files at "
+            f"tests/test_elastic.py's width ({cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, batch {ELASTIC_BATCH}): steps 1-{n} under A "
+            f"{meshes['A']}, saved, restored for step {n + 1} under B "
+            f"{meshes['B'] or 'the single-device trainer'}, saved, restored "
+            f"for step {n + 2} under A: within {rel:.3e} of the "
+            f"single-device steps (bound {MESH_STEP_RTOL})")
+    return rel
+
+
+def mesh_serve(torch, K, mesh, rank0):
+    """L4 on this rank: the bf16 prefill under rules (one flash_attention
+    launch a layer on this rank's local heads) against the single-device
+    kernel route, and float32 serve_steps from a cache placed by
+    cache_specs against the single-device decode."""
+    M, S = K.lm_model, K.sharding
+    cfg = K.configs.get_config(LM_ARCH)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rules = S.Rules(mesh)
+    params = M.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    tok = _lm_tokens(torch, cfg, (LM_BATCH, LM_SEQ), 0)
+    p32 = _tree_map(lambda t: t.to(torch.float32), params)
+    f32 = M.forward(p32, {"tokens": tok}, cfg32)
+    single = M.forward(params, {"tokens": tok}, cfg)
+    rel_k = _rel_err(single, f32)
+    placed = S.device_put_tree(params, M.param_specs(cfg, rules), mesh)
+    before = launch_counts(K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = M.forward(placed, {"tokens": tok}, cfg, "cuda", rules)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    expect_launches(K, before, {"flash_attention": cfg.n_layers},
+                    "L4 sharded bf16 prefill")
+    local = tuple(out.to_local().shape)
+    logits = out.full_tensor()
+    del out
+    rel_s, rel_ss = _rel_err(logits, f32), _rel_err(logits, single)
+    del logits, single, f32
+    if not rel_s <= 1.5 * rel_k:
+        raise AssertionError(f"L4: sharded bf16 prefill {rel_s} from the "
+                             f"float32 logits, over 1.5 x the single-device "
+                             f"kernel route's {rel_k}")
+    b, steps = MESH_DECODE
+    dtok = _lm_tokens(torch, cfg, (b, steps), 1)
+    want = _decode_logits(torch, M, cfg32, p32, dtok, steps + 2)
+    placed32 = S.device_put_tree(p32, M.param_specs(cfg32, rules), mesh)
+    cache = S.device_put_tree(M.init_cache(cfg32, b, steps + 2, dev),
+                              M.cache_specs(cfg32, rules, b, steps + 2), mesh)
+    got = []
+    for i in range(steps):
+        step_logits, cache = M.serve_step(placed32, cache,
+                                          {"token": dtok[:, i]}, cfg32, rules)
+        got.append(step_logits.full_tensor())
+    rel_d = _rel_err(torch.stack(got, 1), want)
+    if not rel_d <= MESH_DECODE_RTOL:
+        raise AssertionError(f"L4: sharded float32 decode {rel_d} from the "
+                             f"single-device decode > {MESH_DECODE_RTOL}")
+    if rank0:
+        log(f"  4L4 bf16 prefill {LM_BATCH} x {LM_SEQ} on {mesh}: "
+            f"{cfg.n_layers} flash_attention launches on this rank "
+            f"(local logits {local}), first call {t_fwd:.2f} s; "
+            f"{rel_s:.3e} from the float32 logits against the "
+            f"single-device kernel route's {rel_k:.3e} (bound 1.5x), "
+            f"{rel_ss:.3e} from it; float32 decode {b} x {steps} steps "
+            f"under cache_specs within {rel_d:.3e} of the single-device "
+            f"decode (bound {MESH_DECODE_RTOL})")
+    return dict(rel_s=rel_s, rel_k=rel_k, rel_decode=rel_d, t_fwd=t_fwd)
+
+
+def mesh_lm_rank(meshes):
+    """Paths L2-L4 on one rank (one process a card, run_on_mesh): returns
+    this rank's readings and its kernel launches."""
+    import torch
+    import torch.distributed as dist
+
+    K = namespace()
+    rank0 = dist.get_rank() == 0
+    reset_launches(K)
+    train = mesh_train(torch, K, meshes, rank0)
+    train["rel3_files"] = mesh_elastic_files(torch, K, meshes, rank0)
+    serve = mesh_serve(torch, K, meshes["L2"], rank0)
+    return dict(rank=dist.get_rank(), train=train, serve=serve,
+                launches=launch_counts(K))
+
+
+def main_path_mesh_lm(torch, K, h1):
+    """Main path L: the LM on a device mesh (module docstring, 4L)."""
+    t0 = time.perf_counter()
+    planned = dryrun_plans(torch, K)
+    n = torch.cuda.device_count()
+    if n >= 4:
+        meshes = {"L2": card_mesh(torch, K, (2, 2)),
+                  "A": card_mesh(torch, K, (4, 1))}
+        meshes["B"] = meshes["L2"]
+    else:
+        one = card_mesh(torch, K, (1, 1))
+        meshes = {"L2": one, "A": one, "B": None}
+    log(f"phase 4L: {LM_ARCH} on {meshes['L2']} ({meshes['L2'].size} "
+        f"process(es), NCCL)")
+    reset_launches(K)
+    ranks = K.mesh.run_on_mesh(mesh_lm_rank, meshes["L2"], meshes)
+    r0 = ranks[0]
+    for r in ranks:
+        log(f"  4L rank {r['rank']}: parameters and moments held "
+            f"{r['train']['held_gb']:.3f} GiB, peak memory "
+            f"{r['train']['peak_gb']:.2f} GiB in the bf16 run, "
+            f"{r['train']['ms']:.2f} ms/step; kernel launches "
+            f"{r['launches']}")
+    log(f"  4L beside path H (single device): {r0['train']['ms']:.2f} "
+        f"against {h1['ms_per_step']:.2f} ms/step, "
+        f"{r0['train']['tokens_per_s']:.0f} against "
+        f"{h1['tokens_per_s']:.0f} tokens/s, peak "
+        f"{r0['train']['peak_gb']:.2f} against {h1['peak_gb']:.2f} GiB, "
+        f"{r0['train']['launches_per_step']} against "
+        f"{h1['launches_per_step']} launches a step")
+    log(f"phase 4L took {time.perf_counter() - t0:.1f} s")
+    return r0["launches"], dict(planned=planned, ranks=ranks)
+
+
+# --------------------------------------------------------------------------
 # phase 5: timing
 # --------------------------------------------------------------------------
 def cuda_ms(torch, fn, iters):
@@ -4740,6 +5137,7 @@ def namespace():
     from repro_torch.models.svm import _pick_prototypes
     from repro_torch import roofline
     from repro_torch import sharding
+    from repro_torch.launch import mesh as launch_mesh
     from repro_torch.kernels import ops
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train import optim, trainer
@@ -4751,7 +5149,7 @@ def namespace():
         fa=flash_attention, lm_model=lm_model, lm_layers=lm_layers, moe=moe,
         acts=acts, emit=emit, ckpt=ckpt, optim=optim, trainer=trainer,
         roofline=roofline, ops=ops, configs=configs, tune=tune,
-        kref=kernels_ref, sharding=sharding,
+        kref=kernels_ref, sharding=sharding, mesh=launch_mesh,
         launchers={"fxp_layer": fxp_layer.fxp_layer_cuda,
                    "fxp_mlp_model": fxp_model.fxp_mlp_model_cuda,
                    "fxp_qmatmul": fxp_qmatmul.fxp_qmatmul_cuda,
@@ -4811,7 +5209,7 @@ def main() -> int:
     launches_d, arts_d = main_path_serving(torch, K, d6, d5, tree_model)
     launches_e, lm = main_path_lm(torch, K)
     launches_g = main_path_pipeline(torch, K, d6, tree_model)
-    launches_h, _ = main_path_train(torch, K)
+    launches_h, trained = main_path_train(torch, K)
     t0 = time.perf_counter()
     launches_i, families = main_path_families(torch, K)
     log(f"  phase 4I took {time.perf_counter() - t0:.1f} s")
@@ -4819,10 +5217,11 @@ def main() -> int:
     launches_j, recurrent = main_path_recurrent(torch, K)
     log(f"  phase 4J took {time.perf_counter() - t0:.1f} s")
     launches_k = main_path_mesh(torch, K, dev, d6, arts_a, arts_b)
+    launches_l, _ = main_path_mesh_lm(torch, K, trained["h1"])
     by_path = {"A": launches_a, "B": launches_b, "C": launches_c,
                "D": launches_d, "E": launches_e, "G": launches_g,
                "H": launches_h, "I": launches_i, "J": launches_j,
-               "K": launches_k}
+               "K": launches_k, "L": launches_l}
     launches = {n: (sum(p[n] for p in by_path.values()),
                     {k: p[n] for k, p in by_path.items()})
                 for n in KernelCheck.NAMES}

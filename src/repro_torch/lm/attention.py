@@ -24,12 +24,20 @@ Decode (:func:`decode_attention`) computes one query against the cache in
 grouped form (no KV head replication) and updates the cache's buffers in
 place: a KV cache is the largest decode buffer, and the reference's
 functional update would copy it every step.
+
+Under ``rules`` (DTensor activations on a mesh) the projections run on
+DTensors, and everything between them — RoPE, the attention (the kernel on
+the card), the cache update — runs on each rank's local shard through
+``local_map``: the batch on the data axes, the heads on ``model`` where the
+rules shard both ``n_heads`` and ``n_kv_heads``, else replicated.  The
+sequence and the cache length are never split there, so a local shard
+attends exactly as the whole does.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import TYPE_CHECKING, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +45,9 @@ import torch
 from repro_torch.kernels import ops
 
 from .layers import apply_linear, apply_rope, init_linear, on_card
+
+if TYPE_CHECKING:
+    from repro_torch.sharding.rules import Rules
 
 __all__ = ["attn_params", "attention", "blockwise_attention",
            "full_attention", "decode_attention", "init_kv_cache"]
@@ -171,31 +182,86 @@ def _kernel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.view(b, hq, s, dh).transpose(1, 2)
 
 
+def _heads_axis(rules: "Rules", n_heads: int, n_kv_heads: int):
+    """``'model'`` where the rules shard both head counts on it, else None
+    (the heads replicated)."""
+    both = (rules.resolve("model", n_heads) is not None
+            and rules.resolve("model", n_kv_heads) is not None)
+    return "model" if both else None
+
+
+def _local(fn, outs: int, *xs):
+    """``fn`` on each rank's local shards of the DTensors ``xs`` (already
+    placed as ``fn`` needs), its ``outs`` results placed as ``xs[0]``."""
+    from torch.distributed.tensor.experimental import local_map
+
+    # one output's placements go as a list: a tuple lists several outputs'
+    out_p = list(xs[0].placements) if outs == 1 else (
+        (xs[0].placements,) * outs)
+    return local_map(fn, out_placements=out_p,
+                     in_placements=tuple(x.placements for x in xs),
+                     device_mesh=xs[0].device_mesh)(*xs)
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            positions: Optional[torch.Tensor], rope_theta: float,
+            causal: bool, chunk: int, window: Optional[int],
+            impl: str) -> torch.Tensor:
+    """RoPE and attention over (B, S, H, dh) heads: the kernel on a CUDA
+    tensor (but for ``impl="train"``), else the reference's branch."""
+    s = q.shape[1]
+    if positions is None:
+        positions = torch.arange(s, device=q.device)[None, :]
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+    if impl != "train" and on_card(q):
+        return _kernel_attention(q, k, v, causal, impl, window)
+    if s % chunk == 0 and s > chunk:
+        return blockwise_attention(q, k, v, causal, chunk, window)
+    return full_attention(q, k, v, causal, window)
+
+
 def attention(params: Dict, x: torch.Tensor, *, n_heads: int,
               n_kv_heads: int, head_dim: int, rope_theta: float,
               causal: bool = True, chunk: int = 1024,
               window: Optional[int] = None,
               positions: Optional[torch.Tensor] = None,
-              impl: str = "cuda") -> torch.Tensor:
+              impl: str = "cuda", rules: "Optional[Rules]" = None
+              ) -> torch.Tensor:
     """Self-attention over a full sequence (prefill).  ``impl`` is the
     kernel route on a CUDA tensor (``"cuda"`` launches the kernel, ``"ref"``
     computes its function through the materialized-scores oracle);
-    ``"train"`` takes the reference's branch on any device."""
-    b, s, _ = x.shape
-    q = _split_heads(apply_linear(params["wq"], x), n_heads)
-    k = _split_heads(apply_linear(params["wk"], x), n_kv_heads)
-    v = _split_heads(apply_linear(params["wv"], x), n_kv_heads)
-    if positions is None:
-        positions = torch.arange(s, device=x.device)[None, :]
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
-    if impl != "train" and on_card(x):
-        out = _kernel_attention(q, k, v, causal, impl, window)
-    elif s % chunk == 0 and s > chunk:
-        out = blockwise_attention(q, k, v, causal, chunk, window)
+    ``"train"`` takes the reference's branch on any device.  Under
+    ``rules`` the heads attend on each rank's local shard (the module
+    docstring)."""
+    q, k, v = _project(params, x, n_heads, n_kv_heads, rules)
+
+    def attend(q, k, v):
+        return _attend(q, k, v, positions, rope_theta, causal, chunk, window,
+                       impl)
+
+    if rules is None:
+        out = attend(q, k, v)
     else:
-        out = full_attention(q, k, v, causal, window)
+        out = _local(attend, 1, q, k, v)
     return apply_linear(params["wo"], _merge_heads(out))
+
+
+def _project(params: Dict, x: torch.Tensor, n_heads: int, n_kv_heads: int,
+             rules: "Optional[Rules]"):
+    """q (B, S, Hq, dh), k and v (B, S, Hkv, dh).  Under rules each
+    projection is placed for the local attention before it is split into
+    heads: the batch on the data axes, and the heads' columns on ``model``
+    where the rules shard both head counts, else replicated (a column
+    shard that splits a head cannot be reshaped into heads)."""
+    ys = [apply_linear(params[w], x) for w in ("wq", "wk", "wv")]
+    if rules is not None:
+        from repro_torch.sharding.rules import shard
+
+        heads = _heads_axis(rules, n_heads, n_kv_heads)
+        ys = [shard(y, ("batch", None, heads), rules) for y in ys]
+    return (_split_heads(ys[0], n_heads), _split_heads(ys[1], n_kv_heads),
+            _split_heads(ys[2], n_kv_heads))
 
 
 # --------------------------------------------------------------------------
@@ -229,7 +295,8 @@ def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def decode_attention(params: Dict, x: torch.Tensor, cache: Dict,
                      position: torch.Tensor, *, n_heads: int,
                      n_kv_heads: int, head_dim: int, rope_theta: float,
-                     window: Optional[int] = None
+                     window: Optional[int] = None,
+                     rules: "Optional[Rules]" = None
                      ) -> Tuple[torch.Tensor, Dict]:
     """One-token decode.  x: (B, 1, d); cache K/V: (B, L, Hkv, dh);
     ``position``: a 0-d integer tensor.
@@ -240,16 +307,46 @@ def decode_attention(params: Dict, x: torch.Tensor, cache: Dict,
     newest, shifted left one slot per step once full (a new buffer, which
     the returned cache holds); keys are stored RoPE'd at their absolute
     positions.  The write index is clamped to L - 1, as the reference's
-    ``dynamic_update_slice`` clamps it.
+    ``dynamic_update_slice`` clamps it.  Under ``rules`` the cache entries
+    and ``position`` are DTensors, and the step runs on each rank's local
+    shard (a cache placed otherwise is redistributed for it, and the
+    returned entries are new DTensors).
     """
     b = x.shape[0]
+    # (B, 1, Hq, dh), (B, 1, Hkv, dh) twice
+    q, k_new, v_new = _project(params, x, n_heads, n_kv_heads, rules)
+    keys = sorted(cache)
+
+    def step(q, k_new, v_new, position, *entries):
+        out, new = _decode_step(q, k_new, v_new, dict(zip(keys, entries)),
+                                position, head_dim, rope_theta, window)
+        return (out,) + tuple(new[k] for k in keys)
+
+    if rules is None:
+        position = torch.as_tensor(position, device=x.device)
+        out, *entries = step(q, k_new, v_new, position,
+                             *(cache[k] for k in keys))
+    else:
+        from repro_torch.sharding.rules import shard
+
+        axes = ("batch", None, _heads_axis(rules, n_heads, n_kv_heads), None)
+        out, *entries = _local(step, 1 + len(keys), q, k_new, v_new,
+                               shard(position, (), rules),
+                               *(shard(cache[k], axes, rules) for k in keys))
+    out = out.reshape(b, 1, n_heads * head_dim)
+    y = apply_linear(params["wo"], out.to(x.dtype))
+    return y, dict(zip(keys, entries))
+
+
+def _decode_step(q, k_new, v_new, cache, position, head_dim, rope_theta,
+                 window):
+    """:func:`decode_attention` between its projections: RoPE at
+    ``position``, the cache update and the attention -> (float32 (B, 1, Hq,
+    dh) heads, the new cache entries)."""
+    b = q.shape[0]
     quantized = "k_q" in cache
     L = cache["k_q" if quantized else "k"].shape[1]
     windowed = window is not None and L <= window
-    position = torch.as_tensor(position, device=x.device)
-    q = _split_heads(apply_linear(params["wq"], x), n_heads)  # (B,1,Hq,dh)
-    k_new = _split_heads(apply_linear(params["wk"], x), n_kv_heads)
-    v_new = _split_heads(apply_linear(params["wv"], x), n_kv_heads)
     pos = position.reshape(1, 1).expand(b, 1)
     q = apply_rope(q, pos, rope_theta)
     k_new = apply_rope(k_new, pos, rope_theta)
@@ -276,23 +373,21 @@ def decode_attention(params: Dict, x: torch.Tensor, cache: Dict,
                      "v_scale": upd(base["v_scale"], vs_new)}
         # dequantize at use: the resident buffer stays int8 (paper C1)
         k = (new_cache["k_q"].to(torch.float32)
-             * new_cache["k_scale"]).to(x.dtype)
+             * new_cache["k_scale"]).to(q.dtype)
         v = (new_cache["v_q"].to(torch.float32)
-             * new_cache["v_scale"]).to(x.dtype)
+             * new_cache["v_scale"]).to(q.dtype)
     else:
         k = upd(base["k"], k_new)
         v = upd(base["v"], v_new)
         new_cache = {"k": k, "v": v}
-    hkv = n_kv_heads
-    qg = q.reshape(b, 1, hkv, n_heads // hkv, head_dim)
+    hkv = k.shape[2]  # this rank's KV heads (all of them but on a mesh)
+    qg = q.reshape(b, 1, hkv, q.shape[2] // hkv, head_dim)
     scores = _grouped_scores(qg, k) * _scale(head_dim)  # (B,Hkv,G,1,L)
-    idx = torch.arange(L, device=x.device)
+    idx = torch.arange(L, device=q.device)
     valid = idx[None, :] <= slot
     if window is not None and not windowed:
         valid &= (position - idx[None, :]) < window
     scores = torch.where(valid, scores, _NEG_INF)
     p = torch.softmax(scores, dim=-1)
     out = _grouped_out(p, v)  # (B, 1, Hkv, G, dh) — already query-major
-    out = out.reshape(b, 1, n_heads * head_dim)
-    y = apply_linear(params["wo"], out.to(x.dtype))
-    return y, new_cache
+    return out.reshape(b, 1, q.shape[2], head_dim), new_cache

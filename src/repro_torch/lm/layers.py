@@ -13,8 +13,10 @@ differ by rounding alone.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Iterator, Optional
 
 import torch
 import torch.nn.functional as F
@@ -24,12 +26,53 @@ from repro_torch.core.activations import get_sigmoid
 __all__ = ["rmsnorm", "layernorm", "make_norm_params", "apply_norm",
            "init_linear", "mlp_params", "apply_mlp", "activation_fn",
            "rope_freqs", "apply_rope", "init_embed", "gated_silu", "wval",
-           "apply_linear", "embed_tokens", "unembed", "on_card", "wide"]
+           "apply_linear", "embed_tokens", "unembed", "on_card", "wide",
+           "draw_device", "draws_on", "local_elementwise"]
 
 
 def wide(dtype: torch.dtype) -> torch.dtype:
     """float32, or ``dtype`` where it is the wider (float64)."""
     return torch.promote_types(dtype, torch.float32)
+
+
+_DRAW_DEVICE: contextvars.ContextVar = contextvars.ContextVar(
+    "draw_device", default=None)
+
+
+def draw_device(generator: torch.Generator) -> torch.device:
+    """Where parameter draws from ``generator`` are made: the generator's
+    device, or the one :func:`draws_on` names."""
+    return _DRAW_DEVICE.get() or generator.device
+
+
+@contextlib.contextmanager
+def draws_on(device) -> Iterator[None]:
+    """Parameter draws go to ``device`` (``"meta"``: shapes and dtypes
+    only, nothing allocated) through the same shape code, whatever the
+    generator's device (a meta generator does not exist)."""
+    token = _DRAW_DEVICE.set(torch.device(device))
+    try:
+        yield
+    finally:
+        _DRAW_DEVICE.reset(token)
+
+
+def local_elementwise(fn: Callable, x):
+    """``fn(x)`` for an elementwise ``fn``; on a DTensor, ``fn`` runs on each
+    rank's local shard.  A shard of any dim will do, but a partial sum (a
+    product over a sharded contraction dim) is reduced first: a nonlinear
+    ``fn`` of the parts is not ``fn`` of their sum."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(x, DTensor):
+        return fn(x)
+    from torch.distributed.tensor.experimental import local_map
+
+    placed = [Replicate() if p.is_partial() else p for p in x.placements]
+    x = x.redistribute(x.device_mesh, placed)
+    # a list: local_map reads a tuple as one placement list per output
+    return local_map(fn, out_placements=placed, in_placements=(placed,),
+                     device_mesh=x.device_mesh)(x)
 
 
 def on_card(x: torch.Tensor) -> bool:
@@ -86,7 +129,7 @@ def init_linear(generator: torch.Generator, d_in: int, d_out: int,
     1/sqrt(d_in)) in float32 and cast to ``dtype``, on the generator's
     device; a zero bias when asked."""
     s = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    dev = generator.device
+    dev = draw_device(generator)
     # scaled in place: a stacked expert leaf's float32 draw is the largest
     # buffer of a full-width init (15 GB for deepseek-v3's), held once
     w = torch.randn(tuple(lead) + (d_in, d_out), generator=generator,
@@ -123,12 +166,15 @@ def activation_fn(name: str, gate_sigmoid: str = "exact",
                   fused: bool = True) -> Callable:
     """silu/gelu/relu/relu2; silu routes through the (possibly PWL) sigmoid
     (:func:`gated_silu`), or op by op when ``fused`` is False (the
-    training route: the gate's kernel has no backward)."""
+    training route: the gate's kernel has no backward).  On a DTensor the
+    silu gate runs on each rank's local shard (:func:`local_elementwise`):
+    the kernel takes plain tensors."""
     if name == "silu":
         if not fused:
             sig = get_sigmoid(gate_sigmoid)
-            return lambda x: x * sig(x)
-        return lambda x: gated_silu(x, gate_sigmoid)
+            return lambda x: local_elementwise(lambda t: t * sig(t), x)
+        return lambda x: local_elementwise(
+            lambda t: gated_silu(t, gate_sigmoid), x)
     if name == "gelu":
         return lambda x: F.gelu(x, approximate="tanh")
     if name == "relu":
@@ -216,7 +262,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def init_embed(generator: torch.Generator, vocab: int, d: int,
                dtype: torch.dtype) -> Dict:
     table = torch.randn((vocab, d), generator=generator, dtype=torch.float32,
-                        device=generator.device).mul_(1.0 / math.sqrt(d))
+                        device=draw_device(generator))
+    table.mul_(1.0 / math.sqrt(d))
     return {"table": table.to(dtype)}
 
 

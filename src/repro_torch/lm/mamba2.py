@@ -37,7 +37,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
 
-from .layers import activation_fn, gated_silu, init_linear, rmsnorm, wval
+from .layers import (activation_fn, draw_device, gated_silu, init_linear,
+                     rmsnorm, wval)
 
 __all__ = ["mamba2_params", "mamba2_forward", "mamba2_decode",
            "init_mamba_cache", "FLOAT32_LEAVES"]
@@ -58,7 +59,7 @@ def mamba2_params(generator: torch.Generator, d_model: int, s: SSMConfig,
     """One Mamba2 layer's parameters (the reference's leaves, init scales
     and dtypes), with leading (stacked) dims, on the generator's device."""
     d_in, n_heads, conv_dim = _dims(d_model, s)
-    dev, lead = generator.device, tuple(lead)
+    dev, lead = draw_device(generator), tuple(lead)
     d_proj = 2 * d_in + 2 * s.n_groups * s.d_state + n_heads
     a_log = torch.log(torch.linspace(1.0, 16.0, n_heads, dtype=torch.float32,
                                      device=dev))

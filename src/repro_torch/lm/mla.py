@@ -33,8 +33,8 @@ from repro_torch.configs.base import MLAConfig
 
 from .attention import (_NEG_INF, _kernel_attention, blockwise_attention,
                         full_attention)
-from .layers import (apply_rope, init_linear, make_norm_params, on_card,
-                     rmsnorm, wval)
+from .layers import (apply_rope, draw_device, init_linear, make_norm_params,
+                     on_card, rmsnorm, wval)
 
 __all__ = ["mla_params", "mla_attention", "mla_decode", "init_mla_cache"]
 
@@ -42,7 +42,7 @@ __all__ = ["mla_params", "mla_attention", "mla_decode", "init_mla_cache"]
 def mla_params(generator: torch.Generator, d: int, n_heads: int,
                m: MLAConfig, dtype: torch.dtype, lead=()) -> Dict:
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
-    dev = generator.device
+    dev = draw_device(generator)
     return {
         "wq_a": init_linear(generator, d, m.q_lora_rank, dtype, lead=lead),
         "q_norm": make_norm_params("rmsnorm", m.q_lora_rank, dtype, dev,

@@ -25,10 +25,27 @@ a Python loop over the stacked index takes the place of the reference's
 
 Public API:
   init_params(cfg, generator)            -> params tree on the generator's device
+  abstract_params(cfg)                   -> the same tree on the meta device
+  param_specs(cfg, rules)                -> matching spec tree
   forward(params, batch, cfg)            -> (B, S, vocab) float32 logits
   loss_fn(params, batch, cfg)            -> scalar float32 loss
   init_cache(cfg, batch, max_len, device) -> decode cache tree
+  cache_specs(cfg, rules, batch, max_len) -> matching spec tree
   serve_step(params, cache, batch, cfg)  -> (logits, cache)
+  input_specs(cfg, shape)                -> dict of meta-tensor stand-ins
+
+**On a mesh.**  ``forward``, ``loss_fn`` and ``serve_step`` take ``rules``
+(:class:`repro_torch.sharding.Rules`): the parameters, and the cache, are
+then DTensors placed by :func:`param_specs` and :func:`cache_specs`
+(:func:`repro_torch.sharding.device_put`), a plain input is placed with
+its batch on the data axes, and the activations are constrained at the
+reference's three points (the embedded input, the logits, the decode
+logits).  Attention runs on each rank's local shard (batch on the data
+axes, heads on ``model`` where the rules shard both head counts), through
+``local_map``: on the card one ``flash_attention`` launch a layer and rank.
+Only the dense ``attn`` pattern runs under rules in this port (qwen2,
+starcoder2, minitron, qwen1.5); the other families raise
+``NotImplementedError``, their specs planned all the same.
 
 Two routes run the same layer stack (:func:`_stack`):
 
@@ -56,23 +73,26 @@ WKV state and shifts) and returns the same buffers under an advanced
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeSpec
+from repro_torch.sharding.rules import Rules, device_put, is_dtensor, shard
 
 from . import attention as attn_mod
 from . import mamba2 as mamba_mod
 from . import mla as mla_mod
 from . import moe as moe_mod
 from . import rwkv6 as rwkv_mod
-from .layers import (apply_linear, apply_mlp, apply_norm, embed_tokens,
-                     init_embed, init_linear, make_norm_params, mlp_params)
+from .layers import (apply_linear, apply_mlp, apply_norm, draw_device,
+                     draws_on, embed_tokens, init_embed, init_linear,
+                     make_norm_params, mlp_params)
 
 __all__ = ["init_params", "forward", "loss_fn", "init_cache", "serve_step",
-           "float32_leaf", "cast_params_", "ATTN_IMPLS"]
+           "float32_leaf", "cast_params_", "ATTN_IMPLS", "abstract_params",
+           "param_specs", "input_specs", "cache_specs"]
 
 # Attention routes of the layer stack: "cuda" launches the flash_attention
 # kernel on a CUDA tensor, "ref" computes the kernel's function through its
@@ -154,7 +174,7 @@ def _layer_params(generator: torch.Generator, cfg: ArchConfig, lead: tuple,
                   ffn: Callable[[tuple], Dict], ffn_key: str) -> Dict:
     """Layers stacked on ``lead``: norms, attention (MLA or GQA) and the FFN
     ``ffn(lead)`` under ``ffn_key`` (the reference's leaf order)."""
-    dt, dev = _dtype(cfg), generator.device
+    dt, dev = _dtype(cfg), draw_device(generator)
     p = {"ln1": make_norm_params(cfg.norm, cfg.d_model, dt, dev, lead),
          "ln2": make_norm_params(cfg.norm, cfg.d_model, dt, dev, lead)}
     if cfg.mla is not None:
@@ -173,7 +193,7 @@ def init_params(cfg: ArchConfig, generator: torch.Generator) -> Dict:
     """Seeded parameters (the reference's layout, init scales and dtypes)
     on the generator's device: normal tensors, not inference tensors, so
     that :func:`loss_fn` can be differentiated with respect to them."""
-    dt, dev = _dtype(cfg), generator.device
+    dt, dev = _dtype(cfg), draw_device(generator)
     params: Dict[str, Any] = {
         "embed": init_embed(generator, cfg.vocab_size, cfg.d_model, dt)}
     if cfg.modality is not None:
@@ -219,11 +239,120 @@ def init_params(cfg: ArchConfig, generator: torch.Generator) -> Dict:
     return params
 
 
+def abstract_params(cfg: ArchConfig) -> Dict:
+    """:func:`init_params`'s tree on the meta device: its structure, shapes
+    and dtypes, nothing allocated (for the dry run)."""
+    with draws_on("meta"):
+        return init_params(cfg, torch.Generator())
+
+
+# ===========================================================================
+# Partition specs (the reference's rules; structure follows the tree)
+# ===========================================================================
+def _keystr(path: Tuple) -> str:
+    """A key path as ``jax.tree_util.keystr`` prints it: ``['a']['b']``."""
+    return "".join(f"[{k!r}]" for k in path)
+
+
+def _specs_like(tree: Any, rule_fn: Callable, path: Tuple = ()) -> Any:
+    """Map each tensor leaf of a dict tree -> ``rule_fn(keystr, leaf)``."""
+    if isinstance(tree, dict):
+        return {k: _specs_like(v, rule_fn, path + (k,))
+                for k, v in tree.items()}
+    return rule_fn(_keystr(path), tree)
+
+
+def _replicated(tree: Any) -> Any:
+    return _specs_like(tree, lambda _, leaf: (None,) * leaf.dim())
+
+
+def param_specs(cfg: ArchConfig, rules: Optional[Rules], fsdp: bool = True,
+                tree: Optional[Dict] = None):
+    """Spec tree for the params (the reference's rules, rule for rule).
+
+    Policy: TP (``model``) on the head/ffn/vocab/expert dimension; FSDP
+    (the data axes, gathered at use) on the other big dimension, never
+    below 512; leading stacked-layer dims unsharded; a dimension the mesh
+    axis does not divide stays replicated (the :class:`Rules` guard).
+    ``tree``: the params to follow in place of :func:`abstract_params`
+    (e.g. a quantized artifact whose linears are ``{'w_q', 'scale'}``).
+    Without ``rules`` every leaf is replicated.
+    """
+    aps = tree if tree is not None else abstract_params(cfg)
+    if rules is None:
+        return _replicated(aps)
+
+    def mdl(d: int):
+        return rules.resolve("model", d)
+
+    def dp(d: int):
+        if not fsdp or d < 512:
+            return None
+        # every DP axis ('pod' included: ZeRO across pods); Rules falls
+        # back to 'data' alone when the dim does not divide the full extent
+        return rules.resolve("batch", d)
+
+    def rule(path: str, leaf) -> tuple:
+        shape = tuple(leaf.shape)
+        nd = len(shape)
+        if nd <= 1:
+            return (None,) * nd
+        lead = (None,) * (nd - 2)
+        if "embed" in path and "table" in path:
+            return lead + (mdl(shape[-2]), dp(shape[-1]))
+        if "head" in path:
+            return lead + (dp(shape[-2]), mdl(shape[-1]))
+        if "router" in path:
+            return (None,) * nd
+        if ("moe" in path and cfg.moe is not None and nd >= 3
+                and shape[-3] == cfg.moe.n_experts):
+            lead3 = (None,) * (nd - 3)
+            if cfg.moe.expert_sharding == "ep2d":
+                return lead3 + (rules.resolve("expert", shape[-3]), None,
+                                None)
+            if cfg.moe.expert_sharding == "ep":
+                return lead3 + (mdl(shape[-3]), dp(shape[-2]), None)
+            # tp: shard the expert-ffn dimension
+            if shape[-1] == cfg.moe.d_ff_expert:
+                return lead3 + (None, dp(shape[-2]), mdl(shape[-1]))
+            return lead3 + (None, mdl(shape[-2]), dp(shape[-1]))
+        din, dout = shape[-2], shape[-1]
+        m = mdl(dout)
+        if m is not None:
+            return lead + (dp(din), m)
+        return lead + (mdl(din), dp(dout))
+
+    return _specs_like(aps, rule)
+
+
+def _require_mesh_support(cfg: ArchConfig) -> None:
+    """Under rules, only the dense ``attn`` pattern runs in this port."""
+    if (cfg.block_pattern != "attn" or cfg.moe is not None
+            or cfg.mla is not None or cfg.modality is not None):
+        raise NotImplementedError(
+            f"{cfg.name}: execution under a mesh covers the dense attn "
+            f"pattern only; MoE, MLA, the hybrid, RWKV and the modality "
+            f"front ends wait for ROADMAP.md queue A, item 1 (A11: the "
+            f"families under a mesh)")
+
+
+def _placed(x: Any, axes: Tuple, rules: Rules, device: torch.device):
+    """A batch input under rules: a DTensor as given; a plain tensor (the
+    same on every rank) placed with its leading dim on the data axes."""
+    if is_dtensor(x):
+        return x
+    x = torch.as_tensor(x, device=device)
+    return device_put(x, rules.sharding(axes[:x.dim()]
+                                        + (None,) * (x.dim() - len(axes)),
+                                        x.shape))
+
+
 # ===========================================================================
 # Forward
 # ===========================================================================
 def _block_attn(cfg: ArchConfig, p: Dict, x: torch.Tensor,
-                attn_impl: str) -> torch.Tensor:
+                attn_impl: str, rules: Optional[Rules] = None
+                ) -> torch.Tensor:
     if cfg.mla is not None:
         return mla_mod.mla_attention(p["attn"], x, n_heads=cfg.n_heads,
                                      m=cfg.mla, rope_theta=cfg.rope_theta,
@@ -234,12 +363,15 @@ def _block_attn(cfg: ArchConfig, p: Dict, x: torch.Tensor,
                               rope_theta=cfg.rope_theta,
                               causal=not cfg.encoder_only,
                               chunk=cfg.attn_chunk,
-                              window=cfg.sliding_window, impl=attn_impl)
+                              window=cfg.sliding_window, impl=attn_impl,
+                              rules=rules)
 
 
 def _dense_block(cfg: ArchConfig, p: Dict, x: torch.Tensor,
-                 attn_impl: str) -> torch.Tensor:
-    x = x + _block_attn(cfg, p, apply_norm(cfg.norm, p["ln1"], x), attn_impl)
+                 attn_impl: str, rules: Optional[Rules] = None
+                 ) -> torch.Tensor:
+    x = x + _block_attn(cfg, p, apply_norm(cfg.norm, p["ln1"], x), attn_impl,
+                        rules)
     x = x + apply_mlp(p["mlp"], apply_norm(cfg.norm, p["ln2"], x),
                       cfg.mlp_type, cfg.activation, cfg.gate_sigmoid,
                       fused=attn_impl != "train")
@@ -271,12 +403,36 @@ def _moe_block(cfg: ArchConfig, p: Dict, x: torch.Tensor,
     return x
 
 
+def _embed_on_mesh(table, tok):
+    """``table[tok]`` for DTensors, on each rank's token shard: the table
+    gathered (FSDP's gather at use) and indexed locally.  Each rank's table
+    gradient is then a partial sum over the mesh dims its tokens are split
+    on (replicated along the others), reduced back to the table's own
+    placements.  DTensor's own index_put rule, the indexing's backward,
+    fails in some torch releases."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    rep = [Replicate()] * table.device_mesh.ndim
+    grad = [Partial() if p.is_shard() else Replicate()
+            for p in tok.placements]
+    return local_map(lambda t, i: t[i.long()], out_placements=list(
+        tok.placements), in_placements=(rep, tok.placements),
+        in_grad_placements=(grad, tok.placements),
+        device_mesh=table.device_mesh)(
+            table.redistribute(table.device_mesh, rep), tok)
+
+
 def _embed_inputs(cfg: ArchConfig, params: Dict,
-                  batch: Dict) -> torch.Tensor:
+                  batch: Dict, rules: Optional[Rules] = None) -> torch.Tensor:
     """The stack's input: audio frame embeddings in the model dtype, or
     the tokens' embeddings with the vision patches (through
-    ``modality_proj``) prepended."""
+    ``modality_proj``) prepended; under rules, the tokens placed and the
+    embedding constrained to ``('batch', None, None)``."""
     table = params["embed"]["table"]
+    if rules is not None:
+        tok = _placed(batch["tokens"], ("batch", None), rules, table.device)
+        return shard(_embed_on_mesh(table, tok), ("batch", None, None), rules)
     if cfg.modality == "audio":
         return _tokens(batch["embeds"], table.device).to(_dtype(cfg))
     x = embed_tokens(params["embed"], _tokens(batch["tokens"], table.device))
@@ -338,31 +494,41 @@ def _layer_calls(cfg: ArchConfig, params: Dict) -> List[Tuple[Callable,
 
 
 def _stack(params: Dict, batch: Dict, cfg: ArchConfig,
-           attn_impl: str) -> torch.Tensor:
+           attn_impl: str, rules: Optional[Rules] = None) -> torch.Tensor:
     """The inputs' embedding, the layers and the head -> float32 logits
     (B, S, vocab): the one layer stack of both routes."""
     if attn_impl not in ATTN_IMPLS:
         raise KeyError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                        f"{attn_impl!r}")
-    x = _embed_inputs(cfg, params, batch)
+    if rules is not None:
+        _require_mesh_support(cfg)
+    x = _embed_inputs(cfg, params, batch, rules)
     remat = attn_impl == "train" and cfg.remat and torch.is_grad_enabled()
     for block, p in _layer_calls(cfg, params):
+        extra = (rules,) if rules is not None else ()
         if remat:
-            x = checkpoint(block, cfg, p, x, attn_impl, use_reentrant=False)
+            x = checkpoint(block, cfg, p, x, attn_impl, *extra,
+                           use_reentrant=False)
         else:
-            x = block(cfg, p, x, attn_impl)
-    return _logits(cfg, params, x)
+            x = block(cfg, p, x, attn_impl, *extra)
+    return shard(_logits(cfg, params, x), ("batch", None, "model"), rules)
 
 
-@torch.inference_mode()
 def forward(params: Dict, batch: Dict, cfg: ArchConfig,
-            attn_impl: str = "cuda") -> torch.Tensor:
+            attn_impl: str = "cuda",
+            rules: Optional[Rules] = None) -> torch.Tensor:
     """Full-sequence forward -> float32 logits (B, S, vocab).  On the card
     each layer's attention is one ``flash_attention`` launch
     (``attn_impl="ref"`` computes the same function through the
     materialized-scores oracle instead, for checks; ``"train"`` takes the
-    training route of :func:`loss_fn`, without grad)."""
-    return _stack(params, batch, cfg, attn_impl)
+    training route of :func:`loss_fn`, without grad).  Under ``rules`` the
+    logits are a DTensor placed ``('batch', None, 'model')``.  Runs under
+    ``torch.inference_mode()``, or under ``torch.no_grad()`` with rules
+    (a DTensor's views, such as the layers' ``unbind``, fail in inference
+    mode)."""
+    with (torch.no_grad() if rules is not None
+          else torch.inference_mode()):
+        return _stack(params, batch, cfg, attn_impl, rules)
 
 
 def _cross_entropy(logits: torch.Tensor,
@@ -371,27 +537,133 @@ def _cross_entropy(logits: torch.Tensor,
     max, as the reference computes it.  The target logit is a
     ``torch.gather``: the reference's masked sum over the vocabulary adds
     only zeros to it, so the two give the same value bit for bit (and the
-    same one-hot gradient)."""
+    same one-hot gradient).
+
+    On a mesh (DTensor logits placed ``('batch', None, 'model')``) each
+    rank gathers the vocabulary of its own batch rows, then runs this same
+    body on its local rows through ``local_map``: its loss sum over the
+    global token count is a partial sum over the data axes, and its
+    gradient stays on its rows.  No DTensor rule takes part in the
+    cross-entropy's backward (over a sharded vocabulary those rules gave
+    gradients ~3e-3 off on four cards, torch 2.11).  The price is the
+    gathered rows: each rank holds (B/dp, S, vocab) float32 logits, not
+    (B/dp, S, vocab/tp)."""
+    if not is_dtensor(logits):
+        return torch.mean(_token_losses(logits, targets))
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    vocab = logits.dim() - 1
+    rows = [Replicate() if p.is_shard(vocab) else p
+            for p in logits.placements]
+    if tuple(rows) != tuple(targets.placements):
+        raise ValueError(f"cross-entropy: logit rows placed {rows}, targets "
+                         f"{list(targets.placements)}")
+    n = targets.numel()
+    return local_map(
+        lambda lg, t: torch.sum(_token_losses(lg, t)) / n,
+        out_placements=[Partial() if p.is_shard() else Replicate()
+                        for p in rows],
+        in_placements=(rows, targets.placements),
+        device_mesh=logits.device_mesh)(
+            logits.redistribute(logits.device_mesh, rows), targets)
+
+
+def _token_losses(logits: torch.Tensor,
+                  targets: torch.Tensor) -> torch.Tensor:
+    """Each token's cross-entropy in float32 (the body of
+    :func:`_cross_entropy`)."""
     l32 = logits.to(torch.float32)
     m = torch.amax(l32, dim=-1, keepdim=True).detach()
     lse = torch.log(torch.sum(torch.exp(l32 - m), dim=-1)) + m[..., 0]
     tgt = torch.gather(l32, -1, targets[..., None].to(torch.int64))[..., 0]
-    return torch.mean(lse - tgt)
+    return lse - tgt
 
 
-def loss_fn(params: Dict, batch: Dict, cfg: ArchConfig) -> torch.Tensor:
+def loss_fn(params: Dict, batch: Dict, cfg: ArchConfig,
+            rules: Optional[Rules] = None) -> torch.Tensor:
     """Mean next-token cross-entropy over ``batch["tokens"]`` (the target
     shifted by one, past a vision prefix), or over an encoder's or the
     audio stream's ``batch["labels"]`` unshifted, through the training
-    route: differentiable on any device, no kernel launched."""
-    logits = _stack(params, batch, cfg, "train")
+    route: differentiable on any device, no kernel launched.  Under
+    ``rules`` the loss is a replicated 0-d DTensor (each rank gathers the
+    vocabulary of its batch rows for the cross-entropy)."""
+    logits = _stack(params, batch, cfg, "train", rules)
     dev = logits.device
     if cfg.encoder_only or cfg.modality == "audio":
         return _cross_entropy(logits, _tokens(batch["labels"], dev))
+    if rules is not None:
+        tokens = _placed(batch["tokens"], ("batch", None), rules, dev)
+        loss = _cross_entropy(logits[:, :-1], tokens[:, 1:])
+        return shard(loss, (), rules)
     tokens = _tokens(batch["tokens"], dev)
     n_prefix = logits.shape[1] - tokens.shape[1]
     logits_text = logits[:, n_prefix:, :]
     return _cross_entropy(logits_text[:, :-1], tokens[:, 1:])
+
+
+# ===========================================================================
+# Input and cache specs (dry-run stand-ins on the meta device)
+# ===========================================================================
+def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> Dict:
+    """Meta-tensor stand-ins for every model input of this cell, with the
+    reference's shapes and dtypes (for decode, the cache among them)."""
+    B, S = shape.global_batch, shape.seq_len
+    meta = torch.device("meta")
+
+    def sds(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device=meta)
+
+    if shape.kind in ("train", "prefill"):
+        if cfg.modality == "audio":
+            return {"embeds": sds((B, S, cfg.d_model), _dtype(cfg)),
+                    "labels": sds((B, S), torch.int32)}
+        if cfg.modality == "vision":
+            n_img = cfg.n_prefix_embeds
+            return {"tokens": sds((B, S - n_img), torch.int32),
+                    "image_embeds": sds((B, n_img, cfg.d_model),
+                                        torch.float32)}
+        return {"tokens": sds((B, S), torch.int32)}
+    return {"token": sds((B,), torch.int32),
+            "cache": init_cache(cfg, B, S, meta)}
+
+
+def cache_specs(cfg: ArchConfig, rules: Optional[Rules], batch: int,
+                max_len: int):
+    """Spec tree for the decode cache (the reference's rules): the batch
+    dim on the data axes; then a kv-head or head dim on ``model`` where it
+    divides, else the cache length on ``model`` (decode's softmax
+    reductions over the length then become all-reduces)."""
+    ac = init_cache(cfg, batch, max_len, "meta")
+    if rules is None:
+        return _replicated(ac)
+
+    def rule(path: str, leaf) -> tuple:
+        shape = tuple(leaf.shape)
+        nd = len(shape)
+        if nd == 0:
+            return ()
+        spec = [None] * nd
+        for i, d in enumerate(shape):
+            if d == batch:
+                spec[i] = rules.resolve("batch", d)
+                break
+        assigned_model = False
+        for i in range(nd - 1, 0, -1):
+            if spec[i] is None and shape[i] in (cfg.n_kv_heads, cfg.n_heads) \
+                    and rules.resolve("model", shape[i]):
+                spec[i] = rules.resolve("model", shape[i])
+                assigned_model = True
+                break
+        if not assigned_model:
+            for i in range(1, nd):
+                if spec[i] is None and shape[i] == max_len \
+                        and rules.resolve("model", shape[i]):
+                    spec[i] = rules.resolve("model", shape[i])
+                    break
+        return tuple(spec)
+
+    return _specs_like(ac, rule)
 
 
 # ===========================================================================
@@ -443,7 +715,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     return cache
 
 
-def _decode_attn(cfg: ArchConfig, p: Dict, x, layer_cache, pos):
+def _decode_attn(cfg: ArchConfig, p: Dict, x, layer_cache, pos,
+                 rules: Optional[Rules] = None):
     if cfg.mla is not None:
         return mla_mod.mla_decode(p["attn"], x, layer_cache, pos,
                                   n_heads=cfg.n_heads, m=cfg.mla,
@@ -453,12 +726,12 @@ def _decode_attn(cfg: ArchConfig, p: Dict, x, layer_cache, pos):
                                      n_kv_heads=cfg.n_kv_heads,
                                      head_dim=cfg.head_dim,
                                      rope_theta=cfg.rope_theta,
-                                     window=cfg.sliding_window)
+                                     window=cfg.sliding_window, rules=rules)
 
 
-def _decode_dense_block(cfg, p, x, layer_cache, pos):
+def _decode_dense_block(cfg, p, x, layer_cache, pos, rules=None):
     att, new_cache = _decode_attn(cfg, p, apply_norm(cfg.norm, p["ln1"], x),
-                                  layer_cache, pos)
+                                  layer_cache, pos, rules)
     x = x + att
     x = x + apply_mlp(p["mlp"], apply_norm(cfg.norm, p["ln2"], x),
                       cfg.mlp_type, cfg.activation, cfg.gate_sigmoid)
@@ -512,22 +785,42 @@ def _decode_calls(cfg: ArchConfig, params: Dict) -> List:
             if key in params for i in range(_n_layers(params[key]))]
 
 
-@torch.inference_mode()
-def serve_step(params: Dict, cache: Dict, batch: Dict,
-               cfg: ArchConfig) -> Tuple[torch.Tensor, Dict]:
+def serve_step(params: Dict, cache: Dict, batch: Dict, cfg: ArchConfig,
+               rules: Optional[Rules] = None) -> Tuple[torch.Tensor, Dict]:
     """One decode step: new tokens (B,) -> logits (B, vocab), cache.  The
     cache's buffers are written in place (a windowed layer's shifted buffer
-    is copied back into its slot of the stack)."""
+    is copied back into its slot of the stack).  Under ``rules`` the cache
+    is a tree of DTensors placed by :func:`cache_specs`, and the logits a
+    DTensor placed ``('batch', 'model')``."""
+    if rules is not None:
+        _require_mesh_support(cfg)
+    with (torch.no_grad() if rules is not None
+          else torch.inference_mode()):
+        return _serve_step(params, cache, batch, cfg, rules)
+
+
+def _serve_step(params, cache, batch, cfg, rules):
     pos = cache["pos"]
-    tok = _tokens(batch["token"], pos.device)
-    x = embed_tokens(params["embed"], tok[:, None])  # (B, 1, d)
+    if rules is None:
+        tok = _tokens(batch["token"], pos.device)
+    else:
+        tok = _placed(batch["token"], ("batch",), rules, pos.device)
+    if rules is None:
+        x = embed_tokens(params["embed"], tok[:, None])  # (B, 1, d)
+    else:
+        x = _embed_on_mesh(params["embed"]["table"], tok[:, None])
+    extra = (rules,) if rules is not None else ()
     for block, p, key, i in _decode_calls(cfg, params):
         stacked = cache[key]
         layer_cache = {k: c[i] for k, c in stacked.items()}
-        x, new_cache = block(cfg, p, x, layer_cache, pos)
+        x, new_cache = block(cfg, p, x, layer_cache, pos, *extra)
         for k, c in new_cache.items():
             if c is not layer_cache[k]:
-                stacked[k][i].copy_(c)
+                if rules is not None:
+                    c = c.redistribute(c.device_mesh,
+                                       layer_cache[k].placements)
+                layer_cache[k].copy_(c)
     new = {"pos": pos + 1}
     new.update((k, v) for k, v in cache.items() if k != "pos")
-    return _logits(cfg, params, x[:, 0]), new
+    return shard(_logits(cfg, params, x[:, 0]), ("batch", "model"),
+                 rules), new

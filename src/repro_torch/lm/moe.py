@@ -38,7 +38,8 @@ import torch
 
 from repro_torch.configs.base import MoEConfig
 
-from .layers import activation_fn, apply_mlp, init_linear, mlp_params, wval
+from .layers import (activation_fn, apply_mlp, draw_device, init_linear,
+                     mlp_params, wval)
 
 __all__ = ["moe_params", "apply_moe", "route", "scores", "select",
            "dispatch", "capacity"]
@@ -61,7 +62,7 @@ def moe_params(generator: torch.Generator, d: int, cfg: MoEConfig,
     if cfg.router_aux_free:
         p["router"]["bias"] = torch.zeros(tuple(lead) + (e,),
                                           dtype=torch.float32,
-                                          device=generator.device)
+                                          device=draw_device(generator))
     if cfg.n_shared:
         p["shared"] = mlp_params(generator, d, cfg.n_shared * f, mlp_type,
                                  dtype, lead)

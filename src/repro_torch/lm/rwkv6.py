@@ -49,7 +49,7 @@ from repro_torch.core.activations import get_sigmoid
 from repro_torch.kernels import ops
 
 from . import layers
-from .layers import activation_fn, layernorm, wide
+from .layers import activation_fn, draw_device, layernorm, wide
 
 __all__ = ["rwkv6_params", "rwkv6_forward", "rwkv6_decode",
            "init_rwkv_cache", "FLOAT32_LEAVES"]
@@ -66,7 +66,7 @@ def rwkv6_params(generator: torch.Generator, d: int, d_ff: int,
                  n_heads: int, dtype: torch.dtype, lead=()) -> Dict:
     """One layer's parameters (the reference's leaves, init scales and
     dtypes), with leading (stacked) dims, on the generator's device."""
-    dev, lead = generator.device, tuple(lead)
+    dev, lead = draw_device(generator), tuple(lead)
     head_dim = d // n_heads
 
     def lin(din, dout):

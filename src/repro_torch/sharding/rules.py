@@ -26,10 +26,24 @@ the port cannot have (:func:`make_host_mesh`).  A spec is a tuple with one
 entry per dimension (``None``, an axis name, or a tuple of names), the
 counterpart of ``PartitionSpec``.
 
-``Rules.sharding`` and ``shard`` (placing tensors and constraining
-activations on a mesh) wait for the LM half of the multi-GPU port, which
-needs a placement model of its own; the classifier serving plane places
-nothing but whole replicas.
+**Placement: DTensor.**  JAX splits one program over a mesh from a single
+controller; torch's idiom is one process per device, each holding its
+shard of every tensor as a ``torch.distributed.tensor.DTensor``.  So:
+
+* :class:`NamedSharding` (``Rules.sharding``) pairs a :class:`Mesh` with a
+  spec, as ``jax.sharding.NamedSharding`` does;
+* :func:`device_mesh` maps a :class:`Mesh` onto the running process group
+  (rank r is ``mesh.devices.flat[r]``; NCCL over cards, gloo over host
+  placeholders), and :func:`placements` turns a spec into the DTensor
+  placements over it;
+* :func:`device_put` is ``jax.device_put(x, NamedSharding)``: it
+  distributes a full tensor that every rank holds;
+* :func:`shard` is ``with_sharding_constraint``: it redistributes an
+  activation to the spec its logical axes resolve to.
+
+The dry run plans over a :class:`Mesh` with no process group at all;
+:func:`repro_torch.launch.mesh.run_on_mesh` starts the processes a
+placement needs.
 """
 
 from __future__ import annotations
@@ -42,7 +56,9 @@ import numpy as np
 import torch
 
 __all__ = ["Mesh", "HostDevice", "batch_axes", "model_axis", "spec_for",
-           "Rules", "make_serving_mesh", "make_host_mesh", "dp_size",
+           "Rules", "NamedSharding", "shard", "placements", "device_mesh",
+           "device_put", "device_put_tree", "is_dtensor", "full_value",
+           "make_serving_mesh", "make_host_mesh", "dp_size",
            "batch_spec", "replica_bucket", "is_host_emulated",
            "device_platform", "device_id", "torch_device",
            "replica_devices"]
@@ -174,12 +190,139 @@ class Rules:
                              f"{tuple(logical_axes)} for shape {tuple(shape)}")
         return tuple(self.resolve(l, d) for l, d in zip(logical_axes, shape))
 
+    def sharding(self, logical_axes: Sequence[Optional[str]],
+                 shape: Sequence[int]) -> "NamedSharding":
+        return NamedSharding(self.mesh, self.spec(logical_axes, shape))
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A mesh and a spec: the counterpart of ``jax.sharding.NamedSharding``."""
+
+    mesh: Mesh
+    spec: tuple
+
 
 def spec_for(mesh: Optional[Mesh], logical_axes: Sequence[Optional[str]],
              shape: Sequence[int], seq_sharded: bool = False) -> Optional[tuple]:
     if mesh is None:
         return None
     return Rules(mesh, seq_sharded).spec(logical_axes, shape)
+
+
+# --------------------------------------------------------------------------
+# placement: a Mesh onto the process group, a spec onto DTensor placements
+# --------------------------------------------------------------------------
+_DEVICE_MESHES: dict = {}
+
+
+def placements(spec: Sequence, device_mesh) -> tuple:
+    """The DTensor placements of ``spec`` over ``device_mesh``: a tensor dim
+    on an axis (or a tuple of axes, in mesh order) is ``Shard(dim)`` on each
+    of those mesh dims; every other mesh dim is ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(device_mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {entry} is not in the mesh's axis "
+                             f"order {names}")
+        for i in idx:
+            if out[i] != Replicate():
+                raise ValueError(f"mesh axis {names[i]} appears twice in "
+                                 f"spec {tuple(spec)}")
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
+def device_mesh(mesh: Mesh):
+    """The ``DeviceMesh`` of ``mesh`` over the running process group, whose
+    world size must equal ``mesh.size``: rank r is ``mesh.devices.flat[r]``,
+    a ``"cuda"`` mesh (NCCL) over cards or a ``"cpu"`` one (gloo) over host
+    placeholders, its dim names the mesh's axis names.  Built once per mesh
+    and process group (building one is collective)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("device_mesh needs an initialized process group "
+                           "(repro_torch.launch.mesh.run_on_mesh starts one)")
+    if dist.get_world_size() != mesh.size:
+        raise ValueError(f"process group of {dist.get_world_size()} ranks "
+                         f"for a mesh of {mesh.size} devices")
+    world = dist.group.WORLD
+    hit = _DEVICE_MESHES.get(id(mesh))
+    if hit is not None and hit[1] is world:
+        return hit[2]
+    kinds = {device_platform(d) for d in mesh.devices.flat}
+    if len(kinds) != 1:
+        raise ValueError(f"mesh mixes device kinds {sorted(kinds)}")
+    dtype = "cuda" if kinds == {"gpu"} else "cpu"
+    ranks = torch.arange(mesh.size).reshape(mesh.devices.shape)
+    dm = DeviceMesh(dtype, ranks, mesh_dim_names=mesh.axis_names)
+    _DEVICE_MESHES[id(mesh)] = (mesh, world, dm)
+    return dm
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (a tensor placed on a mesh)."""
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def full_value(tree):
+    """The full value of a DTensor, or of each DTensor leaf of a tree of
+    dicts, lists, tuples and named tuples (a collective every rank makes);
+    any other leaf as it is.  The counterpart of ``jax.device_get``."""
+    if isinstance(tree, dict):
+        return {k: full_value(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(full_value(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(full_value(v) for v in tree)
+    return tree.full_tensor() if is_dtensor(tree) else tree
+
+
+def device_put(x: torch.Tensor, sharding: NamedSharding):
+    """``x`` (the full tensor, the same on every rank) distributed over
+    ``sharding``'s mesh by its spec: the counterpart of ``jax.device_put``."""
+    from torch.distributed.tensor import distribute_tensor
+
+    dm = device_mesh(sharding.mesh)
+    x = torch.as_tensor(x).to(dm.device_type)
+    return distribute_tensor(x, dm, placements(sharding.spec, dm))
+
+
+def device_put_tree(tree, specs, mesh: Mesh):
+    """:func:`device_put` on every leaf of a dict tree, each with the spec
+    (a tuple) at the same place in ``specs`` (``param_specs``,
+    ``cache_specs``)."""
+    if isinstance(tree, dict):
+        return {k: device_put_tree(v, specs[k], mesh) for k, v in tree.items()}
+    return device_put(tree, NamedSharding(mesh, specs))
+
+
+def shard(x, logical_axes: Sequence[Optional[str]], rules: Optional[Rules]):
+    """Activation sharding constraint: ``x`` unchanged when ``rules`` is
+    None, else redistributed to the spec its logical axes resolve to.  A
+    plain tensor under rules raises ``TypeError``: it has left the mesh."""
+    if rules is None:
+        return x
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        raise TypeError(f"shard: a plain {type(x).__name__} of shape "
+                        f"{tuple(x.shape)} under rules (expected a DTensor "
+                        f"on the rules' mesh)")
+    dm = device_mesh(rules.mesh)
+    spec = rules.spec(logical_axes, x.shape)
+    return x.redistribute(dm, placements(spec, dm))
 
 
 # --------------------------------------------------------------------------

@@ -36,6 +36,11 @@ other.
   reference stores its ``ml_dtypes`` arrays, and decodes to a
   ``torch.bfloat16`` tensor with the same bits; every other dtype decodes
   to a numpy array.
+* DTensors (a tree placed on a mesh, one process a device): saving
+  gathers every leaf on every rank (``full_tensor``, a collective), rank 0
+  writes and commits the reference's file, and every rank waits at a
+  barrier; restoring places each leaf with the placements and the mesh of
+  ``like``'s leaf, whatever mesh wrote it (elastic resharding).
 """
 
 from __future__ import annotations
@@ -52,6 +57,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.sharding.rules import full_value, is_dtensor
 
 try:  # zstd preferred; zlib is the always-available fallback
     import zstandard
@@ -370,11 +377,17 @@ def _rebuild(like: Any, leaves) -> Any:
 
 def _place(x: Any, like: Any) -> Any:
     """A decoded leaf as ``like`` holds it: a tensor on ``like``'s device
-    (with the checkpoint's dtype), else the decoded value."""
+    (with the checkpoint's dtype), distributed as ``like`` is when it is a
+    DTensor; else the decoded value."""
     if isinstance(like, torch.Tensor):
         t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
             np.asarray(x))
-        return t.to(like.device)
+        t = t.to(like.device)
+        if is_dtensor(like):
+            from torch.distributed.tensor import distribute_tensor
+
+            return distribute_tensor(t, like.device_mesh, like.placements)
+        return t
     return x
 
 
@@ -458,14 +471,26 @@ class CheckpointManager:
 
     def save(self, step: int, tree: Any,
              metadata: Optional[Dict] = None) -> str:
+        """Save ``tree`` as ``step``.  A tree of DTensors is gathered on
+        every rank, written by rank 0, and every rank returns after the
+        commit (a barrier)."""
         path = self._ckpt_path(step)
         meta = dict(metadata or {})
         meta["step"] = step
-        save_pytree(path, tree, meta)
-        # Commit marker written last: a step dir without it is ignored.
-        with open(self._commit_path(step), "w") as f:
-            f.write(str(time.time()))
-        self._gc()
+        import torch.distributed as dist
+
+        leaves: List[Any] = []
+        _flatten(tree, leaves)
+        placed = any(is_dtensor(l) for l in leaves)
+        tree = full_value(tree)
+        if not placed or dist.get_rank() == 0:
+            save_pytree(path, tree, meta)
+            # Commit marker written last: a step dir without it is ignored.
+            with open(self._commit_path(step), "w") as f:
+                f.write(str(time.time()))
+            self._gc()
+        if placed:
+            dist.barrier()
         return path
 
     def restore(self, like: Any,

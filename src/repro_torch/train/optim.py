@@ -12,6 +12,13 @@ float32 whatever the parameters' dtype (float64 parameters too); the
 gradient is cast to float32; the bias corrections are ``1 - b ** step`` in
 float32; and the update ``-lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)`` is
 computed in float32 and cast to the parameter's dtype.
+
+On a mesh the parameters, gradients and moments are DTensors placed alike,
+and the step counter is a replicated 0-d DTensor (the reference's
+``OptState(P(), mu_specs, nu_specs)``): every 0-d tensor that meets them —
+the learning rate, the bias corrections, the global norm and the clip
+scale — is made a replicated DTensor too (:func:`replicated_like`), never
+mixed in as a plain tensor.
 """
 
 from __future__ import annotations
@@ -21,8 +28,11 @@ from typing import Any, Callable, NamedTuple, Optional, Union
 
 import torch
 
+from repro_torch.sharding.rules import is_dtensor
+
 __all__ = ["OptState", "Optimizer", "adamw", "sgd", "clip_by_global_norm",
-           "apply_updates", "global_norm", "tree_map", "tree_leaves"]
+           "apply_updates", "global_norm", "tree_map", "tree_leaves",
+           "replicated_like"]
 
 LR = Union[float, Callable[[torch.Tensor], torch.Tensor]]
 
@@ -72,10 +82,26 @@ def _first_device(tree: Any) -> torch.device:
     return leaves[0].device if leaves else torch.device("cpu")
 
 
+def replicated_like(t: torch.Tensor, ref: Any) -> torch.Tensor:
+    """``t`` (a tensor every rank computed alike, or a DTensor) replicated
+    over ``ref``'s mesh when ``ref`` is a DTensor; else ``t`` as it is."""
+    if not is_dtensor(ref):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+
+    rep = [Replicate()] * ref.device_mesh.ndim
+    if is_dtensor(t):
+        return t.redistribute(ref.device_mesh, rep)
+    return DTensor.from_local(t, ref.device_mesh, rep, run_check=False)
+
+
 def global_norm(tree: Any) -> torch.Tensor:
+    """The l2 norm over every leaf, in float32; over DTensor leaves each
+    leaf's square sum is reduced to a replicated value first."""
     leaves = tree_leaves(tree)
-    return torch.sqrt(sum(torch.sum(torch.square(l.to(torch.float32)))
-                          for l in leaves))
+    return torch.sqrt(sum(
+        replicated_like(torch.sum(torch.square(l.to(torch.float32))), l)
+        for l in leaves))
 
 
 def clip_by_global_norm(tree: Any, max_norm: float) -> tuple:
@@ -95,12 +121,11 @@ def adamw(lr: LR, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             p, dtype=mu_dtype or torch.float32), params)
         nu = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
                       params)
-        return OptState(torch.zeros((), dtype=torch.int32,
-                                    device=_first_device(params)), mu, nu)
+        return OptState(_step0(params), mu, nu)
 
     def update(grads, state: OptState, params):
         step = state.step + 1
-        lr_t = lr_fn(step)
+        lr_t = replicated_like(lr_fn(step), step)
         s32 = step.to(torch.float32)
         # a Python scalar base computes in float32 with no host-to-device
         # copy (a copy would wait for the card every step)
@@ -124,6 +149,14 @@ def adamw(lr: LR, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
     return Optimizer(init, update)
 
 
+def _step0(params: Any) -> torch.Tensor:
+    """The int32 step counter at 0, on the parameters' device (replicated
+    over their mesh when they are DTensors)."""
+    leaves = tree_leaves(params)
+    zero = torch.zeros((), dtype=torch.int32, device=_first_device(params))
+    return replicated_like(zero, leaves[0]) if leaves else zero
+
+
 def _scaled(lr_t: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """``-lr_t * g`` at the promoted dtype of the two (JAX's rule for a
     float32 array times ``g``; torch would keep a bfloat16 ``g``'s dtype)."""
@@ -137,8 +170,7 @@ def sgd(lr: LR, momentum: float = 0.0) -> Optimizer:
     def init(params):
         mu = (tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
                        params) if momentum else None)
-        return OptState(torch.zeros((), dtype=torch.int32,
-                                    device=_first_device(params)), mu, None)
+        return OptState(_step0(params), mu, None)
 
     def update(grads, state: OptState, params):
         step = state.step + 1

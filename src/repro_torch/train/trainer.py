@@ -21,7 +21,16 @@ device:
 
 The reference's ``jit=`` argument of ``train_loop`` has no counterpart:
 the port's step runs eagerly, and eager PyTorch donates no buffers.
-Elastic resharding across meshes waits for the multi-GPU slice.
+
+**On a mesh** (``make_train_step(..., rules=...)``, one process a device,
+:func:`repro_torch.launch.mesh.run_on_mesh`): the parameters and the
+moments are DTensors placed by :func:`repro_torch.lm.model.param_specs`,
+the step counter is replicated, and each gradient (which autograd may hand
+back as a partial sum) is redistributed to its parameter's placements
+before the clip and AdamW.  **Elastic resharding**: a checkpoint saved
+under one mesh (:class:`CheckpointManager` gathers each DTensor leaf and
+rank 0 writes the reference's file) restores under another, each leaf
+placed as the ``like`` tree's leaf is.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ import torch
 from repro_torch.compile.api import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.lm import model as model_lib
+from repro_torch.sharding.rules import Rules, full_value
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.optim import (Optimizer, adamw, apply_updates,
                                      clip_by_global_norm, tree_leaves,
@@ -79,16 +89,18 @@ def make_optimizer(cfg: TrainConfig) -> Optimizer:
                  mu_dtype=getattr(torch, cfg.moments_dtype))
 
 
-def loss_and_grads(params: Dict, batch: Dict, arch: ArchConfig):
+def loss_and_grads(params: Dict, batch: Dict, arch: ArchConfig,
+                   rules: Optional[Rules] = None):
     """(loss, grads) of :func:`repro_torch.lm.model.loss_fn` at
     ``params``, the counterpart of ``jax.value_and_grad(loss_fn)``: the
-    gradients come in the parameters' dtypes and structure.  The leaves
-    of :func:`_not_differentiated` get zeros, as JAX gives them; any other
+    gradients come in the parameters' dtypes and structure (under
+    ``rules``, in their placements).  The leaves of
+    :func:`_not_differentiated` get zeros, as JAX gives them; any other
     leaf that does not reach the loss raises."""
     live = tree_map(lambda p: p.detach().requires_grad_(True), params)
     leaves = tree_leaves(live)
     with torch.enable_grad():
-        loss = model_lib.loss_fn(live, batch, arch)
+        loss = model_lib.loss_fn(live, batch, arch, rules)
         raw = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = []
     for path, leaf, g in zip(_leaf_paths(live), leaves, raw):
@@ -97,6 +109,8 @@ def loss_and_grads(params: Dict, batch: Dict, arch: ArchConfig):
                 raise RuntimeError(f"parameter {'/'.join(map(str, path))} "
                                    f"does not reach the loss")
             g = torch.zeros_like(leaf)
+        elif rules is not None:
+            g = g.redistribute(leaf.device_mesh, leaf.placements)
         grads.append(g)
     grads = iter(grads)
     return loss.detach(), tree_map(lambda _: next(grads), live)
@@ -126,35 +140,42 @@ def _leaf_paths(tree: Any, prefix: tuple = ()) -> list:
 
 
 def make_train_step(arch: ArchConfig, tcfg: TrainConfig,
-                    optimizer: Optional[Optimizer] = None) -> Callable:
+                    optimizer: Optional[Optimizer] = None,
+                    rules: Optional[Rules] = None) -> Callable:
     """Returns step(params, opt_state, batch) -> (params, opt_state,
     metrics), with ``metrics`` the ``loss`` and ``grad_norm`` tensors.
 
     With ``tcfg.microbatches > 1`` the batch's leading dim is split and
-    the gradients are accumulated in the parameters' dtype.
+    the gradients are accumulated in the parameters' dtype.  Under
+    ``rules`` the parameters and ``opt_state`` are DTensors on the rules'
+    mesh (the module docstring), the batch is placed by ``loss_fn`` (each
+    microbatch taken from the full batch), and the metrics are plain
+    tensors, the same on every rank.
     """
     opt = optimizer or make_optimizer(tcfg)
     mb = tcfg.microbatches
 
     def step(params, opt_state, batch):
         if mb > 1:
-            micro = [{k: v.reshape(mb, v.shape[0] // mb, *v.shape[1:])[i]
+            micro = [{k: full_value(v).reshape(mb, v.shape[0] // mb,
+                                               *v.shape[1:])[i]
                       for k, v in batch.items()} for i in range(mb)]
             # the reference's scan starts from zeros: 0 + g is g exactly
-            loss, grads = loss_and_grads(params, micro[0], arch)
+            loss, grads = loss_and_grads(params, micro[0], arch, rules)
             for m in micro[1:]:
-                l, g = loss_and_grads(params, m, arch)
+                l, g = loss_and_grads(params, m, arch, rules)
                 grads = tree_map(torch.add, grads, g)
                 loss = loss + l
             grads = tree_map(lambda g: g / mb, grads)
             loss = loss / mb
         else:
-            loss, grads = loss_and_grads(params, batch, arch)
+            loss, grads = loss_and_grads(params, batch, arch, rules)
         with torch.no_grad():
             grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm)
             updates, opt_state = opt.update(grads, opt_state, params)
             params = apply_updates(params, updates)
-        return params, opt_state, {"loss": loss, "grad_norm": gnorm}
+        return params, opt_state, {"loss": full_value(loss),
+                                   "grad_norm": full_value(gnorm)}
 
     return step
 

@@ -1054,3 +1054,82 @@ def test_fused_host_mesh_over_cuda_artifact_survives_replica_fault(dev):
     snap = sharded.replica_health.snapshot()
     assert snap["evictions"] >= 1 and snap["probes"] >= 1
     assert snap["readmissions"] >= 1 and snap["healthy"] == [0, 1, 2, 3]
+
+
+def _mesh_cfg():
+    """``tests/test_elastic.py``'s reduced qwen2 (float32)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(
+        get_config("qwen2-0.5b").reduced(), n_layers=2, d_model=64,
+        n_heads=4, n_kv_heads=2, d_head=16, d_ff=128, vocab_size=256,
+        remat=False, dtype="float32")
+
+
+def _card_mesh_of_one():
+    from repro_torch.sharding import Mesh
+
+    return Mesh(np.array([[torch.device("cuda", 0)]], dtype=object),
+                ("data", "model"))
+
+
+def test_world_of_one_nccl_train_step_equals_single_device(dev):
+    """A train step under a ('data' 1, 'model' 1) NCCL mesh, in this
+    process, equals the single-device step from the same weights."""
+    from repro_torch import sharding as S
+    from repro_torch.launch.mesh import run_on_mesh
+    from repro_torch.lm import model as M
+    from repro_torch.train import trainer as TT
+
+    cfg, mesh = _mesh_cfg(), _card_mesh_of_one()
+    tcfg = TT.TrainConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    init = M.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    batch = next(TT.synthetic_token_stream(cfg, 8, 32, 0, device=dev))
+    want = TT.make_train_step(cfg, tcfg)(
+        init, TT.make_optimizer(tcfg).init(init), batch)
+
+    def sharded():
+        rules = S.Rules(mesh)
+        placed = S.device_put_tree(init, M.param_specs(cfg, rules), mesh)
+        params, _, m = TT.make_train_step(cfg, tcfg, rules=rules)(
+            placed, TT.make_optimizer(tcfg).init(placed), batch)
+        return ({k: float(v) for k, v in m.items()},
+                {k: v.full_tensor() for k, v in params["layers"]["attn"][
+                    "wq"].items()})
+
+    (metrics, wq), = run_on_mesh(sharded, mesh)
+    for k in ("loss", "grad_norm"):
+        assert abs(metrics[k] - float(want[2][k])) <= 1e-5 * abs(
+            float(want[2][k])), k
+    torch.testing.assert_close(wq["w"], want[0]["layers"]["attn"]["wq"]["w"],
+                               rtol=0, atol=1e-6)
+
+
+def test_local_map_flash_attention_equals_the_unsharded_kernel(dev):
+    """Under rules the prefill's attention runs flash_attention on each
+    rank's local heads through local_map: one launch a layer, the logits
+    equal to the unsharded kernel route's."""
+    from repro_torch import sharding as S
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch.mesh import run_on_mesh
+    from repro_torch.lm import model as M
+
+    cfg, mesh = _mesh_cfg(), _card_mesh_of_one()
+    params = M.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    tok = torch.randint(0, 256, (4, 96), device=dev,
+                        generator=torch.Generator(dev).manual_seed(1))
+    want = M.forward(params, {"tokens": tok}, cfg)
+
+    def sharded():
+        rules = S.Rules(mesh)
+        placed = S.device_put_tree(params, M.param_specs(cfg, rules), mesh)
+        before = flash_attention.flash_attention_cuda.launches
+        out = M.forward(placed, {"tokens": tok}, cfg, "cuda", rules)
+        return (out.full_tensor(),
+                flash_attention.flash_attention_cuda.launches - before)
+
+    (got, launches), = run_on_mesh(sharded, mesh)
+    assert launches == cfg.n_layers
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
