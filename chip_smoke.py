@@ -287,6 +287,35 @@ Phases, each of which raises on failure:
       float32 logits than 1.5x the single-device kernel route; 8 float32
       ``serve_step``s (batch 4) from a cache placed by ``cache_specs``
       within 2e-3 of the single-device decode.  Grep ``4L`` for the lines.
+   L5. the attention families on path L's mesh (after L; (1, 1) on one
+      card, in this process; (2, 2) on four, a process a card).  L5a, in
+      float32 at the CPU tests' widths (d_model 512, 8 heads over 2 KV
+      heads, vocabulary 512; L5A_CASES): grok-1 with ``tp`` experts,
+      deepseek-v3 (MLA, a dense layer, the aux-free router, a shared
+      expert) with ``ep`` and with 8 ``ep2d`` experts, llava-next and
+      hubert: ``loss_and_grads``, one ``make_train_step``, ``forward`` and
+      four ``serve_step``s (none for hubert) under the mesh, each within
+      1e-4 of the single device on the same card (every gradient leaf of
+      its leaf's largest value; the stepped parameters absolute, where the
+      gradient is at least 1e-6), and the experts of every token equal.
+      L5b, in bf16 at published widths with seeded weights and the pwl4
+      gate (L5B_RUNS: deepseek-v3 4 of 61 layers at 2 x 4096, grok-1 2 of
+      64 at 4 x 2048, llava-next 2 of 32 at 2 x (2880 image embeddings +
+      1216 tokens), hubert 2 of 48 at 4 x 1500; decode 4 x 32 but for
+      hubert): rank 0's single-device prefill and decode first, the
+      weights then placed leaf by leaf (the full tree freed as the placed
+      one grows); the sharded prefill makes one flash_attention launch a
+      layer on each rank (deepseek-v3's on the dh-192 instance) and one
+      pwl_activation a gated MLP or expert stack, its last flash launch's
+      first heads held to the plain version, its logits finite and equal
+      to the single device's on (1, 1) (on four cards their distance is
+      printed with the count of token routings that pick other experts
+      than one card's and the distance before each row's first, and the
+      bytes a MoE layer call sends, counted from DTensor's collectives);
+      the sharded decode one pwl_activation a gated stack a step;
+      ms, device time, launches and idle share of one profiled prefill,
+      decode ms/token, parameter bytes a card and peak memory (under 75
+      GiB).  Grep ``4L5`` for the lines.
    In A, B and D, labels equal the plain versions' on the card (in D, each
    member's own predict); in A and B the rows where ``ref`` and ``cuda``
    differ are printed as information.
@@ -4126,6 +4155,434 @@ def main_path_mesh_lm(torch, K, h1):
 
 
 # --------------------------------------------------------------------------
+# phase 4L5: the attention families on a device mesh (after L, on its mesh)
+# --------------------------------------------------------------------------
+# L5a: float32 at the CPU tests' widths (tests/_torch_mesh_family_cases.py):
+# case -> (arch, layers, the MoE fields replaced)
+L5A_WIDTHS = dict(d_model=512, n_heads=8, n_kv_heads=2, d_head=64,
+                  vocab_size=512, d_ff=1024, remat=False, dtype="float32")
+L5A_CASES = {
+    "grok-1 tp": ("grok-1-314b", 1,
+                  dict(n_experts=4, top_k=2, d_ff_expert=512)),
+    "deepseek-v3 ep": ("deepseek-v3-671b", 2,
+                       dict(n_experts=4, top_k=2, d_ff_expert=512,
+                            n_shared=1, first_k_dense=1, d_ff_dense=1024)),
+    "deepseek-v3 ep2d": ("deepseek-v3-671b", 2,
+                         dict(n_experts=8, top_k=2, d_ff_expert=512,
+                              n_shared=1, first_k_dense=1, d_ff_dense=1024,
+                              expert_sharding="ep2d")),
+    "llava-next": ("llava-next-mistral-7b", 1, None),
+    "hubert": ("hubert-xlarge", 1, None),
+}
+L5A_BATCH = (8, 16)
+L5A_DECODE = 4  # serve_steps
+L5A_RTOL = 1e-4  # path L's bound, for the loss, every gradient leaf (of
+# the leaf's largest value), the step, the logits and the decode
+# L5b: bf16 at published widths, depth cut; gate_sigmoid pwl4 (the SiLU
+# gates of deepseek-v3 and llava-next one pwl_activation launch a stack):
+# (arch, layers, prefill (batch, tokens), image embeddings, decode (batch,
+# steps) or None)
+L5B_RUNS = (
+    # 3 dense layers and 1 MoE layer of 256 experts; 2 x 4096 (path I ran
+    # 2 x 8192: the memory of the sharded copy beside the single-device
+    # references)
+    ("deepseek-v3-671b", 4, (2, 4096), 0, (4, 32)),
+    ("grok-1-314b", 2, (4, 2048), 0, (4, 32)),
+    ("llava-next-mistral-7b", 2, (2, 1216), 2880, (4, 32)),
+    ("hubert-xlarge", 2, (4, 1500), 0, None),
+)
+L5B_PEAK_GIB = 75.0
+
+
+def _l5a_cfg(K, case):
+    arch, n_layers, moe = L5A_CASES[case]
+    cfg = dataclasses.replace(K.configs.get_config(arch).reduced(),
+                              n_layers=n_layers, **L5A_WIDTHS)
+    if moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               **moe))
+    return cfg
+
+
+def _leaf_rel(K, got, want):
+    """(worst leaf's max |got - want| over the leaf's largest |want|, its
+    path, and the leaves compared); a zero leaf must be zero in both."""
+    TT = K.trainer
+    worst = (0.0, "")
+    n = 0
+    for path, a, b in zip(TT._leaf_paths(want), TT.tree_leaves(want),
+                          TT.tree_leaves(got)):
+        b = K.sharding.full_value(b)
+        scale = float(a.abs().max())
+        err = float((a - b).abs().max())
+        rel = err / scale if scale else err
+        worst = max(worst, (rel, "/".join(path)))
+        n += 1
+    return worst[0], worst[1], n
+
+
+def l5a_case(torch, K, mesh, case, seed, rank0):
+    """L5a, one config: the single-device run on this rank's card, then
+    the same under ``mesh``; each reading within L5A_RTOL and the experts
+    of every token equal."""
+    M, S, TT = K.lm_model, K.sharding, K.trainer
+    cfg = _l5a_cfg(K, case)
+    rules = S.Rules(mesh)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    init = M.init_params(cfg, torch.Generator(dev).manual_seed(seed))
+    batch = next(TT.synthetic_token_stream(cfg, *L5A_BATCH, seed,
+                                           device=dev))
+    tcfg = TT.TrainConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10)
+    opt = TT.make_optimizer(tcfg)
+
+    def run(params, rules):
+        out = {}
+        with record_routing(K) as calls:
+            out["loss"], out["grads"] = TT.loss_and_grads(params, batch, cfg,
+                                                          rules)
+        out["experts"] = [e for _, e in calls]
+        new, _, m = TT.make_train_step(cfg, tcfg, opt, rules)(
+            params, opt.init(params), batch)
+        out.update(step=new, step_loss=float(m["loss"]),
+                   grad_norm=float(m["grad_norm"]),
+                   logits=S.full_value(M.forward(params, batch, cfg, "cuda",
+                                                 rules)))
+        if not cfg.encoder_only:
+            b = L5A_BATCH[0]
+            cache = M.init_cache(cfg, b, L5A_DECODE + 2, dev)
+            if rules is not None:
+                cache = S.device_put_tree(cache, M.cache_specs(
+                    cfg, rules, b, L5A_DECODE + 2), mesh)
+            dec = []
+            for i in range(L5A_DECODE):
+                lg, cache = M.serve_step(params, cache,
+                                         {"token": batch["tokens"][:, i]},
+                                         cfg, rules)
+                dec.append(S.full_value(lg))
+            out["decode"] = torch.stack(dec, 1)
+        return out
+
+    one = run(init, None)
+    placed = S.device_put_tree(init, M.param_specs(cfg, rules), mesh)
+    got = run(placed, rules)
+    rel = {"loss": abs(float(S.full_value(got["loss"])) - float(one["loss"]))
+           / abs(float(one["loss"])),
+           "step": max(abs(got[k] - one[k]) / abs(one[k])
+                       for k in ("step_loss", "grad_norm")),
+           "logits": _rel_err(got["logits"], one["logits"])}
+    rel["grads"], worst, n_leaves = _leaf_rel(K, got["grads"],
+                                              one["grads"])
+    # the stepped parameters, absolute, but where the gradient is below
+    # 1e-6 (AdamW's first step moves those by lr x the gradient's sign)
+    rel["params"] = max(
+        float(((a - S.full_value(b)).abs() * (g.abs() >= 1e-6)).max())
+        for a, b, g in zip(TT.tree_leaves(one["step"]),
+                           TT.tree_leaves(got["step"]),
+                           TT.tree_leaves(one["grads"])))
+    if "decode" in one:
+        rel["decode"] = _rel_err(got["decode"], one["decode"])
+    tokens = 0
+    if len(got["experts"]) != len(one["experts"]):
+        raise AssertionError(f"L5a {case}: {len(got['experts'])} routing "
+                             f"calls under the mesh, {len(one['experts'])} "
+                             f"on one card")
+    for a, b in zip(got["experts"], one["experts"]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"L5a {case}: experts differ from the "
+                                 f"single device's")
+        tokens += a.shape[0]
+    bad = {k: v for k, v in rel.items() if not v <= L5A_RTOL}
+    if bad:
+        raise AssertionError(f"L5a {case} on {mesh}: {bad} over {L5A_RTOL} "
+                             f"from the single device (worst gradient leaf "
+                             f"{worst})")
+    if rank0:
+        log(f"  4L5a {case} float32 on {mesh}: against one card, loss "
+            f"{rel['loss']:.3e}, {n_leaves} gradient leaves within "
+            f"{rel['grads']:.3e} (worst {worst}), train step {rel['step']:.3e}"
+            f" (parameters {rel['params']:.3e}), forward {rel['logits']:.3e}"
+            + (f", {L5A_DECODE} serve_steps {rel['decode']:.3e}"
+               if "decode" in rel else ", no decode (encoder)")
+            + f" (bound {L5A_RTOL}); experts equal on {tokens} tokens in "
+            f"{len(one['experts'])} routing calls")
+    return dict(rel, tokens=tokens)
+
+
+def comm_bytes(torch):
+    """A dispatch mode counting the bytes this rank sends in the functional
+    collectives that DTensor calls (ring algorithms: an all-gather sends
+    (n - 1) x its input, a reduce-scatter and an all-to-all (n - 1) / n of
+    it, an all-reduce 2 (n - 1) / n), by collective.  Groups of one send
+    nothing."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    factors = {"all_gather_into_tensor": lambda n: n - 1,
+               "reduce_scatter_tensor": lambda n: (n - 1) / n,
+               "all_to_all_single": lambda n: (n - 1) / n,
+               "shard_dim_alltoall": lambda n: (n - 1) / n,
+               "all_reduce": lambda n: 2 * (n - 1) / n}
+
+    class CommBytes(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.by_op = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.__name__.split(".")[0]
+            if (name in factors and getattr(func, "namespace", "")
+                    in ("_c10d_functional", "_dtensor")):
+                group = next(a for a in reversed(args) if isinstance(a, str))
+                n = _resolve_process_group(group).size()
+                nbytes = args[0].numel() * args[0].element_size()
+                self.by_op[name] = (self.by_op.get(name, 0)
+                                    + nbytes * factors[name](n))
+            return func(*args, **(kwargs or {}))
+
+    return CommBytes()
+
+
+@contextlib.contextmanager
+def moe_layer_bytes(torch, K):
+    """Each ``apply_moe`` call inside under :func:`comm_bytes`: the bytes
+    it sends by collective, one dict a call, in the list yielded."""
+    moe, apply = K.moe, K.moe.apply_moe
+    records = []
+
+    def counted(*args, **kw):
+        with comm_bytes(torch) as mode:
+            out = apply(*args, **kw)
+        records.append(dict(mode.by_op))
+        return out
+
+    moe.apply_moe = counted
+    try:
+        yield records
+    finally:
+        moe.apply_moe = apply
+
+
+def _place_consuming(K, tree, specs, mesh):
+    """:func:`device_put_tree`, each full leaf dropped from ``tree`` as it
+    is placed: the full tree and the placed one never both stay alive."""
+    out = {}
+    for k in list(tree):
+        v = tree.pop(k)
+        out[k] = (_place_consuming(K, v, specs[k], mesh)
+                  if isinstance(v, dict) else
+                  K.sharding.device_put(v, K.sharding.NamedSharding(
+                      mesh, specs[k])))
+        del v
+    return out
+
+
+def l5b_run(torch, K, mesh, arch, n_layers, prefill, n_img, decode, rank0):
+    """L5b, one model (bf16, published widths, ``n_layers`` deep, the pwl4
+    gate): the single-device prefill and decode on rank 0, the weights
+    placed leaf by leaf, then the sharded prefill (one flash_attention
+    launch a layer on this rank's local heads, the last held to the plain
+    version; timed and profiled) and decode."""
+    M, S = K.lm_model, K.sharding
+    cfg = dataclasses.replace(_family_cfg(K, arch, n_layers),
+                              gate_sigmoid="pwl4")
+    rules = S.Rules(mesh)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in _leaves(params))
+    b, s = prefill
+    batch = _family_batch(torch, cfg, b, s, n_img, 7)
+    gates = _gated_mlps(cfg)
+    per_fwd = {"flash_attention": cfg.n_layers}
+    if gates:
+        per_fwd["pwl_activation"] = gates
+    single = single_dec = None
+    experts = {}
+    if rank0:
+        with record_routing(K) as calls:
+            single = M.forward(params, batch, cfg)
+        experts["single"] = [e for _, e in calls]
+        del calls
+        if decode is not None:
+            dtok = _lm_tokens(torch, cfg, decode, 3)
+            single_dec = _decode_logits(torch, M, cfg, params, dtok,
+                                        decode[1] + 2)
+    torch.cuda.synchronize()
+    t_single = time.perf_counter() - t0
+    placed = _place_consuming(K, params, M.param_specs(cfg, rules), mesh)
+    del params
+    torch.cuda.empty_cache()
+    held = sum(t.to_local().numel() * t.element_size()
+               for t in _leaves(placed))
+    before = launch_counts(K)
+    t0 = time.perf_counter()
+    with captured_flash(K) as seen, record_routing(K) as calls:
+        out = M.forward(placed, batch, cfg, "cuda", rules)
+        torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    experts["mesh"] = [e for _, e in calls]
+    del calls
+    expect_launches(K, before, per_fwd, f"L5b {arch} sharded bf16 prefill")
+    local = tuple(out.to_local().shape)
+    logits = out.full_tensor()
+    del out
+    if (logits.shape != (b, s + n_img, cfg.vocab_size)
+            or not bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"L5b {arch}: sharded logits "
+                             f"{tuple(logits.shape)} not finite of the "
+                             f"expected shape")
+    flash = check_captured_flash(torch, K, seen, f"L5b {arch}")
+    del seen
+    dist_prefill = flips = before_flip = None
+    if rank0:
+        dist_prefill = _rel_err(logits, single)
+        if mesh.size == 1 and dist_prefill != 0.0:
+            raise AssertionError(f"L5b {arch}: the sharded logits on a mesh "
+                                 f"of one card are {dist_prefill} from the "
+                                 f"single device's, not equal")
+        if cfg.moe is not None:
+            # a token whose experts differ (bf16 partial sums added in
+            # another order move a router score past a neighbour's) may
+            # differ by a whole expert from there on: the distance before
+            # each row's first such token
+            first = _first_flip(torch, experts["mesh"], experts["single"], b,
+                                s + n_img)
+            flips = sum(int((a.sort(-1).values != c.sort(-1).values)
+                            .any(-1).sum()) for a, c in
+                        zip(experts["mesh"], experts["single"]))
+            before_flip = (_masked_rel(logits, single, first),
+                           int(first.min()))
+    del logits, single, experts
+    moe_bytes = None
+    if mesh.size > 1 and cfg.moe is not None:
+        with moe_layer_bytes(torch, K) as moe_bytes:
+            M.forward(placed, batch, cfg, "cuda", rules)
+    fwd = lambda: M.forward(placed, batch, cfg, "cuda", rules)  # noqa: E731
+    ms, host_ms = cuda_ms(torch, fwd, 1)
+    prof = _kernel_profile(torch, fwd, cpu=False)
+    dev_ms = sum(prof["by_kind"].values())
+    del batch
+    rec = dict(params=n_params, held_gib=held / 2 ** 30, prefill_ms=ms,
+               device_ms=dev_ms, idle=max(0.0, 1 - dev_ms / ms),
+               launches=prof["launches"], first_s=t_first,
+               dist_prefill=dist_prefill, flips=flips,
+               before_flip=before_flip, moe_bytes=moe_bytes)
+    if decode is not None:
+        db, steps = decode
+        dtok = _lm_tokens(torch, cfg, decode, 3)
+        dev = torch.device("cuda", torch.cuda.current_device())
+
+        def placed_cache():
+            return S.device_put_tree(
+                M.init_cache(cfg, db, steps + 2, dev),
+                M.cache_specs(cfg, rules, db, steps + 2), mesh)
+
+        M.serve_step(placed, placed_cache(), {"token": dtok[:, 0]}, cfg,
+                     rules)  # warm-up
+        cache = placed_cache()
+        before = launch_counts(K)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dec = []
+        for i in range(steps):
+            lg, cache = M.serve_step(placed, cache, {"token": dtok[:, i]},
+                                     cfg, rules)
+            dec.append(lg.full_tensor())
+        torch.cuda.synchronize()
+        rec["decode_ms"] = (time.perf_counter() - t0) * 1e3 / steps
+        expect_launches(K, before, {"pwl_activation": gates * steps}
+                        if gates else {}, f"L5b {arch} sharded decode")
+        dec = torch.stack(dec, 1)
+        if not bool(torch.isfinite(dec).all()):
+            raise AssertionError(f"L5b {arch}: non-finite decode logits")
+        if rank0:
+            rec["dist_decode"] = _rel_err(dec, single_dec)
+        del dec, single_dec, cache
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if rec["peak_gib"] > L5B_PEAK_GIB:
+        raise AssertionError(f"L5b {arch}: peak memory {rec['peak_gib']:.2f} "
+                             f"GiB over {L5B_PEAK_GIB}")
+    if rank0:
+        log(f"  4L5b {arch} bf16 on {mesh}: depth {cfg.n_layers} of "
+            f"{K.configs.get_config(arch).n_layers}, prefill {b} x "
+            f"{s + n_img}" + (f" ({n_img} image embeddings + {s} tokens)"
+                             if n_img else "")
+            + f", pwl4 gate; {n_params} parameters, {held} bytes "
+            f"({rec['held_gib']:.3f} GiB) on this card; init and "
+            f"single-device references {t_single:.1f} s; sharded prefill: {per_fwd} "
+            f"launches on this rank (local logits {local}), first call "
+            f"{t_first:.2f} s, {ms:.2f} ms ({host_ms:.2f} ms host), "
+            f"{dev_ms:.2f} ms device time in {prof['launches']} launches, "
+            f"idle {rec['idle']:.1%}; {flash}; {dist_prefill:.3e} from the "
+            f"single-device bf16 logits"
+            + (f" ({flips} of the "
+               f"{b * (s + n_img) * (cfg.n_layers - cfg.moe.first_k_dense)}"
+               f" token routings pick other experts than one card's; "
+               f"before each row's first such token {before_flip[0]:.3e}, "
+               f"the earliest at position {before_flip[1]})"
+               if flips is not None else "")
+            + ("; bytes this rank sends a MoE layer call: " + "; ".join(
+                f"{sum(r.values()):.0f} (" + ", ".join(
+                    f"{k} {v:.0f}" for k, v in r.items()) + ")"
+                for r in moe_bytes) if moe_bytes is not None else "")
+            + (f"; decode {decode[0]} x {decode[1]}: "
+               f"{rec['decode_ms']:.2f} ms/token, {gates} pwl_activation a "
+               f"step, {rec['dist_decode']:.3e} from the single-device "
+               f"decode" if decode is not None else "")
+            + f"; peak memory {rec['peak_gib']:.2f} GiB")
+    del placed
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_families_rank(mesh):
+    """Path L5 on one rank: L5a's five float32 configs, then L5b's four
+    bf16 models; returns this rank's readings and its kernel launches."""
+    import torch
+    import torch.distributed as dist
+
+    K = namespace()
+    rank0 = dist.get_rank() == 0
+    reset_launches(K)
+    t0 = time.perf_counter()
+    l5a = {case: l5a_case(torch, K, mesh, case, i, rank0)
+           for i, case in enumerate(L5A_CASES)}
+    t_a = time.perf_counter() - t0
+    l5b = {}
+    for run in L5B_RUNS:
+        t1 = time.perf_counter()
+        l5b[run[0]] = l5b_run(torch, K, mesh, *run, rank0)
+        l5b[run[0]]["s"] = time.perf_counter() - t1
+    return dict(rank=dist.get_rank(), l5a=l5a, l5b=l5b, l5a_s=t_a,
+                launches=launch_counts(K))
+
+
+def main_path_mesh_families(torch, K):
+    """Main path L5: the attention families on path L's mesh (module
+    docstring, 4L5)."""
+    t0 = time.perf_counter()
+    shape = (2, 2) if torch.cuda.device_count() >= 4 else (1, 1)
+    mesh = card_mesh(torch, K, shape)
+    log(f"phase 4L5: the attention families on {mesh} ({mesh.size} "
+        f"process(es), NCCL)")
+    reset_launches(K)
+    ranks = K.mesh.run_on_mesh(mesh_families_rank, mesh, mesh)
+    for r in ranks:
+        log(f"  4L5 rank {r['rank']}: L5a {r['l5a_s']:.1f} s; "
+            + "; ".join(f"{a} {v['s']:.1f} s, {v['held_gib']:.3f} GiB held, "
+                        f"peak {v['peak_gib']:.2f} GiB"
+                        for a, v in r["l5b"].items())
+            + f"; kernel launches {r['launches']}")
+    launches = ranks[0]["launches"]
+    if not launches["flash_attention"] or not launches["pwl_activation"]:
+        raise AssertionError(f"path L5 launched {launches}: flash_attention "
+                             f"and pwl_activation must both run")
+    log(f"phase 4L5 took {time.perf_counter() - t0:.1f} s")
+    return launches, ranks
+
+
+# --------------------------------------------------------------------------
 # phase 5: timing
 # --------------------------------------------------------------------------
 def cuda_ms(torch, fn, iters):
@@ -5218,10 +5675,11 @@ def main() -> int:
     log(f"  phase 4J took {time.perf_counter() - t0:.1f} s")
     launches_k = main_path_mesh(torch, K, dev, d6, arts_a, arts_b)
     launches_l, _ = main_path_mesh_lm(torch, K, trained["h1"])
+    launches_l5, _ = main_path_mesh_families(torch, K)
     by_path = {"A": launches_a, "B": launches_b, "C": launches_c,
                "D": launches_d, "E": launches_e, "G": launches_g,
                "H": launches_h, "I": launches_i, "J": launches_j,
-               "K": launches_k, "L": launches_l}
+               "K": launches_k, "L": launches_l, "L5": launches_l5}
     launches = {n: (sum(p[n] for p in by_path.values()),
                     {k: p[n] for k, p in by_path.items()})
                 for n in KernelCheck.NAMES}

@@ -166,22 +166,25 @@ def activation_fn(name: str, gate_sigmoid: str = "exact",
                   fused: bool = True) -> Callable:
     """silu/gelu/relu/relu2; silu routes through the (possibly PWL) sigmoid
     (:func:`gated_silu`), or op by op when ``fused`` is False (the
-    training route: the gate's kernel has no backward).  On a DTensor the
-    silu gate runs on each rank's local shard (:func:`local_elementwise`):
-    the kernel takes plain tensors."""
+    training route: the gate's kernel has no backward).  On a DTensor each
+    activation runs on each rank's local shard, a partial sum reduced first
+    (:func:`local_elementwise`): the kernel takes plain tensors, and no
+    DTensor rule decides what a nonlinear function of a partial sum is."""
     if name == "silu":
         if not fused:
             sig = get_sigmoid(gate_sigmoid)
-            return lambda x: local_elementwise(lambda t: t * sig(t), x)
-        return lambda x: local_elementwise(
-            lambda t: gated_silu(t, gate_sigmoid), x)
-    if name == "gelu":
-        return lambda x: F.gelu(x, approximate="tanh")
-    if name == "relu":
-        return torch.relu
-    if name == "relu2":
-        return lambda x: torch.square(torch.relu(x))
-    raise KeyError(f"unknown activation '{name}'")
+            fn = lambda t: t * sig(t)
+        else:
+            fn = lambda t: gated_silu(t, gate_sigmoid)
+    elif name == "gelu":
+        fn = lambda t: F.gelu(t, approximate="tanh")
+    elif name == "relu":
+        fn = torch.relu
+    elif name == "relu2":
+        fn = lambda t: torch.square(torch.relu(t))
+    else:
+        raise KeyError(f"unknown activation '{name}'")
+    return lambda x: local_elementwise(fn, x)
 
 
 def gated_silu(x: torch.Tensor, gate_sigmoid: str = "exact") -> torch.Tensor:

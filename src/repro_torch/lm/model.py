@@ -42,10 +42,14 @@ its batch on the data axes, and the activations are constrained at the
 reference's three points (the embedded input, the logits, the decode
 logits).  Attention runs on each rank's local shard (batch on the data
 axes, heads on ``model`` where the rules shard both head counts), through
-``local_map``: on the card one ``flash_attention`` launch a layer and rank.
-Only the dense ``attn`` pattern runs under rules in this port (qwen2,
-starcoder2, minitron, qwen1.5); the other families raise
-``NotImplementedError``, their specs planned all the same.
+``local_map``: on the card one ``flash_attention`` launch a layer and rank
+(MLA's on the dh-192 instance, its decode over the latent gathered along
+the cache length).  The MoE layers shard their experts by
+``cfg.moe.expert_sharding`` with the reference's routing tables on every
+rank (:mod:`.moe`).  The whole ``attn`` pattern runs under rules: the
+dense configs, MoE (grok-1), MLA with MoE (deepseek-v3) and the vision and
+audio front ends (llava-next, hubert); the hybrid and RWKV (zamba2,
+rwkv6) raise ``NotImplementedError``, their specs planned all the same.
 
 Two routes run the same layer stack (:func:`_stack`):
 
@@ -326,14 +330,14 @@ def param_specs(cfg: ArchConfig, rules: Optional[Rules], fsdp: bool = True,
 
 
 def _require_mesh_support(cfg: ArchConfig) -> None:
-    """Under rules, only the dense ``attn`` pattern runs in this port."""
-    if (cfg.block_pattern != "attn" or cfg.moe is not None
-            or cfg.mla is not None or cfg.modality is not None):
+    """Under rules, the ``attn`` pattern runs in this port (dense, MoE,
+    MLA, the front ends); the hybrid and RWKV raise."""
+    if cfg.block_pattern != "attn":
         raise NotImplementedError(
-            f"{cfg.name}: execution under a mesh covers the dense attn "
-            f"pattern only; MoE, MLA, the hybrid, RWKV and the modality "
-            f"front ends wait for ROADMAP.md queue A, item 1 (A11: the "
-            f"families under a mesh)")
+            f"{cfg.name}: execution under a mesh covers the attn pattern "
+            f"(dense, MoE, MLA and the modality front ends); the "
+            f"{cfg.block_pattern} pattern waits for ROADMAP.md queue A, "
+            f"A11.4 (the hybrid and RWKV under a mesh)")
 
 
 def _placed(x: Any, axes: Tuple, rules: Rules, device: torch.device):
@@ -356,7 +360,8 @@ def _block_attn(cfg: ArchConfig, p: Dict, x: torch.Tensor,
     if cfg.mla is not None:
         return mla_mod.mla_attention(p["attn"], x, n_heads=cfg.n_heads,
                                      m=cfg.mla, rope_theta=cfg.rope_theta,
-                                     chunk=cfg.attn_chunk, impl=attn_impl)
+                                     chunk=cfg.attn_chunk, impl=attn_impl,
+                                     rules=rules)
     return attn_mod.attention(p["attn"], x, n_heads=cfg.n_heads,
                               n_kv_heads=cfg.n_kv_heads,
                               head_dim=cfg.head_dim,
@@ -378,17 +383,19 @@ def _dense_block(cfg: ArchConfig, p: Dict, x: torch.Tensor,
     return x
 
 
-def _moe_ffn(cfg: ArchConfig, p: Dict, x: torch.Tensor,
-             fused: bool) -> torch.Tensor:
+def _moe_ffn(cfg: ArchConfig, p: Dict, x: torch.Tensor, fused: bool,
+             rules: Optional[Rules] = None) -> torch.Tensor:
     """The MoE FFN, over sequence chunks of ``moe_prefill_chunk`` tokens
     when ``S > chunk`` and the chunk divides S (the reference's scan; the
-    capacity is then applied per chunk of B x chunk tokens)."""
+    capacity is then applied per chunk of B x chunk tokens, under rules
+    too: a chunk holds the whole batch)."""
     ck = cfg.moe_prefill_chunk
     b, s, d = x.shape
 
     def moe(xc):
         return moe_mod.apply_moe(p, xc, cfg.moe, cfg.mlp_type, cfg.activation,
-                                 gate_sigmoid=cfg.gate_sigmoid, fused=fused)
+                                 gate_sigmoid=cfg.gate_sigmoid, fused=fused,
+                                 rules=rules)
 
     if ck and s > ck and s % ck == 0:
         return torch.cat([moe(x[:, i:i + ck]) for i in range(0, s, ck)], 1)
@@ -396,10 +403,12 @@ def _moe_ffn(cfg: ArchConfig, p: Dict, x: torch.Tensor,
 
 
 def _moe_block(cfg: ArchConfig, p: Dict, x: torch.Tensor,
-               attn_impl: str) -> torch.Tensor:
-    x = x + _block_attn(cfg, p, apply_norm(cfg.norm, p["ln1"], x), attn_impl)
+               attn_impl: str, rules: Optional[Rules] = None
+               ) -> torch.Tensor:
+    x = x + _block_attn(cfg, p, apply_norm(cfg.norm, p["ln1"], x), attn_impl,
+                        rules)
     x = x + _moe_ffn(cfg, p["moe"], apply_norm(cfg.norm, p["ln2"], x),
-                     fused=attn_impl != "train")
+                     attn_impl != "train", rules)
     return x
 
 
@@ -427,18 +436,31 @@ def _embed_inputs(cfg: ArchConfig, params: Dict,
                   batch: Dict, rules: Optional[Rules] = None) -> torch.Tensor:
     """The stack's input: audio frame embeddings in the model dtype, or
     the tokens' embeddings with the vision patches (through
-    ``modality_proj``) prepended; under rules, the tokens placed and the
-    embedding constrained to ``('batch', None, None)``."""
+    ``modality_proj``) prepended; under rules, the inputs placed with their
+    batch on the data axes (the projected patches constrained before they
+    are joined) and the embedding constrained to ``('batch', None,
+    None)``."""
     table = params["embed"]["table"]
-    if rules is not None:
-        tok = _placed(batch["tokens"], ("batch", None), rules, table.device)
-        return shard(_embed_on_mesh(table, tok), ("batch", None, None), rules)
+    dev = table.device
+    rows = ("batch", None, None)
+
+    def placed(x, axes):
+        if rules is None:
+            return _tokens(x, dev)
+        return _placed(x, axes, rules, dev)
+
     if cfg.modality == "audio":
-        return _tokens(batch["embeds"], table.device).to(_dtype(cfg))
-    x = embed_tokens(params["embed"], _tokens(batch["tokens"], table.device))
+        return shard(placed(batch["embeds"], rows).to(_dtype(cfg)), rows,
+                     rules)
+    tok = placed(batch["tokens"], ("batch", None))
+    if rules is None:
+        x = embed_tokens(params["embed"], tok)
+    else:
+        x = shard(_embed_on_mesh(table, tok), rows, rules)
     if cfg.modality == "vision" and "image_embeds" in batch:
-        img = _tokens(batch["image_embeds"], table.device).to(x.dtype)
-        x = torch.cat([apply_linear(params["modality_proj"], img), x], 1)
+        img = placed(batch["image_embeds"], rows).to(x.dtype)
+        img = shard(apply_linear(params["modality_proj"], img), rows, rules)
+        x = shard(torch.cat([img, x], 1), rows, rules)
     return x
 
 
@@ -590,16 +612,20 @@ def loss_fn(params: Dict, batch: Dict, cfg: ArchConfig,
     vocabulary of its batch rows for the cross-entropy)."""
     logits = _stack(params, batch, cfg, "train", rules)
     dev = logits.device
+
+    def placed(x):
+        if rules is None:
+            return _tokens(x, dev)
+        return _placed(x, ("batch", None), rules, dev)
+
     if cfg.encoder_only or cfg.modality == "audio":
-        return _cross_entropy(logits, _tokens(batch["labels"], dev))
-    if rules is not None:
-        tokens = _placed(batch["tokens"], ("batch", None), rules, dev)
-        loss = _cross_entropy(logits[:, :-1], tokens[:, 1:])
-        return shard(loss, (), rules)
-    tokens = _tokens(batch["tokens"], dev)
-    n_prefix = logits.shape[1] - tokens.shape[1]
-    logits_text = logits[:, n_prefix:, :]
-    return _cross_entropy(logits_text[:, :-1], tokens[:, 1:])
+        loss = _cross_entropy(logits, placed(batch["labels"]))
+    else:
+        tokens = placed(batch["tokens"])
+        n_prefix = logits.shape[1] - tokens.shape[1]
+        logits_text = logits[:, n_prefix:, :]
+        loss = _cross_entropy(logits_text[:, :-1], tokens[:, 1:])
+    return shard(loss, (), rules)
 
 
 # ===========================================================================
@@ -720,7 +746,7 @@ def _decode_attn(cfg: ArchConfig, p: Dict, x, layer_cache, pos,
     if cfg.mla is not None:
         return mla_mod.mla_decode(p["attn"], x, layer_cache, pos,
                                   n_heads=cfg.n_heads, m=cfg.mla,
-                                  rope_theta=cfg.rope_theta)
+                                  rope_theta=cfg.rope_theta, rules=rules)
     return attn_mod.decode_attention(p["attn"], x, layer_cache, pos,
                                      n_heads=cfg.n_heads,
                                      n_kv_heads=cfg.n_kv_heads,
@@ -738,13 +764,13 @@ def _decode_dense_block(cfg, p, x, layer_cache, pos, rules=None):
     return x, new_cache
 
 
-def _decode_moe_block(cfg, p, x, layer_cache, pos):
+def _decode_moe_block(cfg, p, x, layer_cache, pos, rules=None):
     att, new_cache = _decode_attn(cfg, p, apply_norm(cfg.norm, p["ln1"], x),
-                                  layer_cache, pos)
+                                  layer_cache, pos, rules)
     x = x + att
     x = x + moe_mod.apply_moe(p["moe"], apply_norm(cfg.norm, p["ln2"], x),
                               cfg.moe, cfg.mlp_type, cfg.activation,
-                              gate_sigmoid=cfg.gate_sigmoid)
+                              gate_sigmoid=cfg.gate_sigmoid, rules=rules)
     return x, new_cache
 
 

@@ -1,8 +1,8 @@
 """Mixture-of-Experts: top-k router and sort-based capacity dispatch.
 
-The PyTorch counterpart of :mod:`repro.lm.moe`, on one device (the
-reference's expert sharding, ``ep``/``tp``, arrives with the multi-GPU
-slice).  Dispatch is the reference's sort-and-slot scheme: flatten the
+The PyTorch counterpart of :mod:`repro.lm.moe`, on one device and under
+``rules`` on a device mesh (expert sharding below).  Dispatch is the
+reference's sort-and-slot scheme: flatten the
 (token, k) assignments, sort them by expert (stably, so that within an
 expert's segment the assignments keep token order), give each its position
 in the segment, move tokens into an (E * C, d) buffer through an integer
@@ -27,22 +27,48 @@ The router always computes in float32; the aux-free ``bias`` of
 deepseek-v3 moves the selection only, the weights use the unbiased scores.
 The top-k is a stable descending sort, so equal scores give the lower
 expert first, as ``jax.lax.top_k`` does.
+
+**Expert sharding** (``apply_moe(..., rules=...)``, DTensor activations on
+a mesh).  The routing tables stay the reference's on every rank: each rank
+gathers the layer's whole (T, d) input (an all-gather over the data axes;
+T = B * S of the whole batch, so the capacity is the reference's) and runs
+:func:`route` and :func:`dispatch` on it through ``local_map``, the same
+function on the same values (DTensor has no rules for the sort, the
+``searchsorted`` or the ``index_put_``).  Only floats move through the
+tables, as in the reference.  The activations are placed at the
+reference's four points by ``cfg.expert_sharding``
+(:func:`expert_axes`): the buffer ``(exp, cap, None)``, the hidden
+``(exp, cap, 'model' if tp)``, the output buffer ``(exp, cap, None)`` and
+the combined output ``('batch', None)``, with ``exp`` = ``model`` for
+``ep``, ``expert`` (data x model) for ``ep2d``, none for ``tp``, and
+``cap`` = ``batch`` for ``ep`` and ``tp``.  Each rank fills its own slots
+of the buffer from the gathered rows (no all-to-all), runs the grouped
+products on its shard (DTensor places them; a product over a sharded
+contraction dim is a partial sum, reduced at the constraint before the
+gate, :func:`repro_torch.lm.layers.local_elementwise`, or the combine),
+and adds the weighted rows of its own slots into a (T, d) partial sum,
+reduced to ``('batch', None)``.  On a mesh of one device every step is
+the single-device function on the same values, bit for bit.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import TYPE_CHECKING, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.sharding.rules import shard
 
 from .layers import (activation_fn, apply_mlp, draw_device, init_linear,
                      mlp_params, wval)
 
+if TYPE_CHECKING:
+    from repro_torch.sharding.rules import Rules
+
 __all__ = ["moe_params", "apply_moe", "route", "scores", "select",
-           "dispatch", "capacity"]
+           "dispatch", "capacity", "expert_axes", "routing_on_mesh"]
 
 
 def moe_params(generator: torch.Generator, d: int, cfg: MoEConfig,
@@ -152,34 +178,147 @@ def dispatch(weights: torch.Tensor, experts: torch.Tensor, n_experts: int,
     return slot_token, token_slots.view(t, k), token_weights.view(t, k)
 
 
+def expert_axes(cfg: MoEConfig) -> Tuple[Optional[str], Optional[str]]:
+    """(expert axis, capacity axis): the reference's logical axes of the
+    (E, C, ...) expert buffers for ``cfg.expert_sharding``."""
+    exp_axis = {"ep": "model", "ep2d": "expert",
+                "tp": None}[cfg.expert_sharding]
+    cap_ax = "batch" if cfg.expert_sharding in ("ep", "tp") else None
+    return exp_axis, cap_ax
+
+
+def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x``'s rows at ``idx``; index ``len(x)`` reads a zero row."""
+    return torch.cat([x, x.new_zeros(1, x.shape[1])], 0)[idx.long()]
+
+
+def _combine(out_buf: torch.Tensor, token_slots: torch.Tensor,
+             token_weights: torch.Tensor) -> torch.Tensor:
+    """(n, d) slot outputs -> (T, d): each token's k slot rows (slot n, a
+    dropped assignment, the zero row) times their weights, summed over k."""
+    outk = _rows(out_buf, token_slots)  # (T, k, d)
+    return torch.sum(outk * token_weights[..., None].to(outk.dtype), dim=1)
+
+
+def routing_on_mesh(p: Dict, xf, cfg: MoEConfig, cap: int):
+    """The routing tables of a DTensor input ``xf`` (T, d), the same on
+    every rank: ``xf`` gathered to every rank, then :func:`route` and
+    :func:`dispatch` through ``local_map``.  Returns (the gathered ``xf``,
+    ``slot_token``, ``token_slots``, ``token_weights``), replicated
+    DTensors."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = xf.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    xr = xf.redistribute(mesh, rep)
+    keys = sorted(p["router"])
+
+    def tables(x, *leaves):
+        weights, experts = route({"router": dict(zip(keys, leaves))},
+                                 x.to(torch.float32), cfg)
+        return dispatch(weights, experts, cfg.n_experts, cap)
+
+    return (xr,) + tuple(local_map(
+        tables, out_placements=(rep, rep, rep),
+        in_placements=(rep,) * (1 + len(keys)), device_mesh=mesh)(
+            xr, *(p["router"][k].redistribute(mesh, rep) for k in keys)))
+
+
+def _slots_on_mesh(p: Dict, xf, cfg: MoEConfig, cap: int, rules: "Rules"):
+    """Under rules: the routing tables (:func:`routing_on_mesh`) and the
+    (E, C, d) buffer placed ``(exp, cap, None)``, each rank's slots filled
+    from the gathered rows.  Returns (buffer, the global slot ids placed as
+    the buffer's first two dims, ``token_slots``, ``token_weights``)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    e = cfg.n_experts
+    exp_axis, cap_ax = expert_axes(cfg)
+    xr, slot_token, token_slots, token_weights = routing_on_mesh(
+        p, xf, cfg, cap)
+    mesh = xr.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    table = shard(slot_token.view(e, cap), (exp_axis, cap_ax), rules)
+    placed = list(table.placements)
+    # a rank's rows feed only its own slots: its gradient is a partial sum
+    # over the mesh dims the slots are split on
+    grad = [Partial() if q.is_shard() else Replicate() for q in placed]
+    buf = local_map(_rows, out_placements=placed, in_placements=(rep, placed),
+                    in_grad_placements=(grad, placed),
+                    device_mesh=mesh)(xr, table)
+    ids = shard(DTensor.from_local(
+        torch.arange(e * cap, device=table.to_local().device).view(e, cap),
+        mesh, rep), (exp_axis, cap_ax), rules)
+    return buf, ids, token_slots, token_weights
+
+
+def _combine_on_mesh(out_buf, ids, token_slots, token_weights):
+    """Each rank's slots of ``out_buf`` (placed as ``ids``) weighted into
+    a (T, d) partial sum over the mesh dims the slots are split on."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    e, cap, d = out_buf.shape
+
+    def local(ob, sid, ts, tw):
+        n = sid.numel()
+        # global slot -> this rank's row (n, the zero row, when elsewhere)
+        where = torch.full((e * cap + 1,), n, dtype=torch.long,
+                           device=sid.device)
+        where[sid.reshape(n).long()] = torch.arange(n, device=sid.device)
+        return _combine(ob.reshape(n, d), where[ts.long()], tw)
+
+    placed = list(ids.placements)
+    rep = [Replicate()] * len(placed)
+    part = [Partial() if q.is_shard() else Replicate() for q in placed]
+    return local_map(local, out_placements=part,
+                     in_placements=(placed, placed, rep, rep),
+                     in_grad_placements=(placed, placed, rep, part),
+                     device_mesh=ids.device_mesh)(
+                         out_buf, ids, token_slots, token_weights)
+
+
 def apply_moe(p: Dict, x: torch.Tensor, cfg: MoEConfig, mlp_type: str,
               activation: str, capacity_factor: Optional[float] = None,
-              gate_sigmoid: str = "exact", fused: bool = True) -> torch.Tensor:
+              gate_sigmoid: str = "exact", fused: bool = True,
+              rules: "Optional[Rules]" = None) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d).  ``fused``: on the card a pwl4 SiLU gate
     over the (E, C, f) expert activations is one ``pwl_activation`` launch
-    (False: op by op, the training route)."""
+    (False: op by op, the training route).  Under ``rules`` ``x`` and the
+    parameters are DTensors and the experts are sharded by
+    ``cfg.expert_sharding`` (the module docstring); the gate is then one
+    launch over each rank's local expert activations."""
     b, s, d = x.shape
     t = b * s
     e = cfg.n_experts
     xf = x.reshape(t, d)
     act = activation_fn(activation, gate_sigmoid, fused)
-    weights, experts = route(p, xf.to(torch.float32), cfg)
     cap = capacity(t, cfg, capacity_factor)
-    slot_token, token_slots, token_weights = dispatch(weights, experts, e,
-                                                      cap)
-
-    xf_pad = torch.cat([xf, xf.new_zeros(1, d)], 0)
-    buf = xf_pad[slot_token.long()].view(e, cap, d)
+    exp_axis, cap_ax = expert_axes(cfg)
+    if rules is None:
+        weights, experts = route(p, xf.to(torch.float32), cfg)
+        slot_token, token_slots, token_weights = dispatch(weights, experts,
+                                                          e, cap)
+        buf = _rows(xf, slot_token).view(e, cap, d)
+    else:
+        buf, ids, token_slots, token_weights = _slots_on_mesh(p, xf, cfg,
+                                                              cap, rules)
+    buf = shard(buf, (exp_axis, cap_ax, None), rules)
     h = torch.bmm(buf, wval(p["wi"], x.dtype))
+    h = shard(h, (exp_axis, cap_ax,
+                  "model" if cfg.expert_sharding == "tp" else None), rules)
     if mlp_type == "glu":
         h = act(torch.bmm(buf, wval(p["wg"], x.dtype))) * h
     else:
         h = act(h)
-    out_buf = torch.bmm(h, wval(p["wo"], x.dtype)).view(e * cap, d)
-
-    out_pad = torch.cat([out_buf, out_buf.new_zeros(1, d)], 0)
-    outk = out_pad[token_slots.long()]  # (T, k, d); dropped: the zero row
-    out = torch.sum(outk * token_weights[..., None].to(outk.dtype), dim=1)
+    out_buf = torch.bmm(h, wval(p["wo"], x.dtype))
+    out_buf = shard(out_buf, (exp_axis, cap_ax, None), rules)
+    if rules is None:
+        out = _combine(out_buf.view(e * cap, d), token_slots, token_weights)
+    else:
+        out = _combine_on_mesh(out_buf, ids, token_slots, token_weights)
+    out = shard(out, ("batch", None), rules)
     if cfg.n_shared:
         out = out + apply_mlp(p["shared"], xf, mlp_type, activation,
                               gate_sigmoid, fused)

@@ -1133,3 +1133,112 @@ def test_local_map_flash_attention_equals_the_unsharded_kernel(dev):
     (got, launches), = run_on_mesh(sharded, mesh)
     assert launches == cfg.n_layers
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def _moe_mesh_cfg(expert_sharding):
+    """A MoE layer at widths of 512: 4 experts (8 for ep2d), top 2, the
+    pwl4 gate."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("deepseek-v3-671b").reduced()
+    return dataclasses.replace(cfg.moe, n_experts=8 if expert_sharding ==
+                               "ep2d" else 4, top_k=2, d_ff_expert=512,
+                               n_shared=1, expert_sharding=expert_sharding)
+
+
+@pytest.mark.parametrize("expert_sharding", ["ep", "ep2d", "tp"])
+def test_moe_layer_on_a_card_mesh_of_one_equals_single_device(
+        dev, expert_sharding):
+    """``apply_moe(rules=)`` under a ('data' 1, 'model' 1) NCCL mesh equals
+    the single-device layer bit for bit, its routing tables too, with one
+    pwl_activation launch per expert stack (and one for the shared expert)
+    at the pwl4 gate."""
+    from repro_torch import sharding as S
+    from repro_torch.kernels import pwl_activation
+    from repro_torch.launch.mesh import run_on_mesh
+    from repro_torch.lm import moe as moe_mod
+
+    mo, mesh = _moe_mesh_cfg(expert_sharding), _card_mesh_of_one()
+    gen = torch.Generator(dev).manual_seed(0)
+    p = moe_mod.moe_params(gen, 512, mo, "glu", torch.float32)
+    x = torch.randn(8, 64, 512, device=dev, generator=gen)
+    want = moe_mod.apply_moe(p, x, mo, "glu", "silu", gate_sigmoid="pwl4")
+    cap = moe_mod.capacity(8 * 64, mo)
+    tables = moe_mod.dispatch(*moe_mod.route(p, x.reshape(-1, 512), mo),
+                              mo.n_experts, cap)
+
+    def sharded():
+        rules = S.Rules(mesh)
+        placed = S.device_put_tree(p, _specs(p), mesh)
+        xd = S.device_put(x, rules.sharding(("batch", None, None), x.shape))
+        before = pwl_activation.pwl_activation_cuda.launches
+        out = moe_mod.apply_moe(placed, xd, mo, "glu", "silu",
+                                gate_sigmoid="pwl4", rules=rules)
+        launches = pwl_activation.pwl_activation_cuda.launches - before
+        _, *got = moe_mod.routing_on_mesh(placed, xd.reshape(-1, 512), mo,
+                                          cap)
+        return out.full_tensor(), launches, [t.to_local() for t in got]
+
+    (got, launches, got_tables), = run_on_mesh(sharded, mesh)
+    assert launches == 2  # the expert stack and the shared expert
+    assert torch.equal(got, want)
+    for a, b in zip(got_tables, tables):
+        assert torch.equal(a, b)
+
+
+def _specs(tree):
+    """Every leaf of a dict tree replicated (a mesh of one)."""
+    return {k: _specs(v) if isinstance(v, dict) else (None,) * v.dim()
+            for k, v in tree.items()}
+
+
+def test_mla_on_a_card_mesh_launches_the_dh192_instance_once_a_layer(dev):
+    """deepseek-v3's MLA attention at its published head widths (q/k 192,
+    v 128) under a (1, 1) NCCL mesh: one flash_attention launch a layer at
+    dh 192 on the rank's local heads, the logits equal to the single
+    device's kernel route."""
+    import dataclasses
+
+    from repro_torch import sharding as S
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MLAConfig
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch.mesh import run_on_mesh
+    from repro_torch.lm import model as M
+
+    cfg = dataclasses.replace(
+        get_config("deepseek-v3-671b").reduced(), n_layers=2, d_model=512,
+        n_heads=8, vocab_size=512, d_ff=1024, dtype="bfloat16",
+        mla=MLAConfig(q_lora_rank=256, kv_lora_rank=128,
+                      qk_nope_head_dim=128, qk_rope_head_dim=64,
+                      v_head_dim=128))
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, d_ff_dense=1024))
+    mesh = _card_mesh_of_one()
+    params = M.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    tok = torch.randint(0, 512, (2, 256), device=dev,
+                        generator=torch.Generator(dev).manual_seed(1))
+    want = M.forward(params, {"tokens": tok}, cfg)
+    seen = []
+    real = flash_attention.flash_attention_cuda
+
+    def sharded():
+        rules = S.Rules(mesh)
+        placed = S.device_put_tree(params, M.param_specs(cfg, rules), mesh)
+        before = real.launches
+        out = M.forward(placed, {"tokens": tok}, cfg, "cuda", rules)
+        return out.full_tensor(), real.launches - before
+
+    def spy(q, k, v, causal=True, window=None):
+        seen.append(q.shape[-1])
+        return real(q, k, v, causal, window)
+
+    ops.flash_attention_cuda = spy
+    try:
+        (got, launches), = run_on_mesh(sharded, mesh)
+    finally:
+        ops.flash_attention_cuda = real
+    assert launches == cfg.n_layers and seen == [192] * cfg.n_layers
+    assert torch.equal(got, want)

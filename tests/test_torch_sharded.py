@@ -20,9 +20,11 @@ JAX runs in this process.  Tolerances, all measured well inside:
 * elastic: one step under (4, 2) saved, restored under (2, 4) and stepped
   again; both losses within 1e-5 of JAX's two unsharded steps (the
   optimizer re-initialised, as ``tests/test_elastic.py`` does);
-* no fallback: a non-dense family under rules raises
-  ``NotImplementedError``, ``shard`` raises on a plain tensor, and a rank
-  that raises makes ``run_on_mesh`` raise.
+* no fallback: the hybrid and RWKV under rules raise
+  ``NotImplementedError`` (the other attention families pass the guard:
+  ``tests/test_torch_sharded_moe.py`` and
+  ``tests/test_torch_sharded_modality.py`` run them), ``shard`` raises on
+  a plain tensor, and a rank that raises makes ``run_on_mesh`` raise.
 """
 
 import numpy as np
@@ -55,6 +57,8 @@ ELASTIC_RTOL = 1e-5
 LR = 1e-3
 DECODE_STEPS = 4
 DENSE = ("qwen2-0.5b", "starcoder2-15b", "minitron-8b", "qwen1.5-32b")
+ATTENTION_FAMILIES = ("grok-1-314b", "deepseek-v3-671b",
+                      "llava-next-mistral-7b", "hubert-xlarge")
 
 
 @pytest.fixture(scope="module")
@@ -265,15 +269,28 @@ def test_checkpoint_reshards_across_meshes(ref, tmp_path):
 # --------------------------------------------------------------------------
 # no fallback
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a not in DENSE])
+@pytest.mark.parametrize("arch", [a for a in ARCH_IDS
+                                  if a not in DENSE + ATTENTION_FAMILIES])
 def test_unported_families_raise_under_rules(arch):
     cfg = tget_config(arch).reduced()
     rules = Rules(make_host_mesh_2d(4, 2))
     for call in (lambda: TM.forward({}, {}, cfg, "ref", rules),
                  lambda: TM.loss_fn({}, {}, cfg, rules),
                  lambda: TM.serve_step({}, {}, {}, cfg, rules)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="A11.4"):
             call()
+
+
+@pytest.mark.parametrize("arch", ATTENTION_FAMILIES)
+def test_attention_families_pass_the_mesh_guard(arch):
+    """MoE, MLA with MoE and the two front ends run under rules (their
+    sharded runs are ``tests/test_torch_sharded_moe.py`` and
+    ``tests/test_torch_sharded_modality.py``); their specs plan."""
+    cfg = tget_config(arch).reduced()
+    TM._require_mesh_support(cfg)
+    rules = Rules(make_host_mesh_2d(4, 2))
+    specs = TM.param_specs(cfg, rules)
+    assert set(specs) == set(TM.abstract_params(cfg))
 
 
 def test_a_failing_rank_makes_run_on_mesh_raise():

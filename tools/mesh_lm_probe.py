@@ -1,20 +1,27 @@
 #!/usr/bin/env python3
-"""Path L of ``chip_smoke.py`` alone on four cards, after a check of every
-gradient leaf of one float32 step under the mesh against one card.
+"""Paths L5 and L of ``chip_smoke.py`` alone, on the cards of this host.
 
-    python3 tools/mesh_lm_probe.py
+    python3 tools/mesh_lm_probe.py [L5] [L]     (default: L5)
 
-Builds the kernels, then on a ('data' 2, 'model' 2) mesh of the first four
-cards (a process a card, ``launch.mesh.run_on_mesh``): qwen2-0.5b at full
-width, float32, one batch of 8 x 512 from path H's seeded stream; each
-rank takes ``loss_and_grads`` on one card and under the mesh from the same
-weights, and rank 0 prints the two losses and the eight gradient leaves
-furthest from the single-card ones (max abs difference over the leaf's
-largest value, with the leaf's placements).  Then ``main_path_mesh_lm``
-(L1-L4, the same checks and lines as in the whole smoke run, grep ``4L``;
-path H's numbers, which the whole run takes from phase 4H, print as nan).
-Exits non-zero if any check fails.  Needs four NVIDIA GPUs and ``nvcc``;
-the first line is the card's name and power limit.
+Builds the kernels, prints the card's name and power limit and the torch
+version, then runs the paths asked for, in this order:
+
+* ``L``: on a ('data' 2, 'model' 2) mesh of the first four cards (a
+  process a card, ``launch.mesh.run_on_mesh``), qwen2-0.5b at full width,
+  float32, one batch of 8 x 512 from path H's seeded stream: each rank
+  takes ``loss_and_grads`` on one card and under the mesh from the same
+  weights, and rank 0 prints the two losses and the eight gradient leaves
+  furthest from the single-card ones (max abs difference over the leaf's
+  largest value, with the leaf's placements).  Then ``main_path_mesh_lm``
+  (L1-L4, the same checks and lines as in the whole smoke run, grep
+  ``4L``; path H's numbers, which the whole run takes from phase 4H, print
+  as nan).  Needs four cards.
+* ``L5``: ``main_path_mesh_families`` on (2, 2) with four cards, (1, 1)
+  with fewer: L5a first, where every gradient leaf of each float32 config's
+  step under the mesh is held to one card's (1e-4 of the leaf's largest
+  value; the worst leaf printed), then L5b's bf16 models (grep ``4L5``).
+
+Exits non-zero if any check fails.  Needs NVIDIA GPUs and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -62,15 +69,11 @@ def grads_rank(mesh):
             print("grad", e, flush=True)
 
 
-def main() -> int:
-    from repro_torch.kernels import build
-
+def path_l(K):
     if torch.cuda.device_count() < 4:
-        print(f"needs four cards, this host has {torch.cuda.device_count()}")
+        print(f"path L needs four cards, this host has "
+              f"{torch.cuda.device_count()}")
         return 1
-    build.build_all()
-    print(cs.smi("name,power.limit"), torch.__version__, flush=True)
-    K = cs.namespace()
     mesh = cs.card_mesh(torch, K, MESH)
     K.mesh.run_on_mesh(grads_rank, mesh, mesh)
     nan = float("nan")
@@ -80,5 +83,23 @@ def main() -> int:
     return 0
 
 
+def main(argv) -> int:
+    from repro_torch.kernels import build
+
+    paths = argv or ["L5"]
+    if set(paths) - {"L", "L5"}:
+        print(f"unknown path(s) {paths}; choose from L5 and L")
+        return 2
+    build.build_all()
+    print(cs.smi("name,power.limit"), torch.__version__, flush=True)
+    K = cs.namespace()
+    if "L5" in paths:
+        cs.main_path_mesh_families(torch, K)
+        print("PATH L5 OK", flush=True)
+    if "L" in paths and path_l(K):
+        return 1
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
