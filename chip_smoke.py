@@ -218,15 +218,15 @@ Phases, each of which raises on failure:
       step per gated MLP or expert stack at the pwl4 gate, deepseek-v3's
       latent cache int8 there.  Grep ``4I`` for the lines.
    J. the recurrent half of the LM stack (after I), one model at a time at
-      its published widths and full depth with seeded weights
-      (RECURRENT_RUNS): zamba2-7b (81 layers: 13 groups of 5 Mamba2 layers,
-      each followed by the one shared attention + MLP block with its
-      window of 4096, then 3 Mamba2 layers) and rwkv6-1.6b (24 layers).
+      its published widths with seeded weights, depth cut (RECURRENT_RUNS):
+      zamba2-7b (25 of 81 layers: 4 groups of 5 Mamba2 layers, each
+      followed by the one shared attention + MLP block with its window of
+      4096, then 1 Mamba2 layer) and rwkv6-1.6b (8 of 24 layers).
       In float32: zamba2's prefill at 1 x 6144 (past the window) through
       the kernel within 1e-4 of the oracle's attention, its decode over 1 x
       64 steps within 2e-3 of the forward; rwkv6's decode against forward
       in float64 within 1e-6 (its float32 distance printed).  Then the bf16
-      prefill (zamba2 2 x 8192, 13 windowed flash_attention launches, the
+      prefill (zamba2 2 x 8192, 4 windowed flash_attention launches, the
       last held to the plain version on its first heads; rwkv6 4 x 2048,
       no attention), profiled as in I; ``generate`` (4 x 32) through an
       InferenceService at flt and fxp8/qnm/int8-KV/pwl4 (two silu_pwl4 or
@@ -315,7 +315,24 @@ Phases, each of which raises on failure:
       the sharded decode one pwl_activation a gated stack a step;
       ms, device time, launches and idle share of one profiled prefill,
       decode ms/token, parameter bytes a card and peak memory (under 75
-      GiB).  Grep ``4L5`` for the lines.
+      GiB).  The last pwl_activation launch of each sharded prefill is held
+      to its plain version bit for bit, and on (1, 1) the sharded decode
+      equals the single device's too.  Grep ``4L5`` for the lines.
+   L6. the hybrid and RWKV on path L's mesh (after L5, the same mesh).
+      L6a, in float32 at the CPU tests' widths (L6A_CASES: zamba2, one
+      group of 2 Mamba2 layers with the shared block and a tail of 1, 32
+      SSM heads in 2 groups; rwkv6, 2 layers of 8 heads; batch 8 x 64):
+      L5a's readings against one card, each within 1e-4, or for rwkv6
+      within one card's own float32 distance from a float64 run of the
+      same weights where that is further (RWKV's float32 gradients are
+      resolved to ~3e-4 here); and rwkv6 in float64, each within 1e-4.  L6b, in bf16 at
+      published widths with the pwl4 gate (L6B_RUNS: zamba2 13 of 81
+      layers at 2 x 8192, past its window of 4096; rwkv6 4 of 24 at 4 x
+      2048; decode 4 x 32): L5b's readings, with one flash_attention launch
+      a shared-block call (its window) and two pwl_activation launches a
+      Mamba2 or RWKV layer on each rank, the last of each held to its plain
+      version, and on four cards the bytes a Mamba2 and an RWKV layer
+      send.  Grep ``4L6`` for the lines.
    In A, B and D, labels equal the plain versions' on the card (in D, each
    member's own predict); in A and B the rows where ``ref`` and ``cuda``
    differ are printed as information.
@@ -3294,32 +3311,36 @@ def main_path_families(torch, K):
 
 # --------------------------------------------------------------------------
 # phase 4J: the recurrent half of the LM stack (the Mamba2 hybrid, RWKV-6)
-# at published widths and full depth
+# at published widths, depth cut
 # --------------------------------------------------------------------------
-# (arch, bf16 prefill (batch, tokens), tokens of the float32 kernel-vs-oracle
-# prefill check or None for a model without attention, the dtype in which
-# decode is held to forward)
+# (arch, layers kept, bf16 prefill (batch, tokens), tokens of the float32
+# kernel-vs-oracle prefill check or None for a model without attention, the
+# dtype in which decode is held to forward).  The depth is cut (from 81
+# and 24 layers) to keep the whole run near its time: every check stays,
+# and path L6 runs the same shapes on a mesh.
 RECURRENT_RUNS = (
-    # S 8192 is twice the shared block's window of 4096; the float32 check
-    # at 6144 also runs past it
-    ("zamba2-7b", (2, 8192), 6144, "float32"),
-    # launch-bound by its WKV loop: 2048 steps x 24 layers.  At full depth
-    # its float32 decode and forward part by ~4e-3 of the largest logit,
-    # rounding that the 24 layers amplify (in float64 the two agree to
-    # float64 rounding: tests/test_torch_rwkv6.py), so decode is held to
-    # forward in float64
-    ("rwkv6-1.6b", (4, 2048), None, "float64"),
+    # 4 groups of 5 Mamba2 layers, each with the shared block, then a tail
+    # of 1; S 8192 is twice the shared block's window of 4096; the float32
+    # check at 6144 also runs past it
+    ("zamba2-7b", 25, (2, 8192), 6144, "float32"),
+    # launch-bound by its WKV loop: 2048 steps a layer.  Its float32 decode
+    # and forward part by rounding that the layers amplify (~4e-3 of the
+    # largest logit at the full 24; in float64 the two agree to float64
+    # rounding: tests/test_torch_rwkv6.py), so decode is held to forward in
+    # float64
+    ("rwkv6-1.6b", 8, (4, 2048), None, "float64"),
 )
 RECURRENT_DECODE_STEPS = 64  # float32 decode against forward, batch 1
 RECURRENT_DECODE = (4, 32)  # generate at flt and fxp8/qnm/int8-KV/pwl4
 RECURRENT_TRAIN = dict(steps=3, batch=2, seq=64, every=3, lr=1e-3)
 
 
-def recurrent_run(torch, K, arch, prefill, check_seq, decode_dtype):
+def recurrent_run(torch, K, arch, n_layers, prefill, check_seq,
+                  decode_dtype):
     """One model of path J (see :func:`main_path_recurrent`)."""
     M = K.lm_model
     start = launch_counts(K)
-    cfg = K.configs.get_config(arch)
+    cfg = _family_cfg(K, arch, n_layers)
     n_flash = cfg._layer_split()[0]  # zamba2's shared-block calls; rwkv 0
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3328,7 +3349,8 @@ def recurrent_run(torch, K, arch, prefill, check_seq, decode_dtype):
     params = M.init_params(cfg32, torch.Generator(device="cuda").manual_seed(0))
     n_params = sum(t.numel() for t in _leaves(params))
     torch.cuda.synchronize()
-    log(f"phase 4J {arch}: full depth ({cfg.n_layers} layers), published "
+    log(f"phase 4J {arch}: depth {cfg.n_layers} of "
+        f"{K.configs.get_config(arch).n_layers} layers, published "
         f"widths (d_model {cfg.d_model}, {cfg.n_heads} heads, dh "
         f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
         + (f"; Mamba2 d_state {cfg.ssm.d_state}, expand {cfg.ssm.expand}, "
@@ -3468,8 +3490,8 @@ def recurrent_run(torch, K, arch, prefill, check_seq, decode_dtype):
 
 
 def main_path_recurrent(torch, K):
-    """Main path J: the recurrent half of the LM stack at published widths
-    and full depth, one model at a time (each freed before the next),
+    """Main path J: the recurrent half of the LM stack at published widths,
+    depth cut, one model at a time (each freed before the next),
     seeded weights.  For each model: float32 checks (zamba2's kernel route
     within 1e-4 of the oracle's attention at 1 x 6144, past its window;
     decode against forward over 1 x 64 steps within 2e-3; rwkv6's decode
@@ -4221,21 +4243,51 @@ def _leaf_rel(K, got, want):
     return worst[0], worst[1], n
 
 
-def l5a_case(torch, K, mesh, case, seed, rank0):
-    """L5a, one config: the single-device run on this rank's card, then
-    the same under ``mesh``; each reading within L5A_RTOL and the experts
-    of every token equal."""
+def _mesh_readings(K, got, one):
+    """The readings of a run (``got``) against another (``one``): relative
+    distances of the loss, the step's metrics, the logits, the decode and
+    every gradient leaf (of the leaf's largest value), and the stepped
+    parameters' absolute distance where ``one``'s gradient is at least
+    1e-6 (AdamW's first step moves the others by lr x the gradient's
+    sign); with the worst gradient leaf and the count of leaves."""
+    S, TT = K.sharding, K.trainer
+    rel = {"loss": abs(float(S.full_value(got["loss"]))
+                       - float(S.full_value(one["loss"])))
+           / abs(float(S.full_value(one["loss"]))),
+           "step": max(abs(got[k] - one[k]) / abs(one[k])
+                       for k in ("step_loss", "grad_norm")),
+           "logits": _rel_err(got["logits"], one["logits"])}
+    rel["grads"], worst, n_leaves = _leaf_rel(K, got["grads"],
+                                              one["grads"])
+    rel["params"] = max(
+        float(((a - S.full_value(b)).abs() * (g.abs() >= 1e-6)).max())
+        for a, b, g in zip(TT.tree_leaves(one["step"]),
+                           TT.tree_leaves(got["step"]),
+                           TT.tree_leaves(one["grads"])))
+    if "decode" in one:
+        rel["decode"] = _rel_err(got["decode"], one["decode"])
+    return rel, worst, n_leaves
+
+
+def mesh_case(torch, K, mesh, tag, case, cfg, batch_shape, seed, rank0,
+              rounding=False):
+    """One config of L5a or L6a (``tag``; float32, or float64): the
+    single-device run on this rank's card, then the same under ``mesh``;
+    each reading within L5A_RTOL and the experts of every token equal.
+    With ``rounding`` (RWKV in float32) a reading may also be as far as
+    one card's own float32 run is from a float64 run of the same weights
+    (the function's float32 resolution, measured here), where that is
+    further."""
     M, S, TT = K.lm_model, K.sharding, K.trainer
-    cfg = _l5a_cfg(K, case)
     rules = S.Rules(mesh)
     dev = torch.device("cuda", torch.cuda.current_device())
     init = M.init_params(cfg, torch.Generator(dev).manual_seed(seed))
-    batch = next(TT.synthetic_token_stream(cfg, *L5A_BATCH, seed,
+    batch = next(TT.synthetic_token_stream(cfg, *batch_shape, seed,
                                            device=dev))
     tcfg = TT.TrainConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10)
     opt = TT.make_optimizer(tcfg)
 
-    def run(params, rules):
+    def run(params, rules, cfg=cfg):
         out = {}
         with record_routing(K) as calls:
             out["loss"], out["grads"] = TT.loss_and_grads(params, batch, cfg,
@@ -4248,7 +4300,7 @@ def l5a_case(torch, K, mesh, case, seed, rank0):
                    logits=S.full_value(M.forward(params, batch, cfg, "cuda",
                                                  rules)))
         if not cfg.encoder_only:
-            b = L5A_BATCH[0]
+            b = batch_shape[0]
             cache = M.init_cache(cfg, b, L5A_DECODE + 2, dev)
             if rules is not None:
                 cache = S.device_put_tree(cache, M.cache_specs(
@@ -4265,47 +4317,46 @@ def l5a_case(torch, K, mesh, case, seed, rank0):
     one = run(init, None)
     placed = S.device_put_tree(init, M.param_specs(cfg, rules), mesh)
     got = run(placed, rules)
-    rel = {"loss": abs(float(S.full_value(got["loss"])) - float(one["loss"]))
-           / abs(float(one["loss"])),
-           "step": max(abs(got[k] - one[k]) / abs(one[k])
-                       for k in ("step_loss", "grad_norm")),
-           "logits": _rel_err(got["logits"], one["logits"])}
-    rel["grads"], worst, n_leaves = _leaf_rel(K, got["grads"],
-                                              one["grads"])
-    # the stepped parameters, absolute, but where the gradient is below
-    # 1e-6 (AdamW's first step moves those by lr x the gradient's sign)
-    rel["params"] = max(
-        float(((a - S.full_value(b)).abs() * (g.abs() >= 1e-6)).max())
-        for a, b, g in zip(TT.tree_leaves(one["step"]),
-                           TT.tree_leaves(got["step"]),
-                           TT.tree_leaves(one["grads"])))
-    if "decode" in one:
-        rel["decode"] = _rel_err(got["decode"], one["decode"])
+    rel, worst, n_leaves = _mesh_readings(K, got, one)
+    bound = dict.fromkeys(rel, L5A_RTOL)
+    floor = None
+    if rounding:
+        wide = run(_tree_map(lambda t: t.to(torch.float64)
+                             if t.is_floating_point() else t, init), None,
+                   dataclasses.replace(cfg, dtype="float64"))
+        floor = _mesh_readings(K, one, wide)[0]
+        bound = {k: max(L5A_RTOL, floor[k]) for k in rel}
     tokens = 0
     if len(got["experts"]) != len(one["experts"]):
-        raise AssertionError(f"L5a {case}: {len(got['experts'])} routing "
+        raise AssertionError(f"{tag} {case}: {len(got['experts'])} routing "
                              f"calls under the mesh, {len(one['experts'])} "
                              f"on one card")
     for a, b in zip(got["experts"], one["experts"]):
         if not torch.equal(a, b):
-            raise AssertionError(f"L5a {case}: experts differ from the "
+            raise AssertionError(f"{tag} {case}: experts differ from the "
                                  f"single device's")
         tokens += a.shape[0]
-    bad = {k: v for k, v in rel.items() if not v <= L5A_RTOL}
+    bad = {k: v for k, v in rel.items() if not v <= bound[k]}
     if bad:
-        raise AssertionError(f"L5a {case} on {mesh}: {bad} over {L5A_RTOL} "
+        raise AssertionError(f"{tag} {case} on {mesh}: {bad} over {bound} "
                              f"from the single device (worst gradient leaf "
                              f"{worst})")
     if rank0:
-        log(f"  4L5a {case} float32 on {mesh}: against one card, loss "
+        log(f"  4{tag} {case} {cfg.dtype} on {mesh}: against one card, loss "
             f"{rel['loss']:.3e}, {n_leaves} gradient leaves within "
             f"{rel['grads']:.3e} (worst {worst}), train step {rel['step']:.3e}"
             f" (parameters {rel['params']:.3e}), forward {rel['logits']:.3e}"
             + (f", {L5A_DECODE} serve_steps {rel['decode']:.3e}"
                if "decode" in rel else ", no decode (encoder)")
-            + f" (bound {L5A_RTOL}); experts equal on {tokens} tokens in "
-            f"{len(one['experts'])} routing calls")
-    return dict(rel, tokens=tokens)
+            + f" (bound {L5A_RTOL}"
+            + (", or one card's own float32 distance from float64 where "
+               "further: " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                       floor.items()) if floor else "")
+            + ")"
+            + (f"; experts equal on {tokens} tokens in "
+               f"{len(one['experts'])} routing calls" if one["experts"]
+               else ""))
+    return dict(rel, tokens=tokens, floor=floor)
 
 
 def comm_bytes(torch):
@@ -4343,10 +4394,12 @@ def comm_bytes(torch):
 
 
 @contextlib.contextmanager
-def moe_layer_bytes(torch, K):
-    """Each ``apply_moe`` call inside under :func:`comm_bytes`: the bytes
-    it sends by collective, one dict a call, in the list yielded."""
-    moe, apply = K.moe, K.moe.apply_moe
+def layer_bytes(torch, module, name):
+    """Each call of ``module.name`` (a layer: ``apply_moe``,
+    ``mamba2_forward``, ``rwkv6_forward``) inside under
+    :func:`comm_bytes`: the bytes it sends by collective, one dict a call,
+    in the list yielded."""
+    apply = getattr(module, name)
     records = []
 
     def counted(*args, **kw):
@@ -4355,11 +4408,75 @@ def moe_layer_bytes(torch, K):
         records.append(dict(mode.by_op))
         return out
 
-    moe.apply_moe = counted
+    setattr(module, name, counted)
     try:
         yield records
     finally:
-        moe.apply_moe = apply
+        setattr(module, name, apply)
+
+
+def _mesh_layer(K, cfg):
+    """(module, function, what) of the layer whose bytes a sharded forward
+    of ``cfg`` counts: a MoE layer, a Mamba2 layer or an RWKV layer; None
+    for a dense stack."""
+    if cfg.block_pattern == "rwkv":
+        return K.rwkv, "rwkv6_forward", "RWKV layer"
+    if cfg.block_pattern == "mamba_hybrid":
+        return K.mamba, "mamba2_forward", "Mamba2 layer"
+    if cfg.moe is not None:
+        return K.moe, "apply_moe", "MoE layer call"
+    return None
+
+
+def _mesh_launches(cfg):
+    """Kernel launches of one sharded forward at the pwl4 gate on each
+    rank: flash_attention a layer (a shared-block call of the hybrid, none
+    for RWKV), pwl_activation a gated stack (:func:`_gated_mlps`, as many a
+    decode step)."""
+    n_attn = (cfg.n_layers if cfg.block_pattern == "attn"
+              else cfg._layer_split()[0])
+    out = {"flash_attention": n_attn} if n_attn else {}
+    if _gated_mlps(cfg):
+        out["pwl_activation"] = _gated_mlps(cfg)
+    return out
+
+
+@contextlib.contextmanager
+def captured_pwl(K):
+    """The last ``pwl_activation_cuda`` launch made inside, its input,
+    variant and output kept for the plain version to check after the run;
+    the launch is the path's own (the wrapper counts it), none is added."""
+    ops, wrapper = K.ops, K.ops.pwl_activation_cuda
+    seen = {"launches": 0}
+
+    def spy(x, variant, bias=None):
+        out = wrapper(x, variant, bias)
+        seen.update(x=x.clone(), variant=variant, out=out.clone(),
+                    bias=None if bias is None else bias.clone(),
+                    launches=seen["launches"] + 1)
+        return out
+
+    ops.pwl_activation_cuda = spy
+    try:
+        yield seen
+    finally:
+        ops.pwl_activation_cuda = wrapper
+
+
+def check_captured_pwl(torch, K, seen, what):
+    """The captured launch against the plain version, bit for bit."""
+    want = K.pwl.pwl_activation_plain(seen["x"], seen["variant"],
+                                      seen["bias"])
+    if not torch.equal(seen["out"], want):
+        err = float((seen["out"].float() - want.float()).abs().max())
+        raise AssertionError(f"{what}: the last pwl_activation launch "
+                             f"({seen['variant']}, {tuple(seen['x'].shape)} "
+                             f"{seen['x'].dtype}) is {err} from the plain "
+                             f"version, not equal")
+    return (f"pwl_activation ({seen['variant']}) at the last of "
+            f"{seen['launches']} launches, {tuple(seen['x'].shape)} "
+            f"{str(seen['x'].dtype).split('.')[-1]}: equal to the plain "
+            f"version bit for bit")
 
 
 def _place_consuming(K, tree, specs, mesh):
@@ -4376,12 +4493,14 @@ def _place_consuming(K, tree, specs, mesh):
     return out
 
 
-def l5b_run(torch, K, mesh, arch, n_layers, prefill, n_img, decode, rank0):
-    """L5b, one model (bf16, published widths, ``n_layers`` deep, the pwl4
-    gate): the single-device prefill and decode on rank 0, the weights
-    placed leaf by leaf, then the sharded prefill (one flash_attention
-    launch a layer on this rank's local heads, the last held to the plain
-    version; timed and profiled) and decode."""
+def bf16_mesh_run(torch, K, mesh, tag, arch, n_layers, prefill, n_img,
+                  decode, rank0):
+    """One model of L5b or L6b (``tag``; bf16, published widths,
+    ``n_layers`` deep, the pwl4 gate): the single-device prefill and
+    decode on rank 0, the weights placed leaf by leaf, then the sharded
+    prefill (:func:`_mesh_launches` on this rank's local shards, the last
+    flash_attention and pwl_activation launches held to their plain
+    versions; timed and profiled) and decode."""
     M, S = K.lm_model, K.sharding
     cfg = dataclasses.replace(_family_cfg(K, arch, n_layers),
                               gate_sigmoid="pwl4")
@@ -4394,9 +4513,7 @@ def l5b_run(torch, K, mesh, arch, n_layers, prefill, n_img, decode, rank0):
     b, s = prefill
     batch = _family_batch(torch, cfg, b, s, n_img, 7)
     gates = _gated_mlps(cfg)
-    per_fwd = {"flash_attention": cfg.n_layers}
-    if gates:
-        per_fwd["pwl_activation"] = gates
+    per_fwd = _mesh_launches(cfg)
     single = single_dec = None
     experts = {}
     if rank0:
@@ -4417,28 +4534,35 @@ def l5b_run(torch, K, mesh, arch, n_layers, prefill, n_img, decode, rank0):
                for t in _leaves(placed))
     before = launch_counts(K)
     t0 = time.perf_counter()
-    with captured_flash(K) as seen, record_routing(K) as calls:
+    with captured_flash(K) as seen, captured_pwl(K) as seen_pwl, \
+            record_routing(K) as calls:
         out = M.forward(placed, batch, cfg, "cuda", rules)
         torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
     experts["mesh"] = [e for _, e in calls]
     del calls
-    expect_launches(K, before, per_fwd, f"L5b {arch} sharded bf16 prefill")
+    expect_launches(K, before, per_fwd, f"{tag} {arch} sharded bf16 prefill")
     local = tuple(out.to_local().shape)
     logits = out.full_tensor()
     del out
     if (logits.shape != (b, s + n_img, cfg.vocab_size)
             or not bool(torch.isfinite(logits).all())):
-        raise AssertionError(f"L5b {arch}: sharded logits "
+        raise AssertionError(f"{tag} {arch}: sharded logits "
                              f"{tuple(logits.shape)} not finite of the "
                              f"expected shape")
-    flash = check_captured_flash(torch, K, seen, f"L5b {arch}")
-    del seen
+    checked = []
+    if "flash_attention" in per_fwd:
+        checked.append(check_captured_flash(torch, K, seen, f"{tag} {arch}"))
+    if "pwl_activation" in per_fwd:
+        checked.append(check_captured_pwl(torch, K, seen_pwl,
+                                          f"{tag} {arch}"))
+    flash = "; ".join(checked)
+    del seen, seen_pwl
     dist_prefill = flips = before_flip = None
     if rank0:
         dist_prefill = _rel_err(logits, single)
         if mesh.size == 1 and dist_prefill != 0.0:
-            raise AssertionError(f"L5b {arch}: the sharded logits on a mesh "
+            raise AssertionError(f"{tag} {arch}: the sharded logits on a mesh "
                                  f"of one card are {dist_prefill} from the "
                                  f"single device's, not equal")
         if cfg.moe is not None:
@@ -4455,8 +4579,9 @@ def l5b_run(torch, K, mesh, arch, n_layers, prefill, n_img, decode, rank0):
                            int(first.min()))
     del logits, single, experts
     moe_bytes = None
-    if mesh.size > 1 and cfg.moe is not None:
-        with moe_layer_bytes(torch, K) as moe_bytes:
+    layer = _mesh_layer(K, cfg)
+    if mesh.size > 1 and layer is not None:
+        with layer_bytes(torch, *layer[:2]) as moe_bytes:
             M.forward(placed, batch, cfg, "cuda", rules)
     fwd = lambda: M.forward(placed, batch, cfg, "cuda", rules)  # noqa: E731
     ms, host_ms = cuda_ms(torch, fwd, 1)
@@ -4492,19 +4617,24 @@ def l5b_run(torch, K, mesh, arch, n_layers, prefill, n_img, decode, rank0):
         torch.cuda.synchronize()
         rec["decode_ms"] = (time.perf_counter() - t0) * 1e3 / steps
         expect_launches(K, before, {"pwl_activation": gates * steps}
-                        if gates else {}, f"L5b {arch} sharded decode")
+                        if gates else {}, f"{tag} {arch} sharded decode")
         dec = torch.stack(dec, 1)
         if not bool(torch.isfinite(dec).all()):
-            raise AssertionError(f"L5b {arch}: non-finite decode logits")
+            raise AssertionError(f"{tag} {arch}: non-finite decode logits")
         if rank0:
             rec["dist_decode"] = _rel_err(dec, single_dec)
+            if mesh.size == 1 and rec["dist_decode"] != 0.0:
+                raise AssertionError(f"{tag} {arch}: the sharded decode on a "
+                                     f"mesh of one card is "
+                                     f"{rec['dist_decode']} from the "
+                                     f"single device's, not equal")
         del dec, single_dec, cache
     rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     if rec["peak_gib"] > L5B_PEAK_GIB:
-        raise AssertionError(f"L5b {arch}: peak memory {rec['peak_gib']:.2f} "
+        raise AssertionError(f"{tag} {arch}: peak memory {rec['peak_gib']:.2f} "
                              f"GiB over {L5B_PEAK_GIB}")
     if rank0:
-        log(f"  4L5b {arch} bf16 on {mesh}: depth {cfg.n_layers} of "
+        log(f"  4{tag} {arch} bf16 on {mesh}: depth {cfg.n_layers} of "
             f"{K.configs.get_config(arch).n_layers}, prefill {b} x "
             f"{s + n_img}" + (f" ({n_img} image embeddings + {s} tokens)"
                              if n_img else "")
@@ -4522,7 +4652,7 @@ def l5b_run(torch, K, mesh, arch, n_layers, prefill, n_img, decode, rank0):
                f"before each row's first such token {before_flip[0]:.3e}, "
                f"the earliest at position {before_flip[1]})"
                if flips is not None else "")
-            + ("; bytes this rank sends a MoE layer call: " + "; ".join(
+            + (f"; bytes this rank sends a {layer[2]}: " + "; ".join(
                 f"{sum(r.values()):.0f} (" + ", ".join(
                     f"{k} {v:.0f}" for k, v in r.items()) + ")"
                 for r in moe_bytes) if moe_bytes is not None else "")
@@ -4546,13 +4676,14 @@ def mesh_families_rank(mesh):
     rank0 = dist.get_rank() == 0
     reset_launches(K)
     t0 = time.perf_counter()
-    l5a = {case: l5a_case(torch, K, mesh, case, i, rank0)
+    l5a = {case: mesh_case(torch, K, mesh, "L5a", case, _l5a_cfg(K, case),
+                           L5A_BATCH, i, rank0)
            for i, case in enumerate(L5A_CASES)}
     t_a = time.perf_counter() - t0
     l5b = {}
     for run in L5B_RUNS:
         t1 = time.perf_counter()
-        l5b[run[0]] = l5b_run(torch, K, mesh, *run, rank0)
+        l5b[run[0]] = bf16_mesh_run(torch, K, mesh, "L5b", *run, rank0)
         l5b[run[0]]["s"] = time.perf_counter() - t1
     return dict(rank=dist.get_rank(), l5a=l5a, l5b=l5b, l5a_s=t_a,
                 launches=launch_counts(K))
@@ -4580,6 +4711,90 @@ def main_path_mesh_families(torch, K):
                              f"and pwl_activation must both run")
     log(f"phase 4L5 took {time.perf_counter() - t0:.1f} s")
     return launches, ranks
+
+
+# --------------------------------------------------------------------------
+# phase 4L6: the hybrid and RWKV on a device mesh (after L5, on its mesh)
+# --------------------------------------------------------------------------
+# L6a: float32 at the CPU tests' widths (tests/_torch_mesh_recurrent_cases.py):
+# case -> (arch, layers, the fields replaced).  zamba2: reduced()'s SSM
+# (32 heads of 32 in 2 groups, chunk 32, a shared block every 3 layers,
+# window 64), one group of 2 Mamba2 layers and the shared block (8 heads
+# over 2 KV heads), a tail of 1; rwkv6: 8 heads of 64.
+L6A_CASES = {
+    "zamba2": ("zamba2-7b", 4, dict(n_kv_heads=2)),
+    "rwkv6": ("rwkv6-1.6b", 2, dict(n_kv_heads=8)),
+    # RWKV in float64, where the mesh and one card compute the same
+    # function to rounding: its float32 gradients are resolved only to
+    # ~3e-4 at these widths (a group norm of near-zero variance in the
+    # first tokens, eps 1e-5), which the float32 case measures
+    "rwkv6-f64": ("rwkv6-1.6b", 2, dict(n_kv_heads=8, dtype="float64")),
+}
+L6A_BATCH = (8, 64)  # two SSD chunks
+# L6b: bf16 at published widths, depth cut; gate_sigmoid pwl4 (two
+# pwl_activation launches a Mamba2 or RWKV layer): zamba2 13 of 81 layers
+# (two groups of five Mamba2 layers and the shared block, a tail of one)
+# at 2 x 8192, past the window of 4096; rwkv6 4 of 24 at 4 x 2048
+L6B_RUNS = (
+    ("zamba2-7b", 13, (2, 8192), 0, (4, 32)),
+    ("rwkv6-1.6b", 4, (4, 2048), 0, (4, 32)),
+)
+
+
+def _l6a_cfg(K, case):
+    arch, n_layers, fields = L6A_CASES[case]
+    return dataclasses.replace(K.configs.get_config(arch).reduced(),
+                               n_layers=n_layers,
+                               **dict(L5A_WIDTHS, **fields))
+
+
+def mesh_recurrent_rank(mesh):
+    """Path L6 on one rank: L6a's two float32 configs, then L6b's two bf16
+    models; returns this rank's readings and its kernel launches."""
+    import torch
+    import torch.distributed as dist
+
+    K = namespace()
+    rank0 = dist.get_rank() == 0
+    reset_launches(K)
+    t0 = time.perf_counter()
+    l6a = {case: mesh_case(torch, K, mesh, "L6a", case, _l6a_cfg(K, case),
+                           L6A_BATCH, 20 + i, rank0,
+                           rounding=case == "rwkv6")
+           for i, case in enumerate(L6A_CASES)}
+    t_a = time.perf_counter() - t0
+    l6b = {}
+    for run in L6B_RUNS:
+        t1 = time.perf_counter()
+        l6b[run[0]] = bf16_mesh_run(torch, K, mesh, "L6b", *run, rank0)
+        l6b[run[0]]["s"] = time.perf_counter() - t1
+    return dict(rank=dist.get_rank(), l6a=l6a, l6b=l6b, l6a_s=t_a,
+                launches=launch_counts(K))
+
+
+def main_path_mesh_recurrent(torch, K):
+    """Main path L6: the hybrid and RWKV on path L's mesh (module
+    docstring, 4L6)."""
+    t0 = time.perf_counter()
+    shape = (2, 2) if torch.cuda.device_count() >= 4 else (1, 1)
+    mesh = card_mesh(torch, K, shape)
+    log(f"phase 4L6: the hybrid and RWKV on {mesh} ({mesh.size} "
+        f"process(es), NCCL)")
+    reset_launches(K)
+    ranks = K.mesh.run_on_mesh(mesh_recurrent_rank, mesh, mesh)
+    for r in ranks:
+        log(f"  4L6 rank {r['rank']}: L6a {r['l6a_s']:.1f} s; "
+            + "; ".join(f"{a} {v['s']:.1f} s, {v['held_gib']:.3f} GiB held, "
+                        f"peak {v['peak_gib']:.2f} GiB"
+                        for a, v in r["l6b"].items())
+            + f"; kernel launches {r['launches']}")
+        if not (r["launches"]["flash_attention"]
+                and r["launches"]["pwl_activation"]):
+            raise AssertionError(f"path L6 launched {r['launches']} on rank "
+                                 f"{r['rank']}: flash_attention and "
+                                 f"pwl_activation must both run")
+    log(f"phase 4L6 took {time.perf_counter() - t0:.1f} s")
+    return ranks[0]["launches"], ranks
 
 
 # --------------------------------------------------------------------------
@@ -5589,8 +5804,10 @@ def namespace():
     from repro_torch.kernels import ref as kernels_ref
     from repro_torch.core import activations as acts
     from repro_torch.lm import layers as lm_layers
+    from repro_torch.lm import mamba2
     from repro_torch.lm import model as lm_model
     from repro_torch.lm import moe
+    from repro_torch.lm import rwkv6
     from repro_torch.models.svm import _pick_prototypes
     from repro_torch import roofline
     from repro_torch import sharding
@@ -5604,6 +5821,7 @@ def namespace():
         layer=fxp_layer, model=fxp_model, qm=fxp_qmatmul, te=tree_ensemble,
         pwl=pwl_activation, serve=serve, pick_prototypes=_pick_prototypes,
         fa=flash_attention, lm_model=lm_model, lm_layers=lm_layers, moe=moe,
+        mamba=mamba2, rwkv=rwkv6,
         acts=acts, emit=emit, ckpt=ckpt, optim=optim, trainer=trainer,
         roofline=roofline, ops=ops, configs=configs, tune=tune,
         kref=kernels_ref, sharding=sharding, mesh=launch_mesh,
@@ -5676,10 +5894,12 @@ def main() -> int:
     launches_k = main_path_mesh(torch, K, dev, d6, arts_a, arts_b)
     launches_l, _ = main_path_mesh_lm(torch, K, trained["h1"])
     launches_l5, _ = main_path_mesh_families(torch, K)
+    launches_l6, _ = main_path_mesh_recurrent(torch, K)
     by_path = {"A": launches_a, "B": launches_b, "C": launches_c,
                "D": launches_d, "E": launches_e, "G": launches_g,
                "H": launches_h, "I": launches_i, "J": launches_j,
-               "K": launches_k, "L": launches_l, "L5": launches_l5}
+               "K": launches_k, "L": launches_l, "L5": launches_l5,
+               "L6": launches_l6}
     launches = {n: (sum(p[n] for p in by_path.values()),
                     {k: p[n] for k, p in by_path.items()})
                 for n in KernelCheck.NAMES}

@@ -27,7 +27,7 @@ __all__ = ["rmsnorm", "layernorm", "make_norm_params", "apply_norm",
            "init_linear", "mlp_params", "apply_mlp", "activation_fn",
            "rope_freqs", "apply_rope", "init_embed", "gated_silu", "wval",
            "apply_linear", "embed_tokens", "unembed", "on_card", "wide",
-           "draw_device", "draws_on", "local_elementwise"]
+           "draw_device", "draws_on", "local_elementwise", "local_heads"]
 
 
 def wide(dtype: torch.dtype) -> torch.dtype:
@@ -73,6 +73,53 @@ def local_elementwise(fn: Callable, x):
     # a list: local_map reads a tuple as one placement list per output
     return local_map(fn, out_placements=placed, in_placements=(placed,),
                      device_mesh=x.device_mesh)(x)
+
+
+def local_heads(fn: Callable, out_placements, acts, leaves, heads: bool,
+                whole=()):
+    """``fn(part, parts, *local acts, *local leaves)`` on each rank's local
+    shards, through one ``local_map``: a recurrent layer's scan on the
+    rank's batch rows and, with ``heads``, on its share of the heads
+    (``part`` of ``parts`` along ``model``; 0 of 1 otherwise).
+
+    ``acts`` are DTensors already placed as ``fn`` reads them: the batch on
+    the data axes, and each either head-aligned on ``model`` or whole over
+    it (the indices in ``whole``: ``fn`` takes its own heads' columns).
+    ``leaves`` are parameters, replicated to every rank here; ``fn`` takes
+    its heads' share.  A value that a rank reads only in part has a
+    gradient that is a partial sum over the ranks that split the work: a
+    ``whole`` act's over ``model`` (with ``heads``), a leaf's over every
+    mesh dim that splits the batch or the heads.  ``out_placements``: one
+    placement list per output of ``fn``."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    dm = acts[0].device_mesh
+    names = tuple(dm.mesh_dim_names)
+    model = names.index("model") if heads else None
+    rep = [Replicate()] * dm.ndim
+    split = [any(p.is_shard() for p in (a.placements[i] for a in acts))
+             or i == model for i in range(dm.ndim)]
+    leaf_grad = [Partial() if s else Replicate() for s in split]
+    act_grads = []
+    for j, a in enumerate(acts):
+        g = list(a.placements)
+        if j in whole and model is not None:
+            g[model] = Partial()
+        act_grads.append(g)
+    part = dm.get_local_rank("model") if heads else 0
+    parts = dm.size(model) if heads else 1
+    leaves = [t.redistribute(dm, rep) for t in leaves]
+    # local_map reads a tuple as one placement list per output, and a
+    # list as the placements of a single output
+    outs = (list(out_placements[0]) if len(out_placements) == 1
+            else tuple(out_placements))
+    return local_map(
+        lambda *xs: fn(part, parts, *xs), out_placements=outs,
+        in_placements=tuple(a.placements for a in acts)
+        + (rep,) * len(leaves),
+        in_grad_placements=tuple(act_grads) + (leaf_grad,) * len(leaves),
+        device_mesh=dm)(*acts, *leaves)
 
 
 def on_card(x: torch.Tensor) -> bool:

@@ -25,20 +25,40 @@ artifact's ``w_q`` is dequantized at use, as the reference's ``wval``.
 
 Decode carries ``(conv, ssm)``, constant in the sequence length; the step
 updates both buffers in place, as the KV path does.
+
+**On a mesh** (``rules``; x a DTensor, its batch on the data axes) the
+projections are DTensor products, and everything between them runs in
+one ``local_map`` a layer on each rank's batch rows (:func:`_scan`,
+:func:`_step`): the heads on ``model`` where the rules shard both the
+SSM head count and ``n_groups`` (a rank's heads then read only its
+groups), else replicated.  ``param_specs`` shards ``in_proj``'s
+``z | xBC | dt`` columns, and ``conv_w``'s ``x | B | C`` channels,
+contiguously on ``model``, which cuts inside ``xBC``: the projection is
+gathered whole over ``model``, and each rank takes its heads' and groups'
+columns of each block (:func:`_share`); the leaves are gathered likewise.
+A value a rank reads only in part has a gradient that is a partial sum
+over the ranks that split it (``local_map``'s ``in_grad_placements``).
+The gated RMSNorm over all of ``d_in`` then runs on the head-sharded
+DTensor, its mean of squares a sum over ``model`` ranks.  The conv state
+keeps every channel on each rank; the SSM state, the rank's heads.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import TYPE_CHECKING, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
+from repro_torch.sharding.rules import shard
 
 from .layers import (activation_fn, draw_device, gated_silu, init_linear,
-                     rmsnorm, wval)
+                     local_heads, rmsnorm, wval)
+
+if TYPE_CHECKING:
+    from repro_torch.sharding.rules import Rules
 
 __all__ = ["mamba2_params", "mamba2_forward", "mamba2_decode",
            "init_mamba_cache", "FLOAT32_LEAVES"]
@@ -154,33 +174,104 @@ def _expand_groups(t: torch.Tensor, n_heads: int,
     return torch.repeat_interleave(t, n_heads // n_groups, dim=-2)
 
 
-def mamba2_forward(p: Dict, x: torch.Tensor, d_model: int, s: SSMConfig,
-                   gate_sigmoid: str = "exact",
-                   fused: bool = True) -> torch.Tensor:
-    """Full-sequence forward.  x: (B, L, d) -> (B, L, d); L a multiple of
-    ``min(s.chunk, L)``, as the reference's reshape requires."""
-    d_in, n_heads, _ = _dims(d_model, s)
-    bsz, length, _ = x.shape
-    proj = x @ wval(p["in_proj"], x.dtype)
-    z, xbc, dt = _split_proj(proj, d_in, s)
-    gate = activation_fn("silu", gate_sigmoid, fused)
-    xbc = gate(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
-    gn = s.n_groups * s.d_state
-    xi = xbc[..., :d_in]
-    bmat = xbc[..., d_in:d_in + gn].reshape(bsz, length, s.n_groups,
-                                            s.d_state)
-    cmat = xbc[..., d_in + gn:].reshape(bsz, length, s.n_groups, s.d_state)
+def _heads_axis(rules: "Rules", n_heads: int, s: SSMConfig):
+    """``'model'`` where the rules shard both the SSM head count and
+    ``n_groups`` on it (a rank's heads then read only its groups), else
+    None (the heads replicated)."""
+    both = (rules.resolve("model", n_heads) is not None
+            and rules.resolve("model", s.n_groups) is not None)
+    return "model" if both else None
 
-    dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])  # (B, L, H)
-    a = -torch.exp(p["A_log"])  # (H,)
-    xh = xi.reshape(bsz, length, n_heads, s.head_dim).to(torch.float32)
-    bh = _expand_groups(bmat, n_heads, s.n_groups).to(torch.float32)
-    ch = _expand_groups(cmat, n_heads, s.n_groups).to(torch.float32)
+
+def _share(t: torch.Tensor, sizes, part: int, parts: int) -> torch.Tensor:
+    """``t``'s last dim, laid out as consecutive blocks of ``sizes``: the
+    ``part``-th of ``parts`` equal pieces of each block, joined (``t``
+    itself for one part).  A rank's heads of ``z`` or ``dt``, its heads
+    and groups of the conv's ``x | B | C`` channels."""
+    if parts == 1:
+        return t
+    pieces, start = [], 0
+    for n in sizes:
+        w = n // parts
+        pieces.append(t.narrow(-1, start + part * w, w))
+        start += n
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces, -1)
+
+
+def _scan(part: int, parts: int, proj: torch.Tensor, conv_w, conv_b,
+          dt_bias, a_log, d_skip, d_in: int, n_heads: int, s: SSMConfig,
+          gate) -> torch.Tensor:
+    """The layer between its projections, on ``part`` of ``parts`` of the
+    heads (all of them for one part): the conv, the SSD scan and the
+    output gate.  proj: (B, L, d_proj), whole; the leaves whole.  Returns
+    ``y * gate(z)`` (B, L, d_in / parts) in proj's dtype."""
+    gn = s.n_groups * s.d_state
+    h, g, di = n_heads // parts, s.n_groups // parts, d_in // parts
+    channels = (d_in, gn, gn)
+    z, xbc, dt = (_share(t, n, part, parts) for t, n in
+                  zip(_split_proj(proj, d_in, s), ((d_in,), channels,
+                                                   (n_heads,))))
+    conv_w, conv_b = (_share(t, channels, part, parts)
+                      for t in (conv_w, conv_b))
+    dt_bias, a_log, d_skip = (_share(t, (n_heads,), part, parts)
+                              for t in (dt_bias, a_log, d_skip))
+    bsz, length, _ = proj.shape
+    xbc = gate(_causal_conv(xbc, conv_w, conv_b))
+    xi = xbc[..., :di]
+    bmat = xbc[..., di:di + g * s.d_state].reshape(bsz, length, g, s.d_state)
+    cmat = xbc[..., di + g * s.d_state:].reshape(bsz, length, g, s.d_state)
+
+    dt = F.softplus(dt.to(torch.float32) + dt_bias)  # (B, L, h)
+    a = -torch.exp(a_log)  # (h,)
+    xh = xi.reshape(bsz, length, h, s.head_dim).to(torch.float32)
+    bh = _expand_groups(bmat, h, g).to(torch.float32)
+    ch = _expand_groups(cmat, h, g).to(torch.float32)
 
     y = _ssd_chunked(xh * dt[..., None], dt * a, bh, ch, min(s.chunk, length))
-    y = y + p["D"][:, None] * xh
-    y = y.reshape(bsz, length, d_in).to(x.dtype)
-    y = rmsnorm(y * gate(z), p["norm_scale"])
+    y = y + d_skip[:, None] * xh
+    y = y.reshape(bsz, length, di).to(proj.dtype)
+    return y * gate(z)
+
+
+def _leaves(p: Dict):
+    return (p["conv_w"], p["conv_b"], p["dt_bias"], p["A_log"], p["D"])
+
+
+def _heads_placed(x, dim: int, heads):
+    """``x``'s placements with ``dim`` sharded on ``model`` where the heads
+    are, else as they are (replicated there)."""
+    from torch.distributed.tensor import Shard
+
+    out = list(x.placements)
+    if heads is not None:
+        out[list(x.device_mesh.mesh_dim_names).index("model")] = Shard(dim)
+    return out
+
+
+def mamba2_forward(p: Dict, x: torch.Tensor, d_model: int, s: SSMConfig,
+                   gate_sigmoid: str = "exact", fused: bool = True,
+                   rules: "Optional[Rules]" = None) -> torch.Tensor:
+    """Full-sequence forward.  x: (B, L, d) -> (B, L, d); L a multiple of
+    ``min(s.chunk, L)``, as the reference's reshape requires.  Under
+    ``rules`` (x a DTensor, its batch on the data axes) the conv, the scan
+    and the gate run in one ``local_map`` on each rank's batch rows and
+    heads (the module docstring)."""
+    d_in, n_heads, _ = _dims(d_model, s)
+    proj = x @ wval(p["in_proj"], x.dtype)
+    gate = activation_fn("silu", gate_sigmoid, fused)
+
+    def scan(part, parts, proj, *leaves):
+        return _scan(part, parts, proj, *leaves, d_in, n_heads, s, gate)
+
+    if rules is None:
+        y = scan(0, 1, proj, *_leaves(p))
+    else:
+        heads = _heads_axis(rules, n_heads, s)
+        # whole columns: a shard of z | xBC | dt is not head-aligned
+        proj = shard(proj, ("batch", None, None), rules)
+        y = local_heads(scan, [_heads_placed(proj, 2, heads)], [proj],
+                        _leaves(p), heads is not None, whole=(0,))
+    y = rmsnorm(y, p["norm_scale"])
     return y @ wval(p["out_proj"], y.dtype)
 
 
@@ -199,40 +290,86 @@ def init_mamba_cache(batch: int, d_model: int, s: SSMConfig,
     }
 
 
-def mamba2_decode(p: Dict, x: torch.Tensor, cache: Dict, d_model: int,
-                  s: SSMConfig,
-                  gate_sigmoid: str = "exact") -> Tuple[torch.Tensor, Dict]:
-    """One-token recurrent step.  x: (B, 1, d) -> (B, 1, d); ``cache``'s
-    ``conv`` and ``ssm`` buffers are updated in place and returned."""
-    d_in, n_heads, _ = _dims(d_model, s)
-    bsz = x.shape[0]
-    proj = x[:, 0] @ wval(p["in_proj"], x.dtype)  # (B, d_proj)
-    z, xbc, dt = _split_proj(proj, d_in, s)
-
-    # the conv over the (B, K-1, C) history and the current input
-    hist = torch.cat([cache["conv"], xbc[:, None, :]], dim=1)  # (B, K, C)
-    conv_out = torch.einsum("bkc,kc->bc", hist.to(torch.float32),
-                            p["conv_w"].to(torch.float32)) + p["conv_b"]
-    xbc_t = gated_silu(conv_out.to(x.dtype), gate_sigmoid)
-    cache["conv"].copy_(hist[:, 1:])
-
+def _step(part: int, parts: int, proj: torch.Tensor, conv: torch.Tensor,
+          ssm: torch.Tensor, conv_w, conv_b, dt_bias, a_log, d_skip,
+          d_in: int, n_heads: int, s: SSMConfig, gate_sigmoid: str):
+    """One decode step between the projections, on ``part`` of ``parts``
+    of the heads: proj (B, d_proj) whole, ``conv`` (B, K-1, C) whole and
+    ``ssm`` (B, H / parts, P, N) this part's, both updated in place.
+    Returns ``y * gate(z)`` (B, d_in / parts) and the two buffers."""
     gn = s.n_groups * s.d_state
-    xi = xbc_t[..., :d_in]
-    bmat = xbc_t[..., d_in:d_in + gn].reshape(bsz, s.n_groups, s.d_state)
-    cmat = xbc_t[..., d_in + gn:].reshape(bsz, s.n_groups, s.d_state)
+    h, g, di = n_heads // parts, s.n_groups // parts, d_in // parts
+    channels = (d_in, gn, gn)
+    bsz = proj.shape[0]
+    z, xbc, dt = _split_proj(proj, d_in, s)
+    z = _share(z, (d_in,), part, parts)
+    dt = _share(dt, (n_heads,), part, parts)
 
-    dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])  # (B, H)
-    a = -torch.exp(p["A_log"])
-    da = torch.exp(dt * a)  # (B, H)
-    xh = xi.reshape(bsz, n_heads, s.head_dim).to(torch.float32)
-    bh = _expand_groups(bmat, n_heads, s.n_groups).to(torch.float32)
-    ch = _expand_groups(cmat, n_heads, s.n_groups).to(torch.float32)
+    # the conv over the (B, K-1, C) history and the current input; the
+    # history keeps every channel, the conv reads this part's
+    hist = torch.cat([conv, xbc[:, None, :]], dim=1)  # (B, K, C)
+    conv_out = torch.einsum(
+        "bkc,kc->bc", _share(hist, channels, part, parts).to(torch.float32),
+        _share(conv_w, channels, part, parts).to(torch.float32)) + _share(
+            conv_b, channels, part, parts)
+    xbc_t = gated_silu(conv_out.to(proj.dtype), gate_sigmoid)
+    conv.copy_(hist[:, 1:])
 
-    state = cache["ssm"]
-    state.mul_(da[..., None, None]).add_(
+    xi = xbc_t[..., :di]
+    bmat = xbc_t[..., di:di + g * s.d_state].reshape(bsz, g, s.d_state)
+    cmat = xbc_t[..., di + g * s.d_state:].reshape(bsz, g, s.d_state)
+
+    dt_bias, a_log, d_skip = (_share(t, (n_heads,), part, parts)
+                              for t in (dt_bias, a_log, d_skip))
+    dt = F.softplus(dt.to(torch.float32) + dt_bias)  # (B, h)
+    a = -torch.exp(a_log)
+    da = torch.exp(dt * a)  # (B, h)
+    xh = xi.reshape(bsz, h, s.head_dim).to(torch.float32)
+    bh = _expand_groups(bmat, h, g).to(torch.float32)
+    ch = _expand_groups(cmat, h, g).to(torch.float32)
+
+    ssm.mul_(da[..., None, None]).add_(
         (xh * dt[..., None])[..., :, None] * bh[..., None, :])
-    y = torch.einsum("bhpn,bhn->bhp", state, ch) + p["D"][:, None] * xh
-    y = y.reshape(bsz, d_in).to(x.dtype)
-    y = rmsnorm(y * gated_silu(z, gate_sigmoid), p["norm_scale"])
+    y = torch.einsum("bhpn,bhn->bhp", ssm, ch) + d_skip[:, None] * xh
+    y = y.reshape(bsz, di).to(proj.dtype)
+    return y * gated_silu(z, gate_sigmoid), conv, ssm
+
+
+def mamba2_decode(p: Dict, x: torch.Tensor, cache: Dict, d_model: int,
+                  s: SSMConfig, gate_sigmoid: str = "exact",
+                  rules: "Optional[Rules]" = None
+                  ) -> Tuple[torch.Tensor, Dict]:
+    """One-token recurrent step.  x: (B, 1, d) -> (B, 1, d); ``cache``'s
+    ``conv`` and ``ssm`` buffers are updated in place and returned.  Under
+    ``rules`` the step runs on each rank's batch rows and heads through one
+    ``local_map``: on the cache's local shards where it is placed as the
+    step reads it (the batch on the data axes, the conv's channels whole,
+    the SSM state's heads on ``model`` with the rank's heads), else on a
+    copy placed so, written back into the cache."""
+    d_in, n_heads, _ = _dims(d_model, s)
+    proj = x[:, 0] @ wval(p["in_proj"], x.dtype)  # (B, d_proj)
+
+    def step(part, parts, proj, conv, ssm, *leaves):
+        return _step(part, parts, proj, conv, ssm, *leaves, d_in, n_heads, s,
+                     gate_sigmoid)
+
+    if rules is None:
+        y, _, _ = step(0, 1, proj, cache["conv"], cache["ssm"], *_leaves(p))
+    else:
+        heads = _heads_axis(rules, n_heads, s)
+        proj = shard(proj, ("batch", None), rules)
+        conv = shard(cache["conv"], ("batch", None, None), rules)
+        ssm = shard(cache["ssm"], ("batch", heads, None, None), rules)
+        y, conv, ssm = local_heads(
+            step, (_heads_placed(proj, 1, heads), conv.placements,
+                   ssm.placements), [proj, conv, ssm], _leaves(p),
+            heads is not None, whole=(0, 1))
+        for k, v in (("conv", conv), ("ssm", ssm)):
+            # the step wrote the cache's own buffer where the cache was
+            # placed as the step reads it; else a copy, written back here
+            if v.to_local().data_ptr() != cache[k].to_local().data_ptr():
+                cache[k].copy_(v.redistribute(v.device_mesh,
+                                              cache[k].placements))
+    y = rmsnorm(y, p["norm_scale"])
     out = (y @ wval(p["out_proj"], y.dtype))[:, None, :]
     return out, cache

@@ -46,10 +46,17 @@ axes, heads on ``model`` where the rules shard both head counts), through
 (MLA's on the dh-192 instance, its decode over the latent gathered along
 the cache length).  The MoE layers shard their experts by
 ``cfg.moe.expert_sharding`` with the reference's routing tables on every
-rank (:mod:`.moe`).  The whole ``attn`` pattern runs under rules: the
-dense configs, MoE (grok-1), MLA with MoE (deepseek-v3) and the vision and
-audio front ends (llava-next, hubert); the hybrid and RWKV (zamba2,
-rwkv6) raise ``NotImplementedError``, their specs planned all the same.
+rank (:mod:`.moe`).  The recurrent layers run their scans on each rank's
+batch rows and heads through one ``local_map`` a layer: Mamba2's conv,
+SSD scan and gates (:mod:`.mamba2`; its heads on ``model`` where the rules
+shard both the SSM head count and ``n_groups``), RWKV-6's WKV loop and
+group norm (:mod:`.rwkv6`; its heads on ``model`` where it divides them);
+zamba2's shared block attends as any attention layer does, with its
+window.  All ten configs run under rules.  A decode cache sharded on a
+stacked dim it is indexed by (``cache_specs`` puts the batch axes on the
+first dim of the batch's size, a group dim when there are as many groups
+as rows) is decoded on a copy placed on its batch dim and written back
+(:func:`_indexable`).
 
 Two routes run the same layer stack (:func:`_stack`):
 
@@ -329,17 +336,6 @@ def param_specs(cfg: ArchConfig, rules: Optional[Rules], fsdp: bool = True,
     return _specs_like(aps, rule)
 
 
-def _require_mesh_support(cfg: ArchConfig) -> None:
-    """Under rules, the ``attn`` pattern runs in this port (dense, MoE,
-    MLA, the front ends); the hybrid and RWKV raise."""
-    if cfg.block_pattern != "attn":
-        raise NotImplementedError(
-            f"{cfg.name}: execution under a mesh covers the attn pattern "
-            f"(dense, MoE, MLA and the modality front ends); the "
-            f"{cfg.block_pattern} pattern waits for ROADMAP.md queue A, "
-            f"A11.4 (the hybrid and RWKV under a mesh)")
-
-
 def _placed(x: Any, axes: Tuple, rules: Rules, device: torch.device):
     """A batch input under rules: a DTensor as given; a plain tensor (the
     same on every rank) placed with its leading dim on the data axes."""
@@ -473,16 +469,18 @@ def _logits(cfg: ArchConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def _mamba_block(cfg: ArchConfig, p: Dict, x: torch.Tensor,
-                 attn_impl: str) -> torch.Tensor:
+                 attn_impl: str, rules: Optional[Rules] = None
+                 ) -> torch.Tensor:
     return x + mamba_mod.mamba2_forward(
         p["mamba"], apply_norm(cfg.norm, p["ln"], x), cfg.d_model, cfg.ssm,
-        cfg.gate_sigmoid, fused=attn_impl != "train")
+        cfg.gate_sigmoid, fused=attn_impl != "train", rules=rules)
 
 
 def _rwkv_block(cfg: ArchConfig, p: Dict, x: torch.Tensor,
-                attn_impl: str) -> torch.Tensor:
+                attn_impl: str, rules: Optional[Rules] = None
+                ) -> torch.Tensor:
     return rwkv_mod.rwkv6_forward(p, x, cfg.n_heads, cfg.gate_sigmoid,
-                                  fused=attn_impl != "train")
+                                  fused=attn_impl != "train", rules=rules)
 
 
 def _stacks(cfg: ArchConfig, dense: Callable, moe: Callable) -> List:
@@ -522,17 +520,14 @@ def _stack(params: Dict, batch: Dict, cfg: ArchConfig,
     if attn_impl not in ATTN_IMPLS:
         raise KeyError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                        f"{attn_impl!r}")
-    if rules is not None:
-        _require_mesh_support(cfg)
     x = _embed_inputs(cfg, params, batch, rules)
     remat = attn_impl == "train" and cfg.remat and torch.is_grad_enabled()
     for block, p in _layer_calls(cfg, params):
-        extra = (rules,) if rules is not None else ()
         if remat:
-            x = checkpoint(block, cfg, p, x, attn_impl, *extra,
+            x = checkpoint(block, cfg, p, x, attn_impl, rules,
                            use_reentrant=False)
         else:
-            x = block(cfg, p, x, attn_impl, *extra)
+            x = block(cfg, p, x, attn_impl, rules)
     return shard(_logits(cfg, params, x), ("batch", None, "model"), rules)
 
 
@@ -774,16 +769,16 @@ def _decode_moe_block(cfg, p, x, layer_cache, pos, rules=None):
     return x, new_cache
 
 
-def _decode_mamba_block(cfg, p, x, layer_cache, pos):
+def _decode_mamba_block(cfg, p, x, layer_cache, pos, rules=None):
     out, new_cache = mamba_mod.mamba2_decode(
         p["mamba"], apply_norm(cfg.norm, p["ln"], x), layer_cache,
-        cfg.d_model, cfg.ssm, cfg.gate_sigmoid)
+        cfg.d_model, cfg.ssm, cfg.gate_sigmoid, rules)
     return x + out, new_cache
 
 
-def _decode_rwkv_block(cfg, p, x, layer_cache, pos):
+def _decode_rwkv_block(cfg, p, x, layer_cache, pos, rules=None):
     return rwkv_mod.rwkv6_decode(p, x, layer_cache, cfg.n_heads,
-                                 cfg.gate_sigmoid)
+                                 cfg.gate_sigmoid, rules)
 
 
 def _decode_calls(cfg: ArchConfig, params: Dict) -> List:
@@ -811,6 +806,37 @@ def _decode_calls(cfg: ArchConfig, params: Dict) -> List:
             if key in params for i in range(_n_layers(params[key]))]
 
 
+def _indexable(cache: Dict, calls: List) -> Tuple[Dict, List]:
+    """Under rules: ``cache`` with every stacked entry that is sharded on a
+    dim the decode calls index (a layer or a group: ``cache_specs`` puts
+    the batch axes on the first dim whose size is the batch, a group dim
+    when there are as many groups as rows) replaced by a copy placed with
+    those axes on its batch dim (replicated where they do not divide it),
+    and the (entry, copy) pairs to write back.  Indexing a sharded dim
+    would gather a new tensor, and a step's write would miss the cache."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    lead = {key: len(i) if isinstance(i, tuple) else 1
+            for _, _, key, i in calls}
+    work, back = dict(cache), []
+    for key, n in lead.items():
+        work[key] = dict(cache[key])
+        for k, c in cache[key].items():
+            hit = [j for j, q in enumerate(c.placements)
+                   if q.is_shard() and q.dim < n]
+            if not hit:
+                continue
+            ways = 1
+            for j in hit:
+                ways *= c.device_mesh.size(j)
+            to = Shard(n) if c.shape[n] % ways == 0 else Replicate()
+            copy = c.redistribute(c.device_mesh, [
+                to if j in hit else q for j, q in enumerate(c.placements)])
+            work[key][k] = copy
+            back.append((c, copy))
+    return work, back
+
+
 def serve_step(params: Dict, cache: Dict, batch: Dict, cfg: ArchConfig,
                rules: Optional[Rules] = None) -> Tuple[torch.Tensor, Dict]:
     """One decode step: new tokens (B,) -> logits (B, vocab), cache.  The
@@ -818,8 +844,6 @@ def serve_step(params: Dict, cache: Dict, batch: Dict, cfg: ArchConfig,
     is copied back into its slot of the stack).  Under ``rules`` the cache
     is a tree of DTensors placed by :func:`cache_specs`, and the logits a
     DTensor placed ``('batch', 'model')``."""
-    if rules is not None:
-        _require_mesh_support(cfg)
     with (torch.no_grad() if rules is not None
           else torch.inference_mode()):
         return _serve_step(params, cache, batch, cfg, rules)
@@ -835,17 +859,20 @@ def _serve_step(params, cache, batch, cfg, rules):
         x = embed_tokens(params["embed"], tok[:, None])  # (B, 1, d)
     else:
         x = _embed_on_mesh(params["embed"]["table"], tok[:, None])
-    extra = (rules,) if rules is not None else ()
-    for block, p, key, i in _decode_calls(cfg, params):
-        stacked = cache[key]
+    calls = _decode_calls(cfg, params)
+    work, back = (cache, []) if rules is None else _indexable(cache, calls)
+    for block, p, key, i in calls:
+        stacked = work[key]
         layer_cache = {k: c[i] for k, c in stacked.items()}
-        x, new_cache = block(cfg, p, x, layer_cache, pos, *extra)
+        x, new_cache = block(cfg, p, x, layer_cache, pos, rules)
         for k, c in new_cache.items():
             if c is not layer_cache[k]:
                 if rules is not None:
                     c = c.redistribute(c.device_mesh,
                                        layer_cache[k].placements)
                 layer_cache[k].copy_(c)
+    for entry, copy in back:
+        entry.copy_(copy.redistribute(copy.device_mesh, entry.placements))
     new = {"pos": pos + 1}
     new.update((k, v) for k, v in cache.items() if k != "pos")
     return shard(_logits(cfg, params, x[:, 0]), ("batch", "model"),

@@ -58,6 +58,7 @@ import torch
 __all__ = ["Mesh", "HostDevice", "batch_axes", "model_axis", "spec_for",
            "Rules", "NamedSharding", "shard", "placements", "device_mesh",
            "device_put", "device_put_tree", "is_dtensor", "full_value",
+           "gather_fsdp",
            "make_serving_mesh", "make_host_mesh", "dp_size",
            "batch_spec", "replica_bucket", "is_host_emulated",
            "device_platform", "device_id", "torch_device",
@@ -323,6 +324,22 @@ def shard(x, logical_axes: Sequence[Optional[str]], rules: Optional[Rules]):
     dm = device_mesh(rules.mesh)
     spec = rules.spec(logical_axes, x.shape)
     return x.redistribute(dm, placements(spec, dm))
+
+
+def gather_fsdp(w):
+    """A parameter DTensor with its shards on the data axes (``pod``,
+    ``data``: FSDP's) gathered, as FSDP gathers a weight at use, and its
+    ``model`` shards kept; a plain tensor as it is.  A product then runs on
+    whole contraction dims on each rank, where DTensor would otherwise sum
+    partial products across the data ranks."""
+    if not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    names = tuple(w.device_mesh.mesh_dim_names)
+    return w.redistribute(w.device_mesh, [
+        Replicate() if names[i] in ("pod", "data") else p
+        for i, p in enumerate(w.placements)])
 
 
 # --------------------------------------------------------------------------

@@ -84,13 +84,13 @@ def _names(placements):
     return [str(p) for p in placements]
 
 
-def model_case(mesh, case, np_params, np_batch, lr, steps):
-    """On ``mesh``, ``case``'s config from the reference's parameters:
-    ``loss_fn`` and its gradients, one ``make_train_step`` (the
+def model_case(mesh, case, np_params, np_batch, lr, steps, cfg=None):
+    """On ``mesh``, ``case``'s config (or ``cfg``) from the reference's
+    parameters: ``loss_fn`` and its gradients, one ``make_train_step`` (the
     reference's defaults but ``lr``, warmup 1), ``forward`` on the ``ref``
     route and, but for an encoder, ``steps`` ``serve_step``s from a cache
     placed by ``cache_specs``."""
-    cfg, rules = family_cfg(case), Rules(mesh)
+    cfg, rules = cfg or family_cfg(case), Rules(mesh)
     placed = _placed(cfg, rules, mesh, np_params)
     batch = _batch(np_batch)
     loss, grads = TT.loss_and_grads(placed, batch, cfg, rules)
@@ -111,7 +111,8 @@ def model_case(mesh, case, np_params, np_batch, lr, steps):
                                 M.cache_specs(cfg, rules, b, steps + 2),
                                 mesh)
         out["cache_placements"] = {
-            k: _names(v.placements) for k, v in cache["layers"].items()}
+            k: _names(v.placements)
+            for k, v in cache.get("layers", {}).items()}
         dec = []
         for i in range(steps):
             step_logits, cache = M.serve_step(

@@ -1242,3 +1242,147 @@ def test_mla_on_a_card_mesh_launches_the_dh192_instance_once_a_layer(dev):
         ops.flash_attention_cuda = real
     assert launches == cfg.n_layers and seen == [192] * cfg.n_layers
     assert torch.equal(got, want)
+
+
+def _drop_lead(specs, n):
+    """A stacked layer's specs without its ``n`` leading dims."""
+    if isinstance(specs, dict):
+        return {k: _drop_lead(v, n) for k, v in specs.items()}
+    return specs[n:]
+
+
+def _recurrent_layer(arch, dev):
+    """(config, one layer's parameters, its specs under a mesh of one, the
+    layer's forward and decode) of zamba2's Mamba2 or RWKV-6 at widths of
+    512, bf16, the pwl4 gate."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.lm import mamba2, rwkv6
+    from repro_torch.lm import model as M
+    from repro_torch.sharding import Rules
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), d_model=512,
+                              n_heads=8, n_kv_heads=2, d_head=64,
+                              dtype="bfloat16", gate_sigmoid="pwl4")
+    gen = torch.Generator(dev).manual_seed(0)
+    specs = M.param_specs(cfg, Rules(_card_mesh_of_one()))
+    if arch == "rwkv6-1.6b":
+        p = rwkv6.rwkv6_params(gen, 512, cfg.d_ff, 8, torch.bfloat16)
+        M.cast_params_({"layers": p}, torch.bfloat16)  # float32 leaves stay
+
+        def fwd(p, x, rules=None):
+            return rwkv6.rwkv6_forward(p, x, 8, "pwl4", rules=rules)
+
+        def dec(p, x, cache, rules=None):
+            return rwkv6.rwkv6_decode(p, x, cache, 8, "pwl4", rules)
+
+        def cache(b):
+            return rwkv6.init_rwkv_cache(b, 512, 8, torch.bfloat16, dev)
+        return cfg, p, _drop_lead(specs["layers"], 1), fwd, dec, cache
+    p = mamba2.mamba2_params(gen, 512, cfg.ssm, torch.bfloat16)
+
+    def fwd(p, x, rules=None):
+        return mamba2.mamba2_forward(p, x, 512, cfg.ssm, "pwl4", rules=rules)
+
+    def dec(p, x, cache, rules=None):
+        return mamba2.mamba2_decode(p, x, cache, 512, cfg.ssm, "pwl4", rules)
+
+    def cache(b):
+        return mamba2.init_mamba_cache(b, 512, cfg.ssm, torch.bfloat16, dev)
+    return cfg, p, _drop_lead(specs["groups"]["mamba"], 2), fwd, dec, cache
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-1.6b"])
+def test_recurrent_layer_on_a_card_mesh_of_one_equals_single_device(dev,
+                                                                    arch):
+    """One Mamba2 layer (zamba2's SSM: 32 heads in 2 groups) or RWKV-6
+    layer (8 heads) at widths of 512 in bf16 under a ('data' 1, 'model' 1)
+    NCCL mesh: the forward (4 x 64) and three decode steps equal the single
+    device's bit for bit, the decode state too, with two pwl_activation
+    launches (the layer's two gates) a forward and a step."""
+    from repro_torch import sharding as S
+    from repro_torch.kernels import pwl_activation
+    from repro_torch.launch.mesh import run_on_mesh
+
+    cfg, p, specs, fwd, dec, new_cache = _recurrent_layer(arch, dev)
+    mesh = _card_mesh_of_one()
+    gen = torch.Generator(dev).manual_seed(1)
+    x = torch.randn(4, 64, 512, device=dev, generator=gen).bfloat16()
+    steps = torch.randn(3, 4, 1, 512, device=dev,
+                        generator=gen).bfloat16()
+    want = fwd(p, x)
+    cache = new_cache(4)
+    want_dec = [dec(p, t, cache)[0] for t in steps]
+    launches = pwl_activation.pwl_activation_cuda
+
+    def sharded():
+        rules = S.Rules(mesh)
+        placed = S.device_put_tree(p, specs, mesh)
+
+        def put(t, axes):
+            return S.device_put(t, rules.sharding(axes, t.shape))
+
+        before = launches.launches
+        out = fwd(placed, put(x, ("batch", None, None)), rules)
+        n_fwd = launches.launches - before
+        c = {k: put(v, ("batch",) + (None,) * (v.dim() - 1))
+             for k, v in new_cache(4).items()}
+        before = launches.launches
+        got = [dec(placed, put(t, ("batch", None, None)), c, rules)[0]
+               .full_tensor() for t in steps]
+        return (out.full_tensor(), n_fwd, got, launches.launches - before,
+                {k: v.full_tensor() for k, v in c.items()})
+
+    (got, n_fwd, got_dec, n_dec, got_cache), = run_on_mesh(sharded, mesh)
+    assert n_fwd == 2 and n_dec == 2 * len(steps)
+    assert torch.equal(got, want)
+    for a, b in zip(got_dec, want_dec):
+        assert torch.equal(a, b)
+    for k, v in cache.items():
+        assert torch.equal(got_cache[k], v), k
+
+
+def test_zamba2_shared_block_on_a_card_mesh_launches_the_window_once(dev):
+    """zamba2's shared attention block (8 heads over 2 KV heads, window
+    64) at S 192 under a (1, 1) NCCL mesh: one windowed flash_attention
+    launch on the rank's local heads, the block's output equal to the
+    single device's."""
+    import dataclasses
+
+    from repro_torch import sharding as S
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch.mesh import run_on_mesh
+    from repro_torch.lm import model as M
+
+    cfg = dataclasses.replace(get_config("zamba2-7b").reduced(), d_model=512,
+                              n_heads=8, n_kv_heads=2, d_head=64,
+                              dtype="bfloat16")
+    mesh = _card_mesh_of_one()
+    params = M.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    block = params["shared_attn"]
+    x = torch.randn(2, 192, 512, device=dev,
+                    generator=torch.Generator(dev).manual_seed(1)).bfloat16()
+    want = M._dense_block(cfg, block, x, "cuda")
+    real = flash_attention.flash_attention_cuda
+    seen = []
+
+    def spy(q, k, v, causal=True, window=None):
+        seen.append((tuple(q.shape), tuple(k.shape), window))
+        return real(q, k, v, causal, window)
+
+    def sharded():
+        rules = S.Rules(mesh)
+        specs = M.param_specs(cfg, rules)["shared_attn"]
+        placed = S.device_put_tree(block, specs, mesh)
+        xd = S.device_put(x, rules.sharding(("batch", None, None), x.shape))
+        return M._dense_block(cfg, placed, xd, "cuda", rules).full_tensor()
+
+    ops.flash_attention_cuda = spy
+    try:
+        got, = run_on_mesh(sharded, mesh)
+    finally:
+        ops.flash_attention_cuda = real
+    assert seen == [((2 * 8, 192, 64), (2 * 2, 192, 64), 64)]
+    assert torch.equal(got, want)

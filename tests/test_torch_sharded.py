@@ -20,11 +20,11 @@ JAX runs in this process.  Tolerances, all measured well inside:
 * elastic: one step under (4, 2) saved, restored under (2, 4) and stepped
   again; both losses within 1e-5 of JAX's two unsharded steps (the
   optimizer re-initialised, as ``tests/test_elastic.py`` does);
-* no fallback: the hybrid and RWKV under rules raise
-  ``NotImplementedError`` (the other attention families pass the guard:
-  ``tests/test_torch_sharded_moe.py`` and
-  ``tests/test_torch_sharded_modality.py`` run them), ``shard`` raises on
-  a plain tensor, and a rank that raises makes ``run_on_mesh`` raise.
+* every one of the ten configs plans under rules, and each of its layer
+  blocks, prefill and decode, takes the rules (the sharded runs:
+  ``tests/test_torch_sharded_moe.py``, ``test_torch_sharded_modality.py``
+  and ``test_torch_sharded_recurrent.py``); no fallback: ``shard`` raises
+  on a plain tensor, and a rank that raises makes ``run_on_mesh`` raise.
 """
 
 import numpy as np
@@ -59,6 +59,7 @@ DECODE_STEPS = 4
 DENSE = ("qwen2-0.5b", "starcoder2-15b", "minitron-8b", "qwen1.5-32b")
 ATTENTION_FAMILIES = ("grok-1-314b", "deepseek-v3-671b",
                       "llava-next-mistral-7b", "hubert-xlarge")
+RECURRENT = ("zamba2-7b", "rwkv6-1.6b")
 
 
 @pytest.fixture(scope="module")
@@ -269,28 +270,34 @@ def test_checkpoint_reshards_across_meshes(ref, tmp_path):
 # --------------------------------------------------------------------------
 # no fallback
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS
-                                  if a not in DENSE + ATTENTION_FAMILIES])
-def test_unported_families_raise_under_rules(arch):
-    cfg = tget_config(arch).reduced()
-    rules = Rules(make_host_mesh_2d(4, 2))
-    for call in (lambda: TM.forward({}, {}, cfg, "ref", rules),
-                 lambda: TM.loss_fn({}, {}, cfg, rules),
-                 lambda: TM.serve_step({}, {}, {}, cfg, rules)):
-        with pytest.raises(NotImplementedError, match="A11.4"):
-            call()
+def _plans_under_rules(arch):
+    """``arch``'s parameter and cache specs plan on a (4, 2) mesh, tree for
+    tree, and every block of its forward and decode takes ``rules``."""
+    import inspect
 
-
-@pytest.mark.parametrize("arch", ATTENTION_FAMILIES)
-def test_attention_families_pass_the_mesh_guard(arch):
-    """MoE, MLA with MoE and the two front ends run under rules (their
-    sharded runs are ``tests/test_torch_sharded_moe.py`` and
-    ``tests/test_torch_sharded_modality.py``); their specs plan."""
     cfg = tget_config(arch).reduced()
-    TM._require_mesh_support(cfg)
     rules = Rules(make_host_mesh_2d(4, 2))
     specs = TM.param_specs(cfg, rules)
     assert set(specs) == set(TM.abstract_params(cfg))
+    if not cfg.encoder_only:
+        assert set(TM.cache_specs(cfg, rules, 8, 16)) == set(
+            TM.init_cache(cfg, 8, 16, "meta"))
+    params = TM.abstract_params(cfg)
+    blocks = {b for b, _ in TM._layer_calls(cfg, params)}
+    if not cfg.encoder_only:
+        blocks |= {c[0] for c in TM._decode_calls(cfg, params)}
+    for block in blocks:
+        assert "rules" in inspect.signature(block).parameters, block
+
+
+@pytest.mark.parametrize("arch", ATTENTION_FAMILIES + RECURRENT)
+def test_attention_families_pass_the_mesh_guard(arch):
+    """MoE, MLA with MoE, the two front ends, the hybrid and RWKV run under
+    rules (``tests/test_torch_sharded_moe.py``,
+    ``tests/test_torch_sharded_modality.py``,
+    ``tests/test_torch_sharded_recurrent.py``): their specs plan, and every
+    block of theirs takes the rules."""
+    _plans_under_rules(arch)
 
 
 def test_a_failing_rank_makes_run_on_mesh_raise():
@@ -311,6 +318,8 @@ def test_a_one_device_mesh_runs_in_this_process():
 
 
 def test_dense_configs_run_under_rules_at_reduced_width():
-    """The four dense configs pass the mesh guard (their specs plan)."""
+    """The four dense configs plan under rules, and their blocks take the
+    rules."""
     for arch in DENSE:
-        TM._require_mesh_support(tget_config(arch).reduced())
+        _plans_under_rules(arch)
+    assert set(DENSE + ATTENTION_FAMILIES + RECURRENT) == set(ARCH_IDS)

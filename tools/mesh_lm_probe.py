@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Paths L5 and L of ``chip_smoke.py`` alone, on the cards of this host.
+"""Paths L6, L5 and L of ``chip_smoke.py`` alone, on the cards of this
+host.
 
-    python3 tools/mesh_lm_probe.py [L5] [L]     (default: L5)
+    python3 tools/mesh_lm_probe.py [L6] [L5] [L]     (default: L5)
 
 Builds the kernels, prints the card's name and power limit and the torch
 version, then runs the paths asked for, in this order:
@@ -20,6 +21,9 @@ version, then runs the paths asked for, in this order:
   with fewer: L5a first, where every gradient leaf of each float32 config's
   step under the mesh is held to one card's (1e-4 of the leaf's largest
   value; the worst leaf printed), then L5b's bf16 models (grep ``4L5``).
+* ``L6``: ``main_path_mesh_recurrent`` on the same mesh: L6a's float32
+  zamba2 and rwkv6, every gradient leaf held to one card's as in L5a, then
+  L6b's bf16 models (grep ``4L6``).
 
 Exits non-zero if any check fails.  Needs NVIDIA GPUs and ``nvcc``.
 """
@@ -87,12 +91,15 @@ def main(argv) -> int:
     from repro_torch.kernels import build
 
     paths = argv or ["L5"]
-    if set(paths) - {"L", "L5"}:
-        print(f"unknown path(s) {paths}; choose from L5 and L")
+    if set(paths) - {"L", "L5", "L6"}:
+        print(f"unknown path(s) {paths}; choose from L6, L5 and L")
         return 2
     build.build_all()
     print(cs.smi("name,power.limit"), torch.__version__, flush=True)
     K = cs.namespace()
+    if "L6" in paths:
+        cs.main_path_mesh_recurrent(torch, K)
+        print("PATH L6 OK", flush=True)
     if "L5" in paths:
         cs.main_path_mesh_families(torch, K)
         print("PATH L5 OK", flush=True)
