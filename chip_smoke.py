@@ -91,6 +91,27 @@ Phases, each of which raises on failure:
      kernel's readings: the plain version with P rounded to bf16 (what the
      kernel does) must pass both bounds, and with one key tile dropped from
      the last 64 rows must fail the row bound.
+3T. The block-size tuner (``kernels/tune.py``), its file pointed at a
+   fresh ``build/chip_smoke_tune_cache.json`` for the run (every process
+   the run starts inherits it).  Each tuned kernel at its main path's shape
+   in fxp16 (fxp_qmatmul (m, 561) x (561, 300), fxp_layer's wide route 561
+   x 64 and narrow route 561 x 6, fxp_mlp_model 561->64->6, fxp_svm_model
+   D6 rbf, fxp_mlp_fleet 8 x 561->64->6 with schedules of their own,
+   fxp_svm_fleet 4 x D5 rbf, 3298 rows in place of 3089) at 1, 64, 3089 and
+   65536 rows: the tuner's own lookup sweeps every candidate with the ops
+   wrappers' CUDA-event runner (each candidate's ms printed, today's and
+   the chosen marked), and every candidate equals the plain version bit
+   for bit; every candidate again at 8 and 32 bits (65 and 3089 rows; at
+   32 bits also a 200->64->6 MLP, where the 64-row instance fits).  Then
+   ``clear_memory_cache`` and the same lookups through the ops wrappers:
+   answered from the file, no sweep launch.  Two processes tune six
+   fxp_qmatmul shapes into the file at once: every key of both and every
+   earlier key persist.  ``pretune`` of an fxp32 MLP and logistic model
+   over the ladder 1..64 and 4096: one new key a bucket each, and predicts
+   of 1-3089 rows then make no sweep launch.  Sweep launches count only in
+   ``tune.sweep_launches`` (printed with the sweeps' seconds at the end of
+   the run), so every launch count of phase 4 holds as before; the main
+   paths' wrappers tune their own shapes as they first meet them.
 4. The main paths, each with every launch count set to 0 just before it
    and read just after it:
    A. a seeded 561->64->6 MLP and a 561x6 logistic model on D6, compiled
@@ -377,7 +398,12 @@ Phases, each of which raises on failure:
    of that artifact is taken with the two routes in turns, and path C's
    predict is profiled (device time by kernel, activities, launches)
    beside its lowering with the bias added outside the kernel at 1, 64,
-   3089 and 65536 rows.
+   3089 and 65536 rows.  Phase 5 times each kernel at today's blocking;
+   last, path A's fxp16 MLP and logistic ``predict`` at 1 and 3089 rows
+   with the tuner's warm lookup beside the same calls with today's
+   blocking passed as an override, in turns.  The JSON record of each
+   tuned kernel gains phase 3T's choice at its main shape (``blocks``,
+   ``blocks_ms``) beside today's (``blocks_today``, ``blocks_today_ms``).
 
 The lines before the last are a JSON ``{"kernels": [...]}`` record and the
 ``nvidia-smi`` name/power-limit line; the last line is
@@ -1341,6 +1367,322 @@ class KernelCheck:
             f"tree_ensemble table routes {self.tree_routes}; "
             f"pwl_activation cases with the fused bias "
             f"{self.pwl_bias_cases})")
+
+
+# --------------------------------------------------------------------------
+# phase 3T: the block-size tuner
+# --------------------------------------------------------------------------
+# E of the timed fleets: path D's 8 MLPs and 4 SVMs; its SVM fleet's batch
+TUNE_MLP_FLEET, TUNE_SVM_FLEET, TUNE_SVM_FLEET_M = 8, 4, 3298
+# the K of each of two processes' fxp_qmatmul lookups into one file
+TUNE_PROCS = ((100, 101, 102), (200, 201, 202))
+TUNE_PROC_SCRIPT = """
+import sys, torch
+sys.path.insert(0, {src!r})
+from repro_torch.core.fixedpoint import FxpFormat
+from repro_torch.kernels import ops, tune
+dev, fmt = torch.device("cuda"), FxpFormat(16, 10)
+for k in {ks!r}:
+    a = torch.ones((1000, k), dtype=torch.int16, device=dev)
+    b = torch.ones((k, 300), dtype=torch.int16, device=dev)
+    ops.fxp_qmatmul(a, b, fmt)
+torch.cuda.synchronize()
+print("sweep launches", tune.sweep_launches)
+"""
+
+
+@dataclasses.dataclass
+class TuneCase:
+    """One tuned kernel at one shape: its real input, the launch of a
+    blocking with ``count=False`` (on ``x`` or the tuner's zeros), the plain
+    version, the ops wrapper (the tuner's lookup on the card), the tuner's
+    own lookup with a given runner, and the candidates (today's first)."""
+    name: str
+    label: str
+    x: object
+    launch: object  # (x, blocking) -> tensor
+    plain: object  # x -> tensor
+    wrapper: object  # x -> tensor, through ops
+    lookup: object  # runner -> blocking
+    cands: list
+    zshape: tuple
+
+
+def tune_cases(torch, K, bits, m, rng, mlp_dims=(561, 64, 6), fleet_m=None):
+    """The seven tuned kernels (fxp_layer on both routes) at ``m`` rows of
+    their main paths' shapes in the ``bits`` container: fxp_qmatmul at the
+    SVM per-layer route's (m, 561) x (561, 300), fxp_layer's wide route at
+    the per-layer MLP's 561 x 64 and its narrow route at the logistic head's
+    561 x 6, fxp_mlp_model at ``mlp_dims``, fxp_svm_model at D6's rbf (561,
+    300, 6), fxp_mlp_fleet at path D's 8 MLPs (schedules of their own) and
+    fxp_svm_fleet at its 4 D5 rbf SVMs (8, 300, 10), at ``fleet_m`` rows if
+    given."""
+    T, dev = K.tune, torch.device("cuda")
+    fmt = K.fxp.FxpFormat(bits, bits - 6)
+    mb = T.batch_bucket(m, cap=1 << 30)
+    cuda = lambda *a: [torch.from_numpy(v).to(dev) for v in a]  # noqa: E731
+    x, sv_t, w64, b64 = cuda(_ints(rng, (m, 561), bits, "mid"),
+                             _ints(rng, (561, 300), bits, "mid"),
+                             _ints(rng, (561, 64), bits, "mid"),
+                             _ints(rng, (64,), bits, "full"))
+    w6, b6 = w64[:, :6].contiguous(), b64[:6].contiguous()
+    cases = []
+
+    def matmul(name, label, kind, b, run, plain, wrap, occ=None):
+        n = int(b.shape[1])
+        cases.append(TuneCase(
+            name, label, x, run, plain, wrap,
+            lambda r: T.matmul_blocks(kind, m, 561, n, bits, r, occupancy=occ,
+                                      device=dev),
+            T.candidates(kind, mb, 561, n, bits, occ), (mb, 561)))
+
+    matmul("fxp_qmatmul", "(m, 561) x (561, 300)", "qmatmul", sv_t,
+           lambda z, blk: K.qm.fxp_qmatmul_cuda(z, sv_t, fmt, blk,
+                                                count=False),
+           lambda z: K.qm.fxp_qmatmul_plain(z, sv_t, fmt),
+           lambda z: K.ops.fxp_qmatmul(z, sv_t, fmt))
+    matmul("fxp_layer", "wide (m, 561) x (561, 64) exact", "layer", w64,
+           lambda z, blk: K.layer.fxp_layer_cuda(z, w64, b64, fmt, "exact",
+                                                 None, blk, count=False),
+           lambda z: K.layer.fxp_layer_plain(z, w64, b64, fmt, "exact"),
+           lambda z: K.ops.fxp_layer(z, w64, b64, fmt, "exact"))
+    matmul("fxp_layer", "narrow (m, 561) x (561, 6)", "layer", w6,
+           lambda z, blk: K.layer.fxp_layer_cuda(z, w6, b6, fmt, "none",
+                                                 None, blk, count=False),
+           lambda z: K.layer.fxp_layer_plain(z, w6, b6, fmt, "none"),
+           lambda z: K.ops.fxp_layer(z, w6, b6, fmt, "none"),
+           occ=K.layer.narrow_occupancy(561, 6, bits, dev))
+
+    dims = tuple(mlp_dims)
+    xm = x if dims[0] == 561 else x[:, :dims[0]].contiguous()
+    ws = cuda(*[_ints(rng, (k, n), bits, "mid")
+                for k, n in zip(dims, dims[1:])])
+    bs = cuda(*[_ints(rng, (n,), bits, "full") for n in dims[1:]])
+    sched = tuple((_mid_shift(bits, k), fmt, act)
+                  for k, act in zip(dims, ("exact",) * (len(dims) - 2)
+                                    + ("none",)))
+    cases.append(TuneCase(
+        "fxp_mlp_model", f"{'->'.join(map(str, dims))}", xm,
+        lambda z, bm: K.model.fxp_mlp_model_cuda(z, ws, bs, sched, bm,
+                                                 count=False),
+        lambda z: K.model.fxp_mlp_model_plain(z, ws, bs, sched),
+        lambda z: K.ops.fxp_mlp_model(z, ws, bs, sched),
+        lambda r: T.model_block_m("mlp", m, dims, bits, runner=r, device=dev),
+        T.model_candidates("mlp", dims, bits), (mb, dims[0])))
+
+    sv, dual = cuda(_ints(rng, (300, 561), bits, "mid"),
+                    _ints(rng, (300, 6), bits, "mid"))
+    qgamma = int(rng.randint(1, 2 ** ((bits - 6) // 2)))
+    svm = (sv, dual, b6, "rbf", fmt, K.fxp.FxpFormat(bits, bits // 2),
+           qgamma, 1, 2, bits // 2)
+    cases.append(TuneCase(
+        "fxp_svm_model", "rbf (m, 561), S 300, C 6", x,
+        lambda z, bm: K.model.fxp_svm_model_cuda(z, *svm, bm=bm, count=False),
+        lambda z: K.model.fxp_svm_model_plain(z, *svm),
+        lambda z: K.ops.fxp_svm_model(z, *svm),
+        lambda r: T.model_block_m("svm-rbf", m, (561, 300, 6), bits,
+                                  runner=r, device=dev),
+        T.model_candidates("svm-rbf", (561, 300, 6), bits), (mb, 561)))
+
+    e = TUNE_MLP_FLEET
+    xe = torch.stack([xm.roll(i, 0) for i in range(e)])
+    wse = [torch.stack([w.roll(i, 0) for i in range(e)]) for w in ws]
+    bse = [torch.stack([b.roll(i, 0) for i in range(e)]) for b in bs]
+    scheds = tuple(tuple((s + i % 2, f, a) for s, f, a in sched)
+                   for i in range(e))
+    cases.append(TuneCase(
+        "fxp_mlp_fleet", f"{e} x {'->'.join(map(str, dims))}", xe,
+        lambda z, blk: K.model.fxp_mlp_fleet_cuda(z, wse, bse, scheds,
+                                                  blk[1], count=False),
+        lambda z: K.model.fxp_mlp_fleet_plain(z, wse, bse, scheds),
+        lambda z: K.ops.fxp_mlp_fleet(z, wse, bse, scheds),
+        lambda r: T.fleet_blocks("mlp", e, m, dims, bits, uniform=False,
+                                 runner=r, device=dev),
+        [(1, bm) for bm in T.model_candidates("mlp", dims, bits)],
+        (e, mb, dims[0])))
+
+    # names of its own: the lambdas above read e, m and mb when called
+    es, ms = TUNE_SVM_FLEET, fleet_m or m
+    mbs = T.batch_bucket(ms, cap=1 << 30)
+    qe, sve, de, ie = cuda(_ints(rng, (es, ms, 8), bits, "mid"),
+                           _ints(rng, (es, 300, 8), bits, "mid"),
+                           _ints(rng, (es, 300, 10), bits, "mid"),
+                           _ints(rng, (es, 10), bits, "full"))
+    params = tuple((fmt, K.fxp.FxpFormat(bits, bits // 2 - i), qgamma + i, i,
+                    2, bits // 2) for i in range(es))
+    cases.append(TuneCase(
+        "fxp_svm_fleet", f"{es} x rbf (m, 8), S 300, C 10", qe,
+        lambda z, blk: K.model.fxp_svm_fleet_cuda(z, sve, de, ie, "rbf",
+                                                  params, blk[1],
+                                                  count=False),
+        lambda z: K.model.fxp_svm_fleet_plain(z, sve, de, ie, "rbf", params),
+        lambda z: K.ops.fxp_svm_fleet(z, sve, de, ie, "rbf", params),
+        lambda r: T.fleet_blocks("svm-rbf", es, ms, (8, 300, 10), bits,
+                                 uniform=False, runner=r, device=dev),
+        [(1, bm) for bm in T.model_candidates("svm-rbf", (8, 300, 10),
+                                              bits)],
+        (es, mbs, 8)))
+    return cases
+
+
+def _blk(b):
+    return list(b) if isinstance(b, tuple) else [b]
+
+
+def tune_sweep(torch, K, check, case, m):
+    """The tuner's own lookup of ``case`` at ``m`` rows with a runner that
+    keeps each candidate's CUDA-event time (ms, best of 3), then every
+    candidate against the plain version bit for bit.  Returns (chosen,
+    {candidate: ms})."""
+    T, dev = K.tune, torch.device("cuda")
+    times = {}
+    base = K.ops._timed_runner(dev, case.zshape, case.x.dtype, case.launch)
+
+    def runner(blk):
+        times[blk] = base(blk)
+        return times[blk]
+
+    n0 = T.sweep_launches
+    chosen = case.lookup(runner)
+    if sorted(times) != sorted(case.cands):
+        raise AssertionError(f"tuner {case.name} {case.label} m {m}: swept "
+                             f"{sorted(times)}, candidates {case.cands}")
+    if T.sweep_launches - n0 != 4 * len(times):
+        raise AssertionError(f"tuner {case.name}: {T.sweep_launches - n0} "
+                             f"sweep launches for {len(times)} candidates")
+    if chosen not in times:
+        raise AssertionError(f"tuner {case.name}: chose {chosen}, not a "
+                             f"candidate")
+    want = case.plain(case.x)
+    for blk in case.cands:
+        check._compare(case.name, case.launch(case.x, blk), want,
+                       f"tuned {blk} {case.label} m {m}")
+    return chosen, times
+
+
+def tuner_phase(torch, K, check):
+    """Phase 3T (see the module docstring)."""
+    T = K.tune
+    t0 = time.perf_counter()
+    log(f"phase 3T: the block-size tuner, cache {T.cache_path()} (fresh); "
+        f"candidate CUDA-event ms, best of 3 after a warm launch; * today's, "
+        f"> chosen")
+    rng = np.random.RandomState(31)
+    results, timed = {}, []
+    for m in TIMED_BATCHES:
+        fleet_m = TUNE_SVM_FLEET_M if m == TIMED_BATCHES[-2] else m
+        for case in tune_cases(torch, K, 16, m, rng, fleet_m=fleet_m):
+            mm = fleet_m if case.name == "fxp_svm_fleet" else m
+            chosen, times = tune_sweep(torch, K, check, case, mm)
+            today = case.cands[0]
+            log(f"  tune {case.name:13s} fxp16 {case.label:32s} m {mm:6d}: "
+                + ", ".join(f"{'*' if b == today else ''}"
+                            f"{'>' if b == chosen else ''}{_blk(b)} "
+                            f"{times[b]:.4f}" for b in case.cands)
+                + f"; chosen/today {times[chosen] / times[today]:.3f}")
+            results.setdefault((case.name, case.label), {})[mm] = (
+                chosen, times[chosen], today, times[today])
+            timed.append((case, mm))
+    for bits in (8, 32):  # every candidate at the other widths, untimed
+        for m in (65, 3089):
+            for dims in ((561, 64, 6),) + (((200, 64, 6),) if bits == 32
+                                           else ()):
+                for case in tune_cases(torch, K, bits, m, rng, dims):
+                    want = case.plain(case.x)
+                    for blk in case.cands:
+                        check._compare(case.name, case.launch(case.x, blk),
+                                       want, f"w{bits} tuned {blk} "
+                                       f"{case.label} m {m}")
+    log(f"  every candidate bit for bit against its plain version at 8, 16 "
+        f"and 32 bits; {T.sweep_launches} sweep launches, "
+        f"{T.sweep_seconds:.2f} s of sweeps")
+
+    # persistence: the same lookups from the file, through the ops wrappers
+    keys = set(T.cache_snapshot())
+    T.clear_memory_cache()
+    n0 = T.sweep_launches
+    for case, m in timed:
+        check._compare(case.name, case.wrapper(case.x), case.plain(case.x),
+                       f"from the file {case.label} m {m}")
+    if T.sweep_launches != n0:
+        raise AssertionError(f"tuner: {T.sweep_launches - n0} sweep launches "
+                             f"after clear_memory_cache for keys not in the "
+                             f"file: {sorted(set(T.cache_snapshot()) - keys)}")
+    log(f"  clear_memory_cache, then {len(timed)} lookups through the ops "
+        f"wrappers: answered from the file, no sweep launch, outputs equal "
+        f"to the plain versions")
+    tune_two_processes(K)
+    tune_pretune(torch, K)
+    log(f"phase 3T took {time.perf_counter() - t0:.1f} s")
+    return results
+
+
+def tune_two_processes(K):
+    """Two processes tune different shapes into the one file at once."""
+    T = K.tune
+    before = set(T.cache_snapshot())
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", TUNE_PROC_SCRIPT.format(
+            src=os.path.join(ROOT, "src"), ks=ks)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for ks in TUNE_PROCS]
+    for p in procs:
+        out, _ = p.communicate(timeout=300)
+        if p.returncode != 0:
+            raise AssertionError(f"tuner process failed:\n{out}")
+    with open(T.cache_path()) as f:
+        raw = json.load(f)
+    dev = T.device_key()
+    want = {f"qmatmul|1024x{k}x300|w16|{dev}" for ks in TUNE_PROCS for k in ks}
+    missing = (want | before) - set(raw)
+    if missing:
+        raise AssertionError(f"tuner: the file lost {sorted(missing)}")
+    T.clear_memory_cache()
+
+    def no_sweep(blk):
+        raise AssertionError(f"tuner: swept {blk} for a key in the file")
+
+    for ks in TUNE_PROCS:
+        for k in ks:  # each answered from the file, or the runner raises
+            T.matmul_blocks("qmatmul", 1000, k, 300, 16, no_sweep)
+    log(f"  two processes tuning {len(want)} fxp_qmatmul shapes into the file "
+        f"at once: every key of both and all {len(before)} earlier keys "
+        f"persist ({len(raw)} keys)")
+
+
+def tune_pretune(torch, K):
+    """``pretune`` fills one key a bucket for each kernel the artifact
+    dispatches; predicts in those buckets then make no sweep launch."""
+    T = K.tune
+    rng = np.random.RandomState(5)
+    x = (rng.randn(3089, 561) * 2).astype(np.float32)
+    models = {"model-mlp": K.models.init_mlp([561, 64, 6], seed=7),
+              "layer": K.models.LogisticModel(
+                  (rng.randn(561, 6) * 0.05).astype(np.float32),
+                  np.zeros(6, np.float32))}
+    ladder = LADDER + (4096,)
+    for kind, model in models.items():
+        target = K.tc.Target(backend="cuda", number_format="fxp32")
+        art = K.tc.compile(model, target)
+        before = set(T.cache_snapshot())
+        n0 = T.sweep_launches
+        art.pretune(x[:1], batches=ladder)
+        keys = set(T.cache_snapshot()) - before
+        if len(keys) != len(ladder) or not all(
+                k.startswith(kind + "|") and "|w32|" in k for k in keys):
+            raise AssertionError(f"pretune of {kind}: keys {sorted(keys)}")
+        swept = T.sweep_launches - n0
+        host = K.tc.compile(model, target, device="cpu")
+        n0 = T.sweep_launches
+        for m in (1, 3, 17, 50, 64, 3089):
+            if not (art.predict(x[:m]) == host.predict(x[:m])).all():
+                raise AssertionError(f"pretuned {kind}: labels differ at {m}")
+        if T.sweep_launches != n0:
+            raise AssertionError(f"pretuned {kind}: {T.sweep_launches - n0} "
+                                 f"sweep launches in live predicts")
+        log(f"  pretune {kind} fxp32 over {ladder}: {len(keys)} keys, "
+            f"{swept} sweep launches; predicts of 1-3089 rows then sweep "
+            f"nothing, labels equal to the host's")
 
 
 # --------------------------------------------------------------------------
@@ -5756,7 +6098,70 @@ def timing(torch, K, dev, d6, d5, check, arts_a, arts_b, arts_d, tree_model,
         time_predict(arts_b[key], x_big, " ".join(key[::2]))
     tree_predict_kernels(torch, K, arts_b[("tree", "D6", "fxp16")],
                          d6.x_test)
+    tuner_predict_cost(torch, K, arts_a, x_big)
     return [T.records[n] for n in KernelCheck.NAMES]
+
+
+# the record of each tuned kernel: phase 3T's sweep at its main path's shape
+TUNED_RECORD = {"fxp_qmatmul": ("(m, 561) x (561, 300)", 3089),
+                "fxp_layer": ("narrow (m, 561) x (561, 6)", 3089),
+                "fxp_mlp_model": ("561->64->6", 3089),
+                "fxp_svm_model": ("rbf (m, 561), S 300, C 6", 3089),
+                "fxp_mlp_fleet": ("8 x 561->64->6", 3089),
+                "fxp_svm_fleet": ("4 x rbf (m, 8), S 300, C 10",
+                                  TUNE_SVM_FLEET_M)}
+
+
+def add_tuned(kernels, tuned):
+    """Each tuned kernel's record gains phase 3T's choice at its main shape
+    (fxp16): the chosen blocking and today's, each with its sweep time."""
+    for rec in kernels:
+        if rec["name"] not in TUNED_RECORD:
+            continue
+        label, m = TUNED_RECORD[rec["name"]]
+        chosen, ms, today, today_ms = tuned[(rec["name"], label)][m]
+        rec.update(blocks=_blk(chosen), blocks_ms=ms,
+                   blocks_today=_blk(today), blocks_today_ms=today_ms,
+                   blocks_shape=f"fxp16 {label}, m {m}")
+
+
+def tuner_predict_cost(torch, K, arts_a, x_big):
+    """Host ms of path A's predict (fxp16 MLP and logistic) at 1 and 3089
+    rows with the tuner's warm lookup, beside the same calls with today's
+    blocking passed as an override (no lookup), in turns."""
+    T, ops = K.tune, K.ops
+    log("  predict with the tuner's lookup beside an override of today's "
+        "blocking (host clock, median of 200 in turns)")
+    for kind, fn_name in (("mlp", "fxp_mlp_model"), ("logistic", "fxp_layer")):
+        art = arts_a[(kind, "fxp16")]
+        orig = getattr(ops, fn_name)
+        for m in (1, 3089):
+            xb = x_big[:m]
+            mb = T.batch_bucket(m, cap=1 << 30)
+            if kind == "mlp":
+                today = T.model_candidates("mlp", (561, 64, 6), 16)[0]
+                pinned = lambda *a, **k: orig(*a, bm=today, **k)  # noqa
+            else:
+                occ = K.layer.narrow_occupancy(561, 6, 16,
+                                               torch.device("cuda"))
+                today = T.candidates("layer", mb, 561, 6, 16, occ)[0]
+                pinned = lambda *a, **k: orig(*a, blocks=today, **k)  # noqa
+            times = {"tuner": [], "override": []}
+            art.predict(xb)
+            for _ in range(200):
+                for how in ("tuner", "override"):
+                    setattr(ops, fn_name, pinned if how == "override"
+                            else orig)
+                    try:
+                        t0 = time.perf_counter()
+                        art.predict(xb)
+                        times[how].append(time.perf_counter() - t0)
+                    finally:
+                        setattr(ops, fn_name, orig)
+            med = {h: float(np.median(v)) * 1e3 for h, v in times.items()}
+            log(f"  predict {kind} fxp16 batch {m:5d}: tuner {med['tuner']:.4f}"
+                f" ms, override of today's {_blk(today)} "
+                f"{med['override']:.4f} ms")
 
 
 def check_tensor_core_sass(build):
@@ -5850,6 +6255,14 @@ def main() -> int:
     K = namespace()
     t_start = time.perf_counter()
     dev = Device(torch)
+    # a fresh tuner file for this run (inherited by every process it starts)
+    tune_file = os.path.join(ROOT, "build", "chip_smoke_tune_cache.json")
+    os.makedirs(os.path.dirname(tune_file), exist_ok=True)
+    for path in (tune_file, tune_file + ".lock"):
+        if os.path.exists(path):
+            os.remove(path)
+    os.environ["REPRO_TORCH_TUNE_CACHE"] = tune_file
+    K.tune.clear_memory_cache()
 
     t0 = time.perf_counter()
     built = build.build_all()
@@ -5876,6 +6289,7 @@ def main() -> int:
     check = KernelCheck(torch, K)
     check.run(tree_model.tree, d6.x_test)
     log(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
+    tuned = tuner_phase(torch, K, check)
 
     arts_a, launches_a = main_path_mlp(torch, K, d6)
     arts_b, launches_b = main_path_tree_svm(torch, K, d6, d5, tree_model)
@@ -5905,6 +6319,12 @@ def main() -> int:
                 for n in KernelCheck.NAMES}
     kernels = timing(torch, K, dev, d6, d5, check, arts_a, arts_b, arts_d,
                      tree_model, launches, lm, families, recurrent)
+    add_tuned(kernels, tuned)
+    with open(tune_file) as f:
+        n_keys = len(json.load(f))
+    log(f"tuner: {K.tune.sweep_launches} sweep launches in "
+        f"{K.tune.sweep_seconds:.2f} s of sweeps over the run (this process);"
+        f" {n_keys} keys in {tune_file}, from every process of the run")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(dev.smi_line)

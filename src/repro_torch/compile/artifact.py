@@ -179,17 +179,21 @@ class CompiledArtifact:
 
     def pretune(self, example, batches: Optional[Tuple[int, ...]] = None
                 ) -> "CompiledArtifact":
-        """Warm the artifact for the serving bucket ladder, ahead of traffic.
+        """Warm the block-size tuner and the kernels for the serving bucket
+        ladder, ahead of traffic.
 
-        The port has no block-size tuner sweep yet (the kernels' block sizes
-        are fixed in their sources), so this runs one ``predict`` on zero
-        rows shaped like ``example`` at each batch size in ``batches``
-        (default: the power-of-two ladder up to ``max_supported_batch``, or
-        64).  The first call builds and loads the artifact's CUDA kernels,
-        so the first live request pays neither the build nor a cold
-        allocation.  A mesh-specialized artifact walks the *mesh-level*
-        ladder: replicas x the per-replica power-of-two shards, up to the
-        per-replica cap (64 x replicas by default).  Returns self.
+        Runs one ``predict`` on zero rows shaped like ``example`` at each
+        batch size in ``batches`` (default: the power-of-two ladder up to
+        ``max_supported_batch``, or 64).  On the card each call makes the
+        tuner's entry (:mod:`repro_torch.kernels.tune`: shape-bucketed,
+        device-keyed, persisted to its JSON file) for every tuned kernel the
+        artifact dispatches in that bucket, timing the kernel's blockings
+        there, so a live request in a pretuned bucket makes no sweep launch;
+        the first call also builds and loads the artifact's CUDA kernels.
+        A mesh-specialized artifact walks the *mesh-level* ladder: replicas
+        x the per-replica power-of-two shards, up to the per-replica cap (64
+        x replicas by default), so every replica's shard shape is tuned.
+        Returns self.
         """
         row = np.asarray(example)
         if row.ndim > 1:

@@ -74,8 +74,9 @@ def _library_path(name: str) -> Path:
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     """Build every missing library, one ``nvcc`` per source in parallel.
 
-    Returns seconds spent per library built (0.0 for one already on disk).
-    Raises with the compiler's output if any build fails.
+    Returns the seconds from the start until each library's compiler
+    finished (0.0 for one already on disk).  Raises with the compiler's
+    output if any build fails.
     """
     names = tuple(names)
     todo = {n: _library_path(n) for n in names}
@@ -94,10 +95,22 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, path)
+    outs: Dict[str, str] = {}
+
+    def wait(name: str, proc: subprocess.Popen) -> None:
+        # each compiler's own end, not the order in which they are waited on
+        outs[name] = proc.communicate()[0]
+        seconds[name] = time.perf_counter() - t0
+
+    waiters = [threading.Thread(target=wait, args=(name, proc))
+               for name, (proc, _, _) in procs.items()]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     failed = []
     for name, (proc, tmp, path) in procs.items():
-        out, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
+        out = outs[name]
         BUILD_LOG[name] = out
         if proc.returncode != 0:
             failed.append(f"{name}.cu (exit {proc.returncode}):\n{out}")

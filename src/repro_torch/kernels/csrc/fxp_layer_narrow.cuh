@@ -136,6 +136,8 @@ FXP_HOST_DEVICE int narrow_block_smem(const NarrowPlan& p, int elem_bytes) {
 // Blocks of the persistent grid for `groups` row groups: enough blocks for
 // one group a warp, at least one a SM while the groups last (small batches
 // spread over the card), at most what the card holds at once (`slots`).
+// The default; the block-size tuner may pass another grid (fxp_layer.cu),
+// and any grid computes the same outputs.
 FXP_HOST_DEVICE int narrow_blocks(int groups, int sms, int slots) {
   int b = (groups + kNarrowWarps - 1) / kNarrowWarps;
   const int spread = groups < sms ? groups : sms;

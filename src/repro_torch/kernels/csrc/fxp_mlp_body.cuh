@@ -32,7 +32,9 @@
 //     (activations k-contiguous, weights transposed, 32-bit loads).
 //   - A tile is 16 batch rows (one m16 MMA tile): 3089 rows are 194 tiles.
 //     Blocks are persistent and hold up to three warp groups of 8 warps,
-//     each with its own barrier and buffers, walking row tiles on its own;
+//     each with its own barrier and buffers, walking row tiles on its own
+//     (as many as fit, or fewer: the block-size tuner, kernels/tune.py,
+//     caps the groups at 1, 2 or 3, a block's 16, 32 or 48 rows);
 //     the block stages the weights once (zero-padded to K % 32 == 0 and
 //     N % 8 == 0: zeros add nothing, so the padding is exact; by 16-byte
 //     cp.async where the rows allow) and the layers' epilogues.  A tile's
@@ -61,8 +63,10 @@
 //     wgmma's, bound it first (PERF.md, Findings).
 // * mlp_block_cuda_cores, for the 32-bit container: int32 multiply-adds on
 //   the CUDA cores (the int8 MMAs of a four-byte split would take 10
-//   products per multiply-add).  Each thread computes kMlpTM rows of one
-//   output column so one weight load feeds kMlpTM multiply-adds.
+//   products per multiply-add).  A block owns BM rows (16, 32 or 64, an
+//   instance each, the tuner's choice; kMlpBM by default), and each thread
+//   computes kMlpTM rows of one output column so one weight load feeds
+//   kMlpTM multiply-adds.
 #pragma once
 
 #include <cstddef>
@@ -76,8 +80,10 @@ namespace fxp {
 constexpr int kMlpMaxLayers = 8;
 constexpr int kMlpThreads = 256;
 constexpr int kMlpWarps = kMlpThreads / 32;
-// CUDA-core body: rows per block (MODEL_BLOCK_M in kernels/tune.py) and
-// rows per thread.
+// CUDA-core body: its default rows per block, and rows per thread.  kMlpBM
+// is also the `bm` of the routing count (MODEL_BLOCK_M in kernels/tune.py:
+// mlp_fits_smem sizes two kMlpBM x widest buffers), no longer the only
+// block: the tuner picks 16, 32 or 64 rows, an instance each.
 constexpr int kMlpBM = 32, kMlpTM = 4;
 // Tensor-core body: rows per tile and output columns per chunk.
 constexpr int kMmaBM = 16, kMmaNC = 64;
@@ -110,10 +116,10 @@ inline bool mlp_shape_from(const int* dims, int n_layers, MlpShape* s) {
   return true;
 }
 
-// Shared memory of one CUDA-core block: two kMlpBM x stride buffers of T.
+// Shared memory of one CUDA-core block: two bm x stride buffers of T.
 template <typename T>
-inline size_t mlp_smem_bytes(const MlpShape& s) {
-  return 2 * (size_t)kMlpBM * s.stride * sizeof(T);
+inline size_t mlp_smem_bytes(const MlpShape& s, int bm = kMlpBM) {
+  return 2 * (size_t)bm * s.stride * sizeof(T);
 }
 
 FXP_HOST_DEVICE int round_up(int v, int m) { return (v + m - 1) / m * m; }
@@ -167,10 +173,12 @@ constexpr int kMlpMaxGroups = 3;  // 768 threads: at most 85 registers
 constexpr int kMlpEpiBytes = kMlpMaxLayers * (int)sizeof(Epilogue);
 
 // Lays out shared memory for a model: resident weights with as many warp
-// groups as fit (3, 2, 1), else one group streaming the weights through the
-// largest chunk that fits.  False if nothing fits one block.  Every model
-// that mlp_fits_smem admits (2 * 32 * widest * bytes <= kMlpSmemMax) fits.
-FXP_HOST_DEVICE bool mlp_plan(const MlpShape& s, int bytes, MlpPlan* p) {
+// groups as fit, up to max_groups (3, 2, 1), else one group streaming the
+// weights through the largest chunk that fits.  False if nothing fits one
+// block.  Every model that mlp_fits_smem admits (2 * 32 * widest * bytes <=
+// kMlpSmemMax) fits.
+FXP_HOST_DEVICE bool mlp_plan(const MlpShape& s, int bytes, MlpPlan* p,
+                              int max_groups = kMlpMaxGroups) {
   int wide[2] = {1, 1};  // the widest input of even and of odd layers
   for (int l = 0; l < s.n_layers; ++l)
     wide[l & 1] = s.dims[l] > wide[l & 1] ? s.dims[l] : wide[l & 1];
@@ -203,7 +211,7 @@ FXP_HOST_DEVICE bool mlp_plan(const MlpShape& s, int bytes, MlpPlan* p) {
   p->epi_off = 0;
   p->w_base = round_up(kMlpEpiBytes, 16);
   const int kcs[] = {256, 128, 64, 32};
-  for (int i = -kMlpMaxGroups; i < 4; ++i) {  // i < 0: resident, -i groups
+  for (int i = -max_groups; i < 4; ++i) {  // i < 0: resident, -i groups
     const int groups = i < 0 ? -i : 1, kc = i < 0 ? 0 : kcs[i];
     const int chunk = kc ? mma_weight_rows(kc, kMmaNC, bytes) *
                                mma_weight_stride(kc, kMmaNC, bytes)
@@ -247,19 +255,20 @@ FXP_HOST_DEVICE int mlp_blocks_per_model(int tiles, int blocks, int groups,
 // layer(l) returns that model's MlpLayer<T> for layer l, epilogue(l) its
 // Epilogue.  The epilogue is fetched after each output's dot product, not
 // before, so that its 21 fields are not held in registers across the K
-// loop.  The block owns rows row0 .. row0 + kMlpBM - 1.  Every thread of the
+// loop.  The block owns rows row0 .. row0 + BM - 1.  Every thread of the
 // block must call it.
-template <typename T, typename LayerFn, typename EpilogueFn>
+template <typename T, int BM, typename LayerFn, typename EpilogueFn>
 __device__ __forceinline__ void mlp_block_cuda_cores(
     const T* __restrict__ x, T* __restrict__ out, int M, int row0,
     const MlpShape& s, LayerFn layer, EpilogueFn epilogue) {
+  static_assert(BM % kMlpTM == 0, "whole row groups");
   extern __shared__ __align__(16) unsigned char mlp_smem[];
   T* hin = reinterpret_cast<T*>(mlp_smem);
-  T* hout = hin + kMlpBM * s.stride;
-  const int rows = min(kMlpBM, M - row0);
+  T* hout = hin + BM * s.stride;
+  const int rows = min(BM, M - row0);
 
   const int k0 = s.dims[0];
-  for (int i = threadIdx.x; i < kMlpBM * k0; i += kMlpThreads) {
+  for (int i = threadIdx.x; i < BM * k0; i += kMlpThreads) {
     const int r = i / k0, c = i - r * k0;
     hin[r * s.stride + c] =
         (r < rows) ? x[(size_t)(row0 + r) * k0 + c] : T(0);
@@ -272,7 +281,7 @@ __device__ __forceinline__ void mlp_block_cuda_cores(
     const T* __restrict__ W = L.w;
     const T* __restrict__ B = L.b;
     const bool last = l == s.n_layers - 1;
-    for (int item = threadIdx.x; item < (kMlpBM / kMlpTM) * N;
+    for (int item = threadIdx.x; item < (BM / kMlpTM) * N;
          item += kMlpThreads) {
       const int g = item / N, n = item - g * N;
       const T* h = hin + g * kMlpTM * s.stride;

@@ -27,7 +27,9 @@
 // input slice starts at e.M.K0 elements, which need not be 16-byte aligned
 // (M 3089, K0 561 at 16 bits: 2e mod 16): the body copies each tile from
 // the 16-byte boundary below it.  The 32-bit container keeps the CUDA-core
-// body, one block per 32 rows per model.
+// body, one block per 32 rows per model.  `bm` picks the block as in
+// fxp_mlp_model.cu (the tuner's choice; 0 today's rule); every model of
+// the fleet runs it.
 #include "fxp_mlp_body.cuh"
 
 namespace {
@@ -74,6 +76,7 @@ fxp_mlp_fleet_mma_kernel(const T* __restrict__ x, T* __restrict__ out, int M,
       blockIdx.x, gridDim.x, m, [&](int l) { return m.epilogue(l); });
 }
 
+template <int BM>
 __global__ void __launch_bounds__(kThreads)
 fxp_mlp_fleet_cuda_core_kernel(const int32_t* __restrict__ x,
                                int32_t* __restrict__ out, int M,
@@ -81,16 +84,21 @@ fxp_mlp_fleet_cuda_core_kernel(const int32_t* __restrict__ x,
                                const long long* __restrict__ epis) {
   const FleetModel<int32_t> m{p, epis, blockIdx.y};
   const int L = p.shape.n_layers;
-  fxp::mlp_block_cuda_cores<int32_t>(
+  fxp::mlp_block_cuda_cores<int32_t, BM>(
       x + m.e * M * (size_t)p.shape.dims[0],
-      out + m.e * M * (size_t)p.shape.dims[L], M, blockIdx.x * fxp::kMlpBM,
+      out + m.e * M * (size_t)p.shape.dims[L], M, blockIdx.x * BM,
       p.shape, m, [&](int l) { return m.epilogue(l); });
 }
 
+// bm: 0, or 16 x the warp groups of a block, which the plan must lay out.
 template <typename T>
 int launch_mma(const void* x, void* out, int M, int E, FleetParams& p,
-               const long long* epis, cudaStream_t stream) {
-  if (!fxp::mlp_plan(p.shape, (int)sizeof(T), &p.plan))
+               const long long* epis, int bm, cudaStream_t stream) {
+  const int cap = bm / fxp::kMmaBM;
+  if (bm % fxp::kMmaBM || cap < 0 || cap > fxp::kMlpMaxGroups ||
+      !fxp::mlp_plan(p.shape, (int)sizeof(T), &p.plan,
+                     cap ? cap : fxp::kMlpMaxGroups) ||
+      (cap && p.plan.groups != cap))
     return (int)cudaErrorInvalidValue;
   auto kernel = fxp_mlp_fleet_mma_kernel<T>;
   const int threads = p.plan.groups * kThreads;
@@ -106,18 +114,31 @@ int launch_mma(const void* x, void* out, int M, int E, FleetParams& p,
   return (int)cudaGetLastError();
 }
 
-int launch_cuda_cores(const void* x, void* out, int M, int E,
-                      const FleetParams& p, const long long* epis,
-                      cudaStream_t stream) {
-  const size_t smem = fxp::mlp_smem_bytes<int32_t>(p.shape);
+template <int BM>
+int launch_cuda_cores_bm(const void* x, void* out, int M, int E,
+                         const FleetParams& p, const long long* epis,
+                         cudaStream_t stream) {
+  const size_t smem = fxp::mlp_smem_bytes<int32_t>(p.shape, BM);
   cudaError_t err = cudaFuncSetAttribute(
-      fxp_mlp_fleet_cuda_core_kernel,
+      fxp_mlp_fleet_cuda_core_kernel<BM>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((M + fxp::kMlpBM - 1) / fxp::kMlpBM, E);
-  fxp_mlp_fleet_cuda_core_kernel<<<grid, kThreads, smem, stream>>>(
+  const dim3 grid((M + BM - 1) / BM, E);
+  fxp_mlp_fleet_cuda_core_kernel<BM><<<grid, kThreads, smem, stream>>>(
       static_cast<const int32_t*>(x), static_cast<int32_t*>(out), M, p, epis);
   return (int)cudaGetLastError();
+}
+
+// bm: the rows of a block, 16, 32 or 64 (0: fxp::kMlpBM).
+int launch_cuda_cores(const void* x, void* out, int M, int E,
+                      const FleetParams& p, const long long* epis, int bm,
+                      cudaStream_t stream) {
+  switch (bm == 0 ? fxp::kMlpBM : bm) {
+    case 16: return launch_cuda_cores_bm<16>(x, out, M, E, p, epis, stream);
+    case 32: return launch_cuda_cores_bm<32>(x, out, M, E, p, epis, stream);
+    case 64: return launch_cuda_cores_bm<64>(x, out, M, E, p, epis, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -125,14 +146,14 @@ int launch_cuda_cores(const void* x, void* out, int M, int E,
 // x: (E, M, dims[0]); ws[l]: (E, dims[l], dims[l+1]); bs[l]: (E, dims[l+1]);
 // out: (E, M, dims[n_layers]); every tensor contiguous in the `bits`-wide
 // container, x 16-byte aligned.  `epis` is a DEVICE pointer to E x n_layers
-// rows of fxp::kEpilogueFields int64 values (model-major).  Launches on the
-// calling thread's current device.  Returns the CUDA error code of the launch (0 on
-// success).
+// rows of fxp::kEpilogueFields int64 values (model-major); `bm` the
+// tuner's block (0 today's).  Launches on the calling thread's current
+// device.  Returns the CUDA error code of the launch (0 on success).
 extern "C" int fxp_mlp_fleet_launch(const void* x, void* out, int M, int E,
                                     int n_layers, const int* dims,
                                     const void* const* ws,
                                     const void* const* bs,
-                                    const long long* epis, int bits,
+                                    const long long* epis, int bits, int bm,
                                     void* stream) {
   FleetParams p;
   if (M <= 0 || E <= 0 || E > kMaxModels ||
@@ -144,9 +165,9 @@ extern "C" int fxp_mlp_fleet_launch(const void* x, void* out, int M, int E,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bits) {
-    case 8: return launch_mma<int8_t>(x, out, M, E, p, epis, s);
-    case 16: return launch_mma<int16_t>(x, out, M, E, p, epis, s);
-    case 32: return launch_cuda_cores(x, out, M, E, p, epis, s);
+    case 8: return launch_mma<int8_t>(x, out, M, E, p, epis, bm, s);
+    case 16: return launch_mma<int16_t>(x, out, M, E, p, epis, bm, s);
+    case 32: return launch_cuda_cores(x, out, M, E, p, epis, bm, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -18,7 +18,11 @@
 //   walk 16-row tiles (194 at 3089 rows, spread over all 132 SMs) and copy
 //   the next tile with cp.async while the current one runs its layers.
 // * 32-bit container: int32 multiply-adds on the CUDA cores (the first
-//   port's body), one block per 32 rows.
+//   port's body), one block per 32 rows (16 or 64: the tuner's choice).
+// The block-size tuner (kernels/tune.py) passes `bm`: at 8 and 16 bits the
+// rows of a block's warp groups (16, 32 or 48: a cap of 1, 2 or 3 groups
+// on mlp_plan, which must lay out that many), at 32 bits the instance's
+// rows; 0 is today's rule (as many groups as fit; 32 rows).
 #include "fxp_mlp_body.cuh"
 
 namespace {
@@ -51,20 +55,26 @@ fxp_mlp_model_mma_kernel(const T* __restrict__ x, T* __restrict__ out, int M,
       [&](int l) { return p.epi[l]; });
 }
 
+template <int BM>
 __global__ void __launch_bounds__(kThreads)
 fxp_mlp_model_cuda_core_kernel(const int32_t* __restrict__ x,
                                int32_t* __restrict__ out, int M,
                                const MlpParams p) {
-  fxp::mlp_block_cuda_cores<int32_t>(
-      x, out, M, blockIdx.x * fxp::kMlpBM, p.shape,
+  fxp::mlp_block_cuda_cores<int32_t, BM>(
+      x, out, M, blockIdx.x * BM, p.shape,
       [&](int l) { return layer_of<int32_t>(p, l); },
       [&](int l) { return p.epi[l]; });
 }
 
+// bm: 0, or 16 x the warp groups of a block, which the plan must lay out.
 template <typename T>
-int launch_mma(const void* x, void* out, int M, MlpParams& p,
+int launch_mma(const void* x, void* out, int M, MlpParams& p, int bm,
                cudaStream_t stream) {
-  if (!fxp::mlp_plan(p.shape, (int)sizeof(T), &p.plan))
+  const int cap = bm / fxp::kMmaBM;
+  if (bm % fxp::kMmaBM || cap < 0 || cap > fxp::kMlpMaxGroups ||
+      !fxp::mlp_plan(p.shape, (int)sizeof(T), &p.plan,
+                     cap ? cap : fxp::kMlpMaxGroups) ||
+      (cap && p.plan.groups != cap))
     return (int)cudaErrorInvalidValue;
   auto kernel = fxp_mlp_model_mma_kernel<T>;
   const int threads = p.plan.groups * kThreads;
@@ -80,17 +90,29 @@ int launch_mma(const void* x, void* out, int M, MlpParams& p,
   return (int)cudaGetLastError();
 }
 
-int launch_cuda_cores(const void* x, void* out, int M, const MlpParams& p,
-                      cudaStream_t stream) {
-  const size_t smem = fxp::mlp_smem_bytes<int32_t>(p.shape);
+template <int BM>
+int launch_cuda_cores_bm(const void* x, void* out, int M, const MlpParams& p,
+                         cudaStream_t stream) {
+  const size_t smem = fxp::mlp_smem_bytes<int32_t>(p.shape, BM);
   cudaError_t err = cudaFuncSetAttribute(
-      fxp_mlp_model_cuda_core_kernel,
+      fxp_mlp_model_cuda_core_kernel<BM>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int grid = (M + fxp::kMlpBM - 1) / fxp::kMlpBM;
-  fxp_mlp_model_cuda_core_kernel<<<grid, kThreads, smem, stream>>>(
+  const int grid = (M + BM - 1) / BM;
+  fxp_mlp_model_cuda_core_kernel<BM><<<grid, kThreads, smem, stream>>>(
       static_cast<const int32_t*>(x), static_cast<int32_t*>(out), M, p);
   return (int)cudaGetLastError();
+}
+
+// bm: the rows of a block, 16, 32 or 64 (0: fxp::kMlpBM).
+int launch_cuda_cores(const void* x, void* out, int M, const MlpParams& p,
+                      int bm, cudaStream_t stream) {
+  switch (bm == 0 ? fxp::kMlpBM : bm) {
+    case 16: return launch_cuda_cores_bm<16>(x, out, M, p, stream);
+    case 32: return launch_cuda_cores_bm<32>(x, out, M, p, stream);
+    case 64: return launch_cuda_cores_bm<64>(x, out, M, p, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -98,14 +120,14 @@ int launch_cuda_cores(const void* x, void* out, int M, const MlpParams& p,
 // x: (M, dims[0]); ws[l]: (dims[l], dims[l+1]); bs[l]: (dims[l+1],);
 // out: (M, dims[n_layers]); every tensor contiguous in the `bits`-wide
 // container, x 16-byte aligned.  `epis` holds n_layers rows of
-// fxp::kEpilogueFields int64 values.  Launches on the calling thread's
-// current device.  Returns the CUDA error code of the launch (0 on
-// success).
+// fxp::kEpilogueFields int64 values; `bm` the tuner's block (see the top of
+// this file; 0 today's).  Launches on the calling thread's current device.
+// Returns the CUDA error code of the launch (0 on success).
 extern "C" int fxp_mlp_model_launch(const void* x, void* out, int M,
                                     int n_layers, const int* dims,
                                     const void* const* ws,
                                     const void* const* bs,
-                                    const long long* epis, int bits,
+                                    const long long* epis, int bits, int bm,
                                     void* stream) {
   MlpParams p;
   if (M <= 0 || !fxp::mlp_shape_from(dims, n_layers, &p.shape))
@@ -117,9 +139,9 @@ extern "C" int fxp_mlp_model_launch(const void* x, void* out, int M,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bits) {
-    case 8: return launch_mma<int8_t>(x, out, M, p, s);
-    case 16: return launch_mma<int16_t>(x, out, M, p, s);
-    case 32: return launch_cuda_cores(x, out, M, p, s);
+    case 8: return launch_mma<int8_t>(x, out, M, p, bm, s);
+    case 16: return launch_mma<int16_t>(x, out, M, p, bm, s);
+    case 32: return launch_cuda_cores(x, out, M, p, bm, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,5 +1,7 @@
 // The body of the kernel-SVM megakernel: one thread block cluster computes
-// the whole decision function of one model for kSvmRows batch rows.  Shared
+// the whole decision function of one model for R batch rows (R 16, 32 or
+// 64, an instance each: the block-size tuner's choice, kernels/tune.py;
+// kSvmRows = 32 by default, 4 R threads a block).  Shared
 // by fxp_svm_model.cu (one model, SvmParams passed by value) and
 // fxp_svm_fleet.cu (E stacked models, blockIdx.y picks the model and its
 // SvmParams row), so that slot e of a fleet launch computes exactly what
@@ -95,20 +97,36 @@ namespace fxp {
 
 constexpr int kSvmPoly = 0, kSvmRbf = 1;
 
-constexpr int kSvmRows = 32;      // batch rows per cluster (MODEL_BLOCK_M)
+// batch rows per cluster by default (MODEL_BLOCK_M: the routing count's
+// bm); the tuner may pick 16 or 64
+constexpr int kSvmRows = 32;
 constexpr int kSvmChunk = 64;     // support vectors per chunk
 constexpr int kSvmStep = 32;      // features per staging step
-constexpr int kSvmThreads = 128;  // 8 row groups x 16 vector groups
 constexpr int kSvmMaxCluster = 8;  // the portable cluster size
-// Blocks an SM must hold (__launch_bounds__): 96 registers a thread, 20 of
-// 32 warps.  Five ran faster than four (128 registers) at D5 fxp32 and D6
-// fxp16 alike; six and eight spilled in the dot loop and ran slower at D6.
-constexpr int kSvmMinBlocks = 5;
-constexpr int kSvmXP = kSvmRows + 4;   // staged x row stride (16-byte aligned)
 constexpr int kSvmSP = kSvmChunk + 4;  // staged sv row stride
-constexpr int kSvmStageWords = 2 * kSvmStep * (kSvmXP + kSvmSP);
-static_assert(kSvmThreads == (kSvmRows / 4) * (kSvmChunk / 4),
-              "4x4 micro-tiles");
+
+// The block of an instance of R rows: R / 4 row groups x 16 vector groups
+// of 4x4 micro-tiles, 4 R threads.  Blocks an SM must hold
+// (__launch_bounds__): at R = 32, five, 96 registers a thread, 20 of 32
+// warps; five ran faster than four (128 registers) at D5 fxp32 and D6
+// fxp16 alike, six and eight spilled in the dot loop and ran slower at D6.
+// R = 16 and 64 hold 8 x 2 and 2 x 8 warps (128 registers).
+template <int R>
+struct SvmTile {
+  static_assert(R == 16 || R == 32 || R == 64, "rows 16, 32, 64");
+  static constexpr int kThreads = (R / 4) * (kSvmChunk / 4);
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kMinBlocks = R == 16 ? 8 : R == 32 ? 5 : 2;
+  static constexpr int kXP = R + 4;  // staged x row stride (16-byte aligned)
+  static constexpr int kStageWords = 2 * kSvmStep * (kXP + kSvmSP);
+  // sv rows a staging lane holds: kWarps x 4 lanes x this = kSvmChunk
+  static constexpr int kSvRows = kSvmChunk / (4 * kWarps);
+};
+
+constexpr int kSvmThreads = SvmTile<kSvmRows>::kThreads;  // 128
+constexpr int kSvmMinBlocks = SvmTile<kSvmRows>::kMinBlocks;
+constexpr int kSvmXP = SvmTile<kSvmRows>::kXP;
+constexpr int kSvmStageWords = SvmTile<kSvmRows>::kStageWords;
 
 struct SvmParams {
   Epilogue ek;  // kernel domain: fmt, shift = m
@@ -132,26 +150,27 @@ FXP_HOST_DEVICE SvmParams svm_params_from(const long long* row, int kind) {
   return p;
 }
 
-// The split of S support vectors over a cluster: n_chunks chunks of
-// kSvmChunk, g = min(kSvmMaxCluster, n_chunks) blocks a cluster, each
-// holding at most cap vectors (a whole number of chunks), and the dynamic
-// shared memory of one block in bytes: the staging buffers (then the duals
-// and the decision partials), the (kSvmRows, cap + 1) kernel values and
-// cap + kSvmRows norms, int32.  False when S < 1 or a decision round would
-// hold no class.
+// The split of S support vectors over a cluster of `rows` batch rows:
+// n_chunks chunks of kSvmChunk, g = min(kSvmMaxCluster, n_chunks) blocks a
+// cluster, each holding at most cap vectors (a whole number of chunks), and
+// the dynamic shared memory of one block in bytes: the staging buffers
+// (then the duals and the decision partials), the (rows, cap + 1) kernel
+// values and cap + rows norms, int32.  False when S < 1, `rows` is not an
+// instance, or a decision round would hold no class.
 struct SvmPlan {
   int n_chunks, g, cap;
   int smem;
 };
 
-FXP_HOST_DEVICE bool svm_plan(int S, SvmPlan* p) {
-  if (S < 1) return false;
+FXP_HOST_DEVICE bool svm_plan(int S, SvmPlan* p, int rows = kSvmRows) {
+  if (S < 1 || (rows != 16 && rows != 32 && rows != 64)) return false;
+  const int stage = 2 * kSvmStep * (rows + 4 + kSvmSP);  // SvmTile's
   p->n_chunks = (S + kSvmChunk - 1) / kSvmChunk;
   p->g = p->n_chunks < kSvmMaxCluster ? p->n_chunks : kSvmMaxCluster;
   p->cap = (p->n_chunks + p->g - 1) / p->g * kSvmChunk;
-  if (kSvmStageWords / (p->cap + kSvmRows) < 1) return false;
+  if (stage / (p->cap + rows) < 1) return false;
   p->smem = (int)sizeof(int32_t) *
-            (kSvmStageWords + kSvmRows * (p->cap + 1) + p->cap + kSvmRows);
+            (stage + rows * (p->cap + 1) + p->cap + rows);
   return true;
 }
 
@@ -166,18 +185,21 @@ FXP_HOST_DEVICE void svm_rank_chunks(int rank, int g, int n_chunks,
 
 // x: (M, F), sv: (S, F), dual: (S, C), icept: (C,), out: (M, C) of this
 // cluster's model; the cluster (G blocks along x, svm_plan's g) owns rows
-// (blockIdx.x / G) * kSvmRows ... + kSvmRows - 1.  `p` may live in the kernel
-// parameters or in shared memory.  Every thread of the cluster must call it.
-template <typename T>
+// (blockIdx.x / G) * R ... + R - 1.  `p` may live in the kernel parameters
+// or in shared memory.  Every thread of the cluster must call it.
+template <typename T, int R>
 __device__ __forceinline__ void svm_cluster_body(
     const T* __restrict__ x, const T* __restrict__ sv,
     const T* __restrict__ dual, const T* __restrict__ icept,
     T* __restrict__ out, int M, int F, int S, int C, int n_chunks, int cap,
     const SvmParams& p) {
   namespace cg = cooperative_groups;
-  constexpr int kRows = kSvmRows, kChunk = kSvmChunk, kStep = kSvmStep;
-  constexpr int kThreads = kSvmThreads, kXP = kSvmXP, kSP = kSvmSP;
-  constexpr int kStageWords = kSvmStageWords;
+  using Tile = SvmTile<R>;
+  constexpr int kRows = R, kChunk = kSvmChunk, kStep = kSvmStep;
+  constexpr int kThreads = Tile::kThreads, kXP = Tile::kXP, kSP = kSvmSP;
+  constexpr int kStageWords = Tile::kStageWords;
+  constexpr int kRowStep = 4 * Tile::kWarps;  // staged rows a lane steps
+  constexpr int kSvR = Tile::kSvRows;
   cg::cluster_group cluster = cg::this_cluster();
   const int G = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -199,7 +221,8 @@ __device__ __forceinline__ void svm_cluster_body(
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   // staging: lane (kl, rl) stages features kl + 8 i of rows rl + 4 warp +
-  // 16 j; a warp's 32 stores hit 32 banks (stride 4 mod 32 per feature)
+  // kRowStep j (kRowStep = 16 at R = 32); a warp's 32 stores hit 32 banks
+  // (stride 4 mod 32 per feature)
   const int kl = lane / 4, rl = lane % 4;
   // compute: 4 rows from rg * 4, 4 vectors from vg * 4
   const int vg = tid % 16, rg = tid / 16;
@@ -208,9 +231,11 @@ __device__ __forceinline__ void svm_cluster_body(
   for (int ch = c_begin; ch < c_end; ++ch) {
     const int j0 = ch * kChunk;
     const bool first = ch == c_begin;
-    int32_t xr[2][4], sr[4][4];
+    int32_t xr[2][4], sr[kSvR][4];
     unsigned long long xsq[2] = {0ull, 0ull};
-    unsigned long long ssq[4] = {0ull, 0ull, 0ull, 0ull};
+    unsigned long long ssq[kSvR];
+#pragma unroll
+    for (int i = 0; i < kSvR; ++i) ssq[i] = 0ull;
     uint32_t acc[4][4];
 #pragma unroll
     for (int t = 0; t < 4; ++t)
@@ -221,7 +246,7 @@ __device__ __forceinline__ void svm_cluster_body(
       const int f0 = step * kStep;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const int row = row0 + rl + 4 * warp + 16 * i;
+        const int row = row0 + rl + 4 * warp + kRowStep * i;
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int f = f0 + kl + 8 * e;
@@ -229,8 +254,8 @@ __device__ __forceinline__ void svm_cluster_body(
         }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int j = j0 + rl + 4 * warp + 16 * i;
+      for (int i = 0; i < kSvR; ++i) {
+        const int j = j0 + rl + 4 * warp + kRowStep * i;
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int f = f0 + kl + 8 * e;
@@ -246,16 +271,16 @@ __device__ __forceinline__ void svm_cluster_body(
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int32_t q = xr[i][e];
-          xb[(kl + 8 * e) * kXP + rl + 4 * warp + 16 * i] = q;
+          xb[(kl + 8 * e) * kXP + rl + 4 * warp + kRowStep * i] = q;
           if (rbf && first)
             xsq[i] += (unsigned long long)((int64_t)q * (int64_t)q);
         }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kSvR; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int32_t q = sr[i][e];
-          sb[(kl + 8 * e) * kSP + rl + 4 * warp + 16 * i] = q;
+          sb[(kl + 8 * e) * kSP + rl + 4 * warp + kRowStep * i] = q;
           if (rbf) ssq[i] += (unsigned long long)((int64_t)q * (int64_t)q);
         }
     };
@@ -312,18 +337,19 @@ __device__ __forceinline__ void svm_cluster_body(
         for (int i = 0; i < 2; ++i)
           xsq[i] += __shfl_xor_sync(0xffffffffu, xsq[i], o);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < kSvR; ++i)
           ssq[i] += __shfl_xor_sync(0xffffffffu, ssq[i], o);
       }
       if (kl == 0) {
         if (first) {
 #pragma unroll
           for (int i = 0; i < 2; ++i)
-            x2[rl + 4 * warp + 16 * i] = sumsq_shift(xsq[i], ek);
+            x2[rl + 4 * warp + kRowStep * i] = sumsq_shift(xsq[i], ek);
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          sv2[j0 - j_begin + rl + 4 * warp + 16 * i] = sumsq_shift(ssq[i], ek);
+        for (int i = 0; i < kSvR; ++i)
+          sv2[j0 - j_begin + rl + 4 * warp + kRowStep * i] =
+              sumsq_shift(ssq[i], ek);
       }
     }
     __syncthreads();
@@ -361,7 +387,8 @@ __device__ __forceinline__ void svm_cluster_body(
   // int32 in shared memory, a thread per (row, class) summing k . dual over
   // the block's vectors into a uint32 partial, then the cluster's partials
   // summed through distributed shared memory.
-  const int round = kStageWords / (cap + kRows);  // classes per round, >= 23
+  // classes per round, >= 23 at R = 32 (svm_plan refuses a round of none)
+  const int round = kStageWords / (cap + kRows);
   int32_t* ds = svm_cluster_smem;                 // [n_local][cc]
   uint32_t* part =
       reinterpret_cast<uint32_t*>(svm_cluster_smem) + cap * round;
@@ -403,18 +430,19 @@ __device__ __forceinline__ void svm_cluster_body(
   }
 }
 
-// Launches `kernel` (a __global__ whose every cluster runs svm_cluster_body)
-// over `models` models: grid (g x ceil(M / kSvmRows), models), clusters of
-// g blocks along x, plan.smem bytes of dynamic shared memory.  Refuses with
-// cudaErrorInvalidConfiguration a cluster the card cannot hold once at that
-// shared memory (cudaOccupancyMaxActiveClusters, queried once and cached).
-template <typename Kernel, typename... Args>
+// Launches `kernel` (a __global__ whose every cluster runs
+// svm_cluster_body<T, R>) over `models` models: grid (g x ceil(M / R),
+// models), clusters of g blocks along x, plan.smem bytes of dynamic shared
+// memory (svm_plan at R rows).  Refuses with cudaErrorInvalidConfiguration
+// a cluster the card cannot hold once at that shared memory
+// (cudaOccupancyMaxActiveClusters, queried once and cached).
+template <int R, typename Kernel, typename... Args>
 cudaError_t svm_cluster_launch(Kernel kernel, const SvmPlan& plan, int M,
                                int models, cudaStream_t stream,
                                Args... args) {
   int clusters = 0;
-  cudaError_t err =
-      launch_slots(kernel, kSvmThreads, plan.smem, &clusters, plan.g);
+  cudaError_t err = launch_slots(kernel, SvmTile<R>::kThreads, plan.smem,
+                                 &clusters, plan.g);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -422,9 +450,8 @@ cudaError_t svm_cluster_launch(Kernel kernel, const SvmPlan& plan, int M,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(plan.g * ((M + kSvmRows - 1) / kSvmRows)),
-                     (unsigned)models);
-  cfg.blockDim = dim3(kSvmThreads);
+  cfg.gridDim = dim3((unsigned)(plan.g * ((M + R - 1) / R)), (unsigned)models);
+  cfg.blockDim = dim3(SvmTile<R>::kThreads);
   cfg.dynamicSmemBytes = (size_t)plan.smem;
   cfg.stream = stream;
   cfg.attrs = attr;

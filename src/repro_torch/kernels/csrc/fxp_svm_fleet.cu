@@ -19,7 +19,9 @@
 // e computes exactly what model e's own fxp_svm_model launch computes, bit
 // for bit.  The kernel kind (poly or rbf) and the container width are
 // shared by the fleet; everything else may differ per model.  Shared memory
-// per block is the single model's.
+// per block is the single model's.  `bm` picks the cluster's rows (16, 32
+// or 64; 0: 32), the block-size tuner's choice, as in fxp_svm_model.cu;
+// every model of the fleet runs it.
 //
 // Bound on the H100: integer multiply-adds on the CUDA cores for the 16- and
 // 32-bit containers, 2 * E * M * (F * S + S * C) operations.  At path D's
@@ -40,8 +42,9 @@ namespace {
 
 constexpr int kMaxModels = 65535;  // gridDim.y
 
-template <typename T>
-__global__ void __launch_bounds__(fxp::kSvmThreads, fxp::kSvmMinBlocks)
+template <typename T, int R>
+__global__ void __launch_bounds__(fxp::SvmTile<R>::kThreads,
+                                  fxp::SvmTile<R>::kMinBlocks)
 fxp_svm_fleet_kernel(const T* __restrict__ x, const T* __restrict__ sv,
                      const T* __restrict__ dual, const T* __restrict__ icept,
                      T* __restrict__ out, int M, int F, int S, int C,
@@ -52,22 +55,42 @@ fxp_svm_fleet_kernel(const T* __restrict__ x, const T* __restrict__ sv,
   if (threadIdx.x == 0)
     p = fxp::svm_params_from(params + e * fxp::kSvmFields, kind);
   __syncthreads();
-  fxp::svm_cluster_body<T>(x + e * M * F, sv + e * S * F, dual + e * S * C,
+  fxp::svm_cluster_body<T, R>(x + e * M * F, sv + e * S * F, dual + e * S * C,
                            icept + e * C, out + e * M * C, M, F, S, C,
                            n_chunks, cap, p);
+}
+
+template <typename T, int R>
+int launch_rows(const void* x, const void* sv, const void* dual,
+                const void* icept, void* out, int M, int F, int S, int C,
+                int E, int kind, const long long* params,
+                cudaStream_t stream) {
+  fxp::SvmPlan plan;
+  if (!fxp::svm_plan(S, &plan, R)) return (int)cudaErrorInvalidValue;
+  return (int)fxp::svm_cluster_launch<R>(
+      fxp_svm_fleet_kernel<T, R>, plan, M, E, stream,
+      static_cast<const T*>(x), static_cast<const T*>(sv),
+      static_cast<const T*>(dual), static_cast<const T*>(icept),
+      static_cast<T*>(out), M, F, S, C, plan.n_chunks, plan.cap, kind,
+      params);
 }
 
 template <typename T>
 int launch(const void* x, const void* sv, const void* dual, const void* icept,
            void* out, int M, int F, int S, int C, int E, int kind,
-           const long long* params, cudaStream_t stream) {
-  fxp::SvmPlan plan;
-  if (!fxp::svm_plan(S, &plan)) return (int)cudaErrorInvalidValue;
-  return (int)fxp::svm_cluster_launch(
-      fxp_svm_fleet_kernel<T>, plan, M, E, stream, static_cast<const T*>(x),
-      static_cast<const T*>(sv), static_cast<const T*>(dual),
-      static_cast<const T*>(icept), static_cast<T*>(out), M, F, S, C,
-      plan.n_chunks, plan.cap, kind, params);
+           const long long* params, int bm, cudaStream_t stream) {
+  switch (bm == 0 ? fxp::kSvmRows : bm) {
+    case 16:
+      return launch_rows<T, 16>(x, sv, dual, icept, out, M, F, S, C, E, kind,
+                                params, stream);
+    case 32:
+      return launch_rows<T, 32>(x, sv, dual, icept, out, M, F, S, C, E, kind,
+                                params, stream);
+    case 64:
+      return launch_rows<T, 64>(x, sv, dual, icept, out, M, F, S, C, E, kind,
+                                params, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -75,14 +98,15 @@ int launch(const void* x, const void* sv, const void* dual, const void* icept,
 // x: (E, M, F), sv: (E, S, F), dual: (E, S, C), icept: (E, C),
 // out: (E, M, C), every tensor contiguous in the `bits`-wide container.
 // `params` is a DEVICE pointer to E rows of fxp::kSvmFields int64 values
-// (fxp::svm_params_from).  kind: 0 poly, 1 rbf.  Launches on the calling
-// thread's current device.  Returns the CUDA error code of the launch (0 on
-// success).
+// (fxp::svm_params_from).  kind: 0 poly, 1 rbf; bm: the cluster's rows (0:
+// today's 32).  Launches on the calling thread's current device.  Returns
+// the CUDA error code of the launch (0 on success).
 extern "C" int fxp_svm_fleet_launch(const void* x, const void* sv,
                                     const void* dual, const void* icept,
                                     void* out, int M, int F, int S, int C,
                                     int E, int bits, int kind,
-                                    const long long* params, void* stream) {
+                                    const long long* params, int bm,
+                                    void* stream) {
   if (M <= 0 || F <= 0 || S <= 0 || C <= 0 || E <= 0 || E > kMaxModels ||
       (kind != fxp::kSvmPoly && kind != fxp::kSvmRbf))
     return (int)cudaErrorInvalidValue;
@@ -90,13 +114,13 @@ extern "C" int fxp_svm_fleet_launch(const void* x, const void* sv,
   switch (bits) {
     case 8:
       return launch<int8_t>(x, sv, dual, icept, out, M, F, S, C, E, kind,
-                            params, s);
+                            params, bm, s);
     case 16:
       return launch<int16_t>(x, sv, dual, icept, out, M, F, S, C, E, kind,
-                             params, s);
+                             params, bm, s);
     case 32:
       return launch<int32_t>(x, sv, dual, icept, out, M, F, S, C, E, kind,
-                             params, s);
+                             params, bm, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

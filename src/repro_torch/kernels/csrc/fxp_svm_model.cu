@@ -10,32 +10,53 @@
 // H100 and what its design does about it are in fxp_svm_body.cuh, which the
 // fleet kernel (fxp_svm_fleet.cu) runs too, so that a fleet slot equals its
 // model's own launch bit for bit.  This file passes the one model's
-// SvmParams by value in the kernel parameters.
+// SvmParams by value in the kernel parameters.  `bm` picks the cluster's
+// rows, 16, 32 or 64 (an instance each; 0: kSvmRows = 32), the block-size
+// tuner's choice (kernels/tune.py); every instance computes the same bits.
 #include "fxp_svm_body.cuh"
 
 namespace {
 
-template <typename T>
-__global__ void __launch_bounds__(fxp::kSvmThreads, fxp::kSvmMinBlocks)
+template <typename T, int R>
+__global__ void __launch_bounds__(fxp::SvmTile<R>::kThreads,
+                                  fxp::SvmTile<R>::kMinBlocks)
 fxp_svm_model_kernel(const T* __restrict__ x, const T* __restrict__ sv,
                      const T* __restrict__ dual, const T* __restrict__ icept,
                      T* __restrict__ out, int M, int F, int S, int C,
                      int n_chunks, int cap, const fxp::SvmParams p) {
-  fxp::svm_cluster_body<T>(x, sv, dual, icept, out, M, F, S, C, n_chunks,
-                           cap, p);
+  fxp::svm_cluster_body<T, R>(x, sv, dual, icept, out, M, F, S, C, n_chunks,
+                              cap, p);
+}
+
+template <typename T, int R>
+int launch_rows(const void* x, const void* sv, const void* dual,
+                const void* icept, void* out, int M, int F, int S, int C,
+                const fxp::SvmParams& p, cudaStream_t stream) {
+  fxp::SvmPlan plan;
+  if (!fxp::svm_plan(S, &plan, R)) return (int)cudaErrorInvalidValue;
+  return (int)fxp::svm_cluster_launch<R>(
+      fxp_svm_model_kernel<T, R>, plan, M, 1, stream,
+      static_cast<const T*>(x), static_cast<const T*>(sv),
+      static_cast<const T*>(dual), static_cast<const T*>(icept),
+      static_cast<T*>(out), M, F, S, C, plan.n_chunks, plan.cap, p);
 }
 
 template <typename T>
 int launch(const void* x, const void* sv, const void* dual, const void* icept,
            void* out, int M, int F, int S, int C, const fxp::SvmParams& p,
-           cudaStream_t stream) {
-  fxp::SvmPlan plan;
-  if (!fxp::svm_plan(S, &plan)) return (int)cudaErrorInvalidValue;
-  return (int)fxp::svm_cluster_launch(
-      fxp_svm_model_kernel<T>, plan, M, 1, stream, static_cast<const T*>(x),
-      static_cast<const T*>(sv), static_cast<const T*>(dual),
-      static_cast<const T*>(icept), static_cast<T*>(out), M, F, S, C,
-      plan.n_chunks, plan.cap, p);
+           int bm, cudaStream_t stream) {
+  switch (bm == 0 ? fxp::kSvmRows : bm) {
+    case 16:
+      return launch_rows<T, 16>(x, sv, dual, icept, out, M, F, S, C, p,
+                                stream);
+    case 32:
+      return launch_rows<T, 32>(x, sv, dual, icept, out, M, F, S, C, p,
+                                stream);
+    case 64:
+      return launch_rows<T, 64>(x, sv, dual, icept, out, M, F, S, C, p,
+                                stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -44,15 +65,16 @@ int launch(const void* x, const void* sv, const void* dual, const void* icept,
 // tensor contiguous in the `bits`-wide container.  `epi_k` and `epi_out`
 // hold fxp::kEpilogueFields int64 values each: the kernel-domain format
 // (shift = its m) and the decision stage (shift = dec_shift, out format).
-// kind: 0 poly, 1 rbf.  Launches on the calling thread's current device.
-// Returns the CUDA error code of the launch (0 on success).
+// kind: 0 poly, 1 rbf; bm: the cluster's rows (0: today's 32).  Launches on
+// the calling thread's current device.  Returns the CUDA error code of the
+// launch (0 on success).
 extern "C" int fxp_svm_model_launch(const void* x, const void* sv,
                                     const void* dual, const void* icept,
                                     void* out, int M, int F, int S, int C,
                                     int bits, const long long* epi_k,
                                     const long long* epi_out, int kind,
                                     int qgamma, int qcoef0, int degree,
-                                    void* stream) {
+                                    int bm, void* stream) {
   if (M <= 0 || F <= 0 || S <= 0 || C <= 0 || degree < 0 ||
       (kind != fxp::kSvmPoly && kind != fxp::kSvmRbf))
     return (int)cudaErrorInvalidValue;
@@ -65,9 +87,12 @@ extern "C" int fxp_svm_model_launch(const void* x, const void* sv,
   p.qcoef0 = qcoef0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bits) {
-    case 8: return launch<int8_t>(x, sv, dual, icept, out, M, F, S, C, p, s);
-    case 16: return launch<int16_t>(x, sv, dual, icept, out, M, F, S, C, p, s);
-    case 32: return launch<int32_t>(x, sv, dual, icept, out, M, F, S, C, p, s);
+    case 8:
+      return launch<int8_t>(x, sv, dual, icept, out, M, F, S, C, p, bm, s);
+    case 16:
+      return launch<int16_t>(x, sv, dual, icept, out, M, F, S, C, p, bm, s);
+    case 32:
+      return launch<int32_t>(x, sv, dual, icept, out, M, F, S, C, p, bm, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

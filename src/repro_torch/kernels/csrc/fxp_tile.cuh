@@ -17,8 +17,11 @@
 // partial that wraps still gives the Pallas kernel's dot bit for bit.
 // Zero padding of K (to the stage) and of N (to the tile) is exact.
 //
-// * Block tile kTileBM x kTileBN (64 x 64): 8 warps, 2 (m) x 4 (n), each a
-//   32 x 16 warp tile (two m16 tiles by one even and one odd n8 tile).
+// * Block tile BM x kTileBN, BM 32, 64 (kTileBM, the default) or 128, a
+//   template parameter that the block-size tuner chooses between
+//   (kernels/tune.py): 8 warps, 2 (m) x 4 (n), each a BM / 2 x 16 warp tile
+//   (BM / 32 m16 tiles by one even and one odd n8 tile).  Every height
+//   computes the same bits: each output's dot is the same sum mod 2^32.
 // * K walks in stages of kTileRowBytes (128) bytes of each A row: 128 k at
 //   8 bits, 64 at 16, 32 at 32.  A stage's rows are copied by 16-byte
 //   cp.async from the 16-byte boundary at or below each row's start (K =
@@ -58,7 +61,9 @@
 
 namespace fxp {
 
-constexpr int kTileBM = 64, kTileBN = 64;  // the block's output tile
+// the block's output tile: kTileBM rows unless the tuner picks another
+// height of TileLayout (32, 64 or 128)
+constexpr int kTileBM = 64, kTileBN = 64;
 constexpr int kTileThreads = 256;          // 8 warps: 2 (m) x 4 (n)
 constexpr int kTileRowBytes = 128;         // bytes of an A row per stage
 constexpr int kTileStages = 3;             // the raw cp.async ring
@@ -71,16 +76,22 @@ FXP_HOST_DEVICE constexpr int tile_odd16(int bytes) {
                                  : (bytes + 15) / 16 * 16 + 16;
 }
 
-// Where one block keeps what, for a container of P bytes (byte offsets).
-template <int P>
+// Where one block keeps what, for a container of P bytes and a tile of BM
+// rows (byte offsets).
+template <int P, int BM = kTileBM>
 struct TileLayout {
+  static_assert(BM == 32 || BM == 64 || BM == 128, "tile heights 32, 64, 128");
+  static constexpr int kMT = BM / 32;                  // m16 tiles a warp
+  // A rows a thread copies and unpacks a stage: 4 threads a row, 64 rows a
+  // pass of the block (at BM 32 the threads of rows 32..63 copy no A)
+  static constexpr int kARows = BM > 64 ? BM / 64 : 1;
   static constexpr int kBK = kTileRowBytes / P;        // k per stage
   static constexpr int kARaw = kTileRowBytes + 16;     // a raw A row
   static constexpr int kBRaw = kTileBN * P + 16;       // a raw B row
-  static constexpr int kRawBytes = kTileBM * kARaw + kBK * kBRaw;
+  static constexpr int kRawBytes = BM * kARaw + kBK * kBRaw;
   static constexpr int kAS = tile_odd16(kBK);          // an A plane row
   static constexpr int kBS = tile_odd16(kTileBN);      // a B plane row
-  static constexpr int kAPlane = kTileBM * kAS;
+  static constexpr int kAPlane = BM * kAS;
   static constexpr int kBPlane = kBK * kBS;
   static constexpr int kBufBytes = P * (kAPlane + kBPlane);
   static constexpr int kRawOff = 2 * kBufBytes;        // after two buffers
@@ -88,25 +99,30 @@ struct TileLayout {
   // the shifts 8 (i + j) of the plane pairs that survive mod 2^32: 1 at 8
   // bits, 3 at 16, 4 at 32 (one s32 accumulator each)
   static constexpr int kShifts = 2 * P - 1 < 4 ? 2 * P - 1 : 4;
+  // blocks an SM must hold (__launch_bounds__): two, but one at BM 128,
+  // whose accumulators (up to 4 x 4 x 2 x 4 registers at 32 bits) and
+  // shared memory (140-148 KB) leave room for one
+  static constexpr int kMinBlocks = BM > 64 ? 1 : 2;
   static_assert(kBK % 32 == 0, "whole k32 steps per stage");
   static_assert(kRawBytes % 16 == 0 && kBufBytes % 16 == 0, "alignment");
-  static_assert(kTileBM * kTileScrStride * 4 <= kBufBytes,
-                "the epilogue's scratch fits tile buffer 0");
+  static_assert(BM * kTileScrStride * 4 <= 2 * kBufBytes,
+                "the epilogue's scratch fits the two tile buffers");
 };
 
-// The blocks of a launch: one a kTileBM x kTileBN output tile.
-FXP_HOST_DEVICE long long tile_blocks(int M, int N) {
-  return (long long)((M + kTileBM - 1) / kTileBM) *
-         ((N + kTileBN - 1) / kTileBN);
+// The blocks of a launch: one a bm x kTileBN output tile.
+FXP_HOST_DEVICE long long tile_blocks(int M, int N, int bm = kTileBM) {
+  return (long long)((M + bm - 1) / bm) * ((N + kTileBN - 1) / kTileBN);
 }
 
 #if defined(__CUDACC__)
 
-// What one thread copies and unpacks at every stage: one row of A (threads
-// 4r .. 4r+3 share row r) and one row of B (2P threads a row).  A row's
-// 16-byte floor moves by whole granules from stage to stage (kTileRowBytes
-// bytes of A; kBK rows of N P bytes, 128 N, of B), so each row's
-// misalignment within its first granule stays put and is computed once.
+// What one thread copies and unpacks at every stage: rows r, r + 64, ...
+// of A below the tile's height (threads 4r .. 4r+3 share row r) and one row
+// of B (2P threads a row).  A row's 16-byte floor moves by whole granules
+// from stage to stage (kTileRowBytes bytes of A; kBK rows of N P bytes, 128
+// N, of B), so each row's misalignment within its first granule stays put
+// and is computed once; rows 64 apart start 64 K P bytes apart, a multiple
+// of 16, so they share it.
 template <int P>
 struct TileCursor {
   static constexpr int kBT = kTileThreads / TileLayout<P>::kBK;  // a B row
@@ -117,6 +133,7 @@ struct TileCursor {
   const unsigned char* a_floor;  // a valid address for empty copies
   const unsigned char* b_floor;
   size_t b_step;  // bytes the B rows move a stage
+  size_t a_pass;  // bytes between A rows 64 apart
   int a_row, a_lane, a_mis;
   int b_row, b_lane, b_mis;
   int K;
@@ -144,6 +161,7 @@ struct TileCursor {
     b_floor = reinterpret_cast<const unsigned char*>(
         reinterpret_cast<uintptr_t>(b) & ~(uintptr_t)15);
     b_step = (size_t)TileLayout<P>::kBK * N * P;
+    a_pass = (size_t)64 * K * P;
   }
 };
 
@@ -155,25 +173,31 @@ __device__ __forceinline__ int tile_bytes(const unsigned char* src,
 }
 
 // Starts the copy of stage s (k from s * kBK) into the raw buffer `raw`: A
-// rows row0.., kTileRowBytes + 16 bytes each, and B rows k, kTileBN * P + 16
-// bytes from column col0 each, as whole 16-byte granules from the boundary
-// at or below each row's start, the bytes past each operand's end (and B's
-// rows k >= K) zero-filled and not read.
-template <int P>
+// rows row0 .. row0 + BM - 1, kTileRowBytes + 16 bytes each, and B rows k,
+// kTileBN * P + 16 bytes from column col0 each, as whole 16-byte granules
+// from the boundary at or below each row's start, the bytes past each
+// operand's end (and B's rows k >= K) zero-filled and not read.
+template <int P, int BM>
 __device__ __forceinline__ void tile_issue(unsigned char* raw,
                                            const TileCursor<P>& c, int s) {
-  using L = TileLayout<P>;
+  using L = TileLayout<P, BM>;
   constexpr int kAG = kTileRowBytes / 16 + 1, kBG = kTileBN * P / 16 + 1;
-  const unsigned char* a = c.a_src + (size_t)s * kTileRowBytes;
-  unsigned char* ar = raw + c.a_row * L::kARaw;
 #pragma unroll
-  for (int g = c.a_lane; g < kAG; g += 4) {
-    const int n = tile_bytes(a + 16 * g, c.a_end);
-    cp_async16(smem_u32(ar + 16 * g), n ? a + 16 * g : c.a_floor, n);
+  for (int rr = 0; rr < L::kARows; ++rr) {
+    const int row = c.a_row + 64 * rr;
+    if (row >= BM) break;
+    const unsigned char* a =
+        c.a_src + rr * c.a_pass + (size_t)s * kTileRowBytes;
+    unsigned char* ar = raw + row * L::kARaw;
+#pragma unroll
+    for (int g = c.a_lane; g < kAG; g += 4) {
+      const int n = tile_bytes(a + 16 * g, c.a_end);
+      cp_async16(smem_u32(ar + 16 * g), n ? a + 16 * g : c.a_floor, n);
+    }
   }
   const bool in_k = s * L::kBK + c.b_row < c.K;
   const unsigned char* b = c.b_src + s * c.b_step;
-  unsigned char* br = raw + kTileBM * L::kARaw + c.b_row * L::kBRaw;
+  unsigned char* br = raw + BM * L::kARaw + c.b_row * L::kBRaw;
 #pragma unroll
   for (int g = c.b_lane; g < kBG; g += TileCursor<P>::kBT) {
     const int n = in_k ? tile_bytes(b + 16 * g, c.b_end) : 0;
@@ -228,20 +252,25 @@ __device__ __forceinline__ int tile_b_row(int k) {
   return (k & ~15) | (((k >> 1) & 1) << 3) | (((k >> 2) & 3) << 1) | (k & 1);
 }
 
-// The raw stage into the byte planes of one tile buffer: this thread's A row
-// and B row, from their misalignments on.
-template <int P>
+// The raw stage into the byte planes of one tile buffer: this thread's A
+// rows and B row, from their misalignments on.
+template <int P, int BM>
 __device__ __forceinline__ void tile_unpack(unsigned char* buf,
                                             const unsigned char* raw,
                                             const TileCursor<P>& c) {
-  using L = TileLayout<P>;
+  using L = TileLayout<P, BM>;
   constexpr int kAC = kTileRowBytes / 16, kBC = kTileBN * P / 16;
-  const unsigned char* ar = raw + c.a_row * L::kARaw;
 #pragma unroll
-  for (int i = c.a_lane; i < kAC; i += 4)
-    tile_split<P>(buf + c.a_row * L::kAS + i * (16 / P), L::kAPlane,
-                  tile_realign(ar, c.a_mis + 16 * i));
-  const unsigned char* br = raw + kTileBM * L::kARaw + c.b_row * L::kBRaw;
+  for (int rr = 0; rr < L::kARows; ++rr) {
+    const int row = c.a_row + 64 * rr;
+    if (row >= BM) break;
+    const unsigned char* ar = raw + row * L::kARaw;
+#pragma unroll
+    for (int i = c.a_lane; i < kAC; i += 4)
+      tile_split<P>(buf + row * L::kAS + i * (16 / P), L::kAPlane,
+                    tile_realign(ar, c.a_mis + 16 * i));
+  }
+  const unsigned char* br = raw + BM * L::kARaw + c.b_row * L::kBRaw;
   unsigned char* bb = buf + P * L::kAPlane + tile_b_row(c.b_row) * L::kBS;
 #pragma unroll
   for (int i = c.b_lane; i < kBC; i += TileCursor<P>::kBT)
@@ -266,13 +295,18 @@ __device__ __forceinline__ void tile_mma_planes(uint32_t (&c)[4],
   }
 }
 
-// One k32 step of a warp's 32 x 16 tile: acc[i + j][mt][nt] += A_i . B_j
-// for each m16 tile mt and n8 tile nt (even, odd columns).
-template <int P>
-__device__ __forceinline__ void tile_k32(
-    uint32_t (&acc)[TileLayout<P>::kShifts][2][2][4], const unsigned char* buf,
-    int wm, int wn, int ks, int lane) {
-  using L = TileLayout<P>;
+// A warp's accumulators: [shift][m16 tile][n8 tile][fragment register].
+template <int P, int BM>
+using TileAcc =
+    uint32_t[TileLayout<P, BM>::kShifts][TileLayout<P, BM>::kMT][2][4];
+
+// One k32 step of a warp's BM / 2 x 16 tile: acc[i + j][mt][nt] += A_i .
+// B_j for each m16 tile mt and n8 tile nt (even, odd columns).
+template <int P, int BM>
+__device__ __forceinline__ void tile_k32(TileAcc<P, BM>& acc,
+                                         const unsigned char* buf, int wm,
+                                         int wn, int ks, int lane) {
+  using L = TileLayout<P, BM>;
   const unsigned char* abuf = buf;
   const unsigned char* bbuf = buf + P * L::kAPlane;
   // B: lanes 8q .. 8q+7 address the rows of matrix q, which hold (see
@@ -292,12 +326,12 @@ __device__ __forceinline__ void tile_k32(
     bo[j][1] = __byte_perm(t[2], t[3], 0x7531);
   }
   // A: lanes 8q .. 8q+7 address rows (lane & 7) + 8 (q & 1) at byte 16 (q >> 1)
-  const int arow = wm * 32 + (lane & 7) + 8 * (q & 1);
+  const int arow = wm * (BM / 2) + (lane & 7) + 8 * (q & 1);
 #pragma unroll
   for (int i = 0; i < P; ++i) {
-    uint32_t fa[2][4];
+    uint32_t fa[L::kMT][4];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < L::kMT; ++mt)
       ldsm_x4(abuf + i * L::kAPlane + (arow + 16 * mt) * L::kAS + ks * 32 +
                   16 * (q >> 1),
               fa[mt]);
@@ -305,7 +339,7 @@ __device__ __forceinline__ void tile_k32(
     for (int j = 0; j < P; ++j) {
       if (i + j > 3) continue;
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
+      for (int mt = 0; mt < L::kMT; ++mt) {
         tile_mma_planes(acc[i + j][mt][0], fa[mt], be[j], i == P - 1,
                         j == P - 1);
         tile_mma_planes(acc[i + j][mt][1], fa[mt], bo[j], i == P - 1,
@@ -315,18 +349,18 @@ __device__ __forceinline__ void tile_k32(
   }
 }
 
-// C = A @ B for the output tile (row0, col0) of this block, then epi(row,
-// col, dot) for every output in range, dot the int32 dot as uint32.  T is
-// the container (int8_t, int16_t, int32_t); dynamic shared memory of
-// TileLayout<sizeof(T)>::kSmem bytes.  Every thread of the block must call
-// it (it synchronizes).
-template <typename T, typename Epi>
+// C = A @ B for the BM x kTileBN output tile (row0, col0) of this block,
+// then epi(row, col, dot) for every output in range, dot the int32 dot as
+// uint32.  T is the container (int8_t, int16_t, int32_t); dynamic shared
+// memory of TileLayout<sizeof(T), BM>::kSmem bytes.  Every thread of the
+// block must call it (it synchronizes).
+template <typename T, int BM, typename Epi>
 __device__ __forceinline__ void tile_mma(const T* __restrict__ a,
                                          const T* __restrict__ b, int M,
                                          int K, int N, int row0, int col0,
                                          const Epi& epi) {
   constexpr int P = (int)sizeof(T);
-  using L = TileLayout<P>;
+  using L = TileLayout<P, BM>;
   extern __shared__ __align__(16) unsigned char tile_smem[];
   const unsigned char* ab = reinterpret_cast<const unsigned char*>(a);
   const unsigned char* bb = reinterpret_cast<const unsigned char*>(b);
@@ -336,43 +370,44 @@ __device__ __forceinline__ void tile_mma(const T* __restrict__ a,
   const int stages = (K + L::kBK - 1) / L::kBK;
 
   const TileCursor<P> cur(ab, bb, M, K, N, row0, col0);
-  uint32_t acc[L::kShifts][2][2][4] = {};
+  TileAcc<P, BM> acc = {};
 #pragma unroll
   for (int s = 0; s < kTileStages; ++s) {
-    if (s < stages) tile_issue<P>(raw + s * L::kRawBytes, cur, s);
+    if (s < stages) tile_issue<P, BM>(raw + s * L::kRawBytes, cur, s);
     cp_async_commit();
   }
   cp_async_wait<kTileStages - 1>();
   __syncthreads();  // stage 0 has landed
-  tile_unpack<P>(tile_smem, raw, cur);
+  tile_unpack<P, BM>(tile_smem, raw, cur);
   for (int s = 0; s < stages; ++s) {
     cp_async_wait<kTileStages - 2>();
     // stage s is unpacked and stage s + 1 has landed; stage s - 1's MMAs
     // and unpack are done, so its tile buffer and raw buffer are free
     __syncthreads();
     if (s + 1 < stages)
-      tile_unpack<P>(tile_smem + ((s + 1) & 1) * L::kBufBytes,
+      tile_unpack<P, BM>(tile_smem + ((s + 1) & 1) * L::kBufBytes,
                      raw + ((s + 1) % kTileStages) * L::kRawBytes, cur);
     if (s + kTileStages < stages)
-      tile_issue<P>(raw + (s % kTileStages) * L::kRawBytes, cur,
+      tile_issue<P, BM>(raw + (s % kTileStages) * L::kRawBytes, cur,
                     s + kTileStages);
     cp_async_commit();
     // k32 steps that hold some k < K (warp-uniform)
     const int left = K - s * L::kBK;
     const int ksteps = left >= L::kBK ? L::kBK / 32 : (left + 31) / 32;
     const unsigned char* buf = tile_smem + (s & 1) * L::kBufBytes;
-    for (int ks = 0; ks < ksteps; ++ks) tile_k32<P>(acc, buf, wm, wn, ks, lane);
+    for (int ks = 0; ks < ksteps; ++ks)
+      tile_k32<P, BM>(acc, buf, wm, wn, ks, lane);
   }
 
-  // The dots meet in a kTileBM x kTileBN scratch over tile buffer 0, so
-  // that the epilogue walks the outputs row-major and its stores coalesce.
+  // The dots meet in a BM x kTileBN scratch over the tile buffers, so that
+  // the epilogue walks the outputs row-major and its stores coalesce.
   // C fragment of n8 tile nt: rows lane/4 and +8, MMA columns 2 (lane % 4)
   // and +1, which are the tile's columns 2 (2 (lane % 4) + (i & 1)) + nt.
   cp_async_wait<0>();
   __syncthreads();  // every warp is done with the tile buffers
   uint32_t* scr = reinterpret_cast<uint32_t*>(tile_smem);
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
+  for (int mt = 0; mt < L::kMT; ++mt) {
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {
 #pragma unroll
@@ -381,15 +416,15 @@ __device__ __forceinline__ void tile_mma(const T* __restrict__ a,
 #pragma unroll
         for (int sh = 0; sh < L::kShifts; ++sh)
           v += acc[sh][mt][nt][i] << (8 * sh);
-        const int r = wm * 32 + mt * 16 + (lane >> 2) + 8 * (i >> 1);
+        const int r = wm * (BM / 2) + mt * 16 + (lane >> 2) + 8 * (i >> 1);
         const int c = wn * 16 + 4 * (lane & 3) + 2 * (i & 1) + nt;
         scr[r * kTileScrStride + c] = v;
       }
     }
   }
   __syncthreads();
-  const int rows = min(kTileBM, M - row0), cols = min(kTileBN, N - col0);
-  for (int i = threadIdx.x; i < kTileBM * kTileBN; i += kTileThreads) {
+  const int rows = min(BM, M - row0), cols = min(kTileBN, N - col0);
+  for (int i = threadIdx.x; i < BM * kTileBN; i += kTileThreads) {
     const int r = i / kTileBN, c = i - r * kTileBN;
     if (r < rows && c < cols) epi(row0 + r, col0 + c, scr[r * kTileScrStride + c]);
   }
@@ -398,19 +433,20 @@ __device__ __forceinline__ void tile_mma(const T* __restrict__ a,
 // The (row, column) tile of this block: column tiles run fastest, so the
 // blocks that share a panel of A run together and A is read from device
 // memory once even where it exceeds the L2 cache.
+template <int BM>
 __device__ __forceinline__ void tile_origin(int N, int* row0, int* col0) {
   const int n_tiles = (N + kTileBN - 1) / kTileBN;
   const int block = (int)blockIdx.x;
-  *row0 = block / n_tiles * kTileBM;
+  *row0 = block / n_tiles * BM;
   *col0 = block % n_tiles * kTileBN;
 }
 
 // The shared memory of a kernel instance: raised once per device and
 // instance above the 48 KB default (launch_slots caches the query).
-template <typename T, typename Kernel>
+template <typename T, int BM, typename Kernel>
 cudaError_t tile_prepare(Kernel kernel) {
   int slots = 0;
-  return launch_slots(kernel, kTileThreads, TileLayout<sizeof(T)>::kSmem,
+  return launch_slots(kernel, kTileThreads, TileLayout<sizeof(T), BM>::kSmem,
                       &slots);
 }
 

@@ -15,8 +15,11 @@ Two versions of the same function live here:
   TPU's sequential K grid axis turned into a cp.async ring of stages).
   Both wrap the int32
   accumulator at 32 bits and run the shared integer epilogue
-  (``csrc/fxp_common.cuh``).  It counts its launches in
-  ``fxp_layer_cuda.launches``.
+  (``csrc/fxp_common.cuh``).  ``blocks`` carries the block-size tuner's
+  choice (:mod:`.tune`): the tile's rows (32, 64 or 128) on the wide route,
+  the persistent grid on the narrow one (:func:`narrow_grid` is today's
+  rule, :func:`narrow_occupancy` what the card holds).  It counts its
+  launches in ``fxp_layer_cuda.launches``.
 * :func:`fxp_layer_plain` computes the same thing in PyTorch ops — an exact
   integer product wrapped to int32 (:func:`repro_torch.core.fixedpoint.imatmul`)
   and the epilogue from :mod:`repro_torch.core` — on any device.  It is the
@@ -43,8 +46,8 @@ from repro_torch.core.fixedpoint import FxpFormat
 from . import build
 
 __all__ = ["fxp_layer_plain", "fxp_layer_cuda", "epilogue_params",
-           "epilogue_plain", "narrow_plan", "NARROW_SMEM",
-           "LAYER_ACTIVATIONS", "REPLACES"]
+           "epilogue_plain", "narrow_plan", "narrow_grid", "narrow_occupancy",
+           "NARROW_SMEM", "NARROW_K_CHUNK", "LAYER_ACTIVATIONS", "REPLACES"]
 
 # "none" = linear output layer (logits); the rest are Qn.m sigmoid variants.
 LAYER_ACTIVATIONS = ("none", "exact", "rational", "pwl2", "pwl4")
@@ -59,6 +62,7 @@ EPILOGUE_FIELDS = 21
 _NARROW_BUCKETS = (1, 2, 4, 6, 8, 10, 16, 32)
 NARROW_K_CHUNK = 128
 NARROW_SMEM = 98_304
+NARROW_WARPS = 8  # kNarrowWarps: each warp owns a row group at a time
 
 
 def narrow_plan(k: int, n: int) -> Optional[Tuple[int, int, int, int, int]]:
@@ -77,6 +81,47 @@ def narrow_plan(k: int, n: int) -> Optional[Tuple[int, int, int, int, int]]:
     if smem > NARROW_SMEM:
         return None
     return nb, (4 if nb <= 10 else 32 // nb), stride, k_pad, smem
+
+
+def narrow_grid(groups: int, sms: int, slots: int) -> int:
+    """The narrow route's persistent blocks for ``groups`` row groups when no
+    grid is chosen, as ``narrow_blocks`` in ``csrc/fxp_layer_narrow.cuh``
+    computes it: a block for every 8 groups, at least one an SM while the
+    groups last, at most ``slots`` (the blocks the card holds at once)."""
+    b = -(-int(groups) // NARROW_WARPS)
+    b = max(b, min(int(groups), int(sms)))
+    return min(b, int(slots))
+
+
+def _occupancy_lib():
+    fn = build.load("fxp_layer").fxp_layer_narrow_occupancy
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=256)
+def _narrow_occupancy(k: int, n: int, bits: int, index: int):
+    sms, slots = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = _occupancy_lib()(k, n, bits, ctypes.byref(sms),
+                               ctypes.byref(slots))
+    if err != 0:
+        raise RuntimeError(f"fxp_layer narrow occupancy query failed: CUDA "
+                           f"error {err}")
+    return sms.value, slots.value
+
+
+def narrow_occupancy(k: int, n: int, bits: int,
+                     device: torch.device) -> Tuple[int, int]:
+    """(SMs, blocks of the narrow instance the card holds at once) for a
+    K x N layer of the narrow route on the CUDA ``device``: what the
+    tuner's grid candidates are made of (cached per device and shape)."""
+    device = torch.device(device)
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return _narrow_occupancy(int(k), int(n), int(bits), index)
 
 
 @functools.lru_cache(maxsize=256)
@@ -139,16 +184,23 @@ def _lib():
     fn = lib.fxp_layer_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p, ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def fxp_layer_cuda(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor,
                    fmt: FxpFormat, activation: str = "none",
-                   shift: Optional[int] = None) -> torch.Tensor:
+                   shift: Optional[int] = None,
+                   blocks: Optional[Tuple[int, int, int]] = None,
+                   count: bool = True) -> torch.Tensor:
     """Launch the CUDA kernel: a (M, K), b (K, N), bias (N,) in
-    ``fmt.dtype`` on one CUDA device -> (M, N) in ``fmt.dtype``."""
+    ``fmt.dtype`` on one CUDA device -> (M, N) in ``fmt.dtype``.
+
+    ``blocks`` is a blocking of :mod:`.tune` (``(bm, 64, 128 // P)`` on the
+    wide route, ``(rows a group, grid, 128)`` on the narrow one; None:
+    today's).  ``count=False`` leaves ``fxp_layer_cuda.launches`` alone (a
+    tuner's sweep counts its own launches)."""
     if a.device.type != "cuda":
         raise ValueError(f"fxp_layer_cuda needs CUDA tensors, got {a.device}")
     shift = fmt.frac_bits if shift is None else shift
@@ -166,14 +218,19 @@ def fxp_layer_cuda(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor,
         return out
     if k == 0:
         raise ValueError("fxp_layer needs K >= 1")
+    # the wide route's tile rows or the narrow route's grid; 0 today's
+    block = 0
+    if blocks is not None:
+        block = blocks[1] if narrow_plan(k, n) is not None else blocks[0]
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _lib()(a.data_ptr(), b.data_ptr(), bias.data_ptr(),
                      out.data_ptr(), m, k, n, fmt.total_bits, epi.ctypes.data,
-                     stream)
+                     int(block), stream)
     if err != 0:
         raise RuntimeError(f"fxp_layer kernel launch failed: CUDA error {err}")
-    fxp_layer_cuda.launches += 1
+    if count:
+        fxp_layer_cuda.launches += 1
     return out
 
 

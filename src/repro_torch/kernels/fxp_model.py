@@ -12,11 +12,15 @@ models in one launch.
   containers run on the int8 tensor cores (``mma.sync`` m16n8k32; a 16-bit
   operand splits into a signed high and an unsigned low byte, and four
   int8 products recombine exactly mod 2^32) in persistent blocks that stage
-  the weights once and walk 16-row tiles; the 32-bit container runs on the
-  CUDA cores, one block per ``MODEL_BLOCK_M`` rows.  It counts its launches
-  in ``fxp_mlp_model_cuda.launches``.
+  the weights once and walk 16-row tiles, up to three warp groups a block;
+  the 32-bit container runs on the CUDA cores, one block per 16, 32 or 64
+  rows.  ``bm`` picks the block (the tuner's choice, :mod:`.tune`: 16 x the
+  warp groups at 8 and 16 bits, the rows at 32; None today's: as many
+  groups as fit, ``MODEL_BLOCK_M`` rows).  It counts its launches in
+  ``fxp_mlp_model_cuda.launches``.
 * :func:`fxp_svm_model_cuda` launches ``csrc/fxp_svm_model.cu``: a thread
-  block cluster per ``MODEL_BLOCK_M`` batch rows, its blocks splitting the
+  block cluster per ``bm`` batch rows (16, 32 or 64, the tuner's choice;
+  ``MODEL_BLOCK_M`` by default), its blocks splitting the
   support vectors in chunks of 64.  Each block computes x . sv^T for its
   vectors with 4x4 register micro-tiles, the poly or rbf algebra into a
   tile of kernel values in shared memory, and a uint32 partial of
@@ -32,7 +36,10 @@ models in one launch.
   model's slices, so slot e equals model e's own launch bit for bit.  Each model's
   schedule or SVM parameters are a row of a small int64 table in device
   memory (:func:`mlp_fleet_table`, :func:`svm_fleet_table`, built once per
-  fleet and device and cached), so per-model schedules cost nothing.
+  fleet and device and cached), so per-model schedules cost nothing.  They
+  take ``bm`` as their single-model kernels do.
+* Every launcher takes ``count=False`` for a tuner's sweep launch, which
+  leaves its ``launches`` alone (the sweep counts its own).
 * :func:`fxp_mlp_model_plain`, :func:`fxp_svm_model_plain` and the fleet
   ``*_plain`` functions are the same functions in PyTorch ops.
 
@@ -41,8 +48,11 @@ that replace ``mlp_fits_vmem`` and ``svm_fits_vmem``: each counts what the
 first version of its kernel kept in shared memory (the MLP's two activation
 buffers; the SVM's kernel-value tile, squared norms and operand tiles)
 against one block's 227 KB, and the redesigned kernels take every model
-those counts admit.  ``REPRO_MEGAKERNEL_VMEM`` overrides the budget under the reference
+those counts admit, at their ``bm`` of ``MODEL_BLOCK_M`` whatever block the
+tuner picks.  ``REPRO_MEGAKERNEL_VMEM`` overrides the budget under the reference
 package's name; ``0`` forces the per-layer route in both packages.
+:func:`mlp_mma_smem_bytes` mirrors the tensor-core body's own layout
+(``mlp_plan``), from which the tuner reads how many warp groups fit.
 :func:`mlp_fleet_fits_smem` and :func:`svm_fleet_fits_smem` replace the
 fleet predicates: one block runs one model, so a fleet fits whenever one of
 its models does, whatever E.
@@ -53,7 +63,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -69,7 +79,7 @@ from .tune import MODEL_BLOCK_M, SMEM_PER_BLOCK
 
 __all__ = ["fxp_mlp_model_plain", "fxp_mlp_model_cuda", "LayerSchedule",
            "LAYER_ACTIVATIONS", "MAX_LAYERS", "smem_budget", "mlp_smem_bytes",
-           "mlp_fits_smem", "REPLACES", "SVM_KERNELS", "fxp_svm_model_plain",
+           "mlp_mma_smem_bytes", "mlp_fits_smem", "REPLACES", "SVM_KERNELS", "fxp_svm_model_plain",
            "fxp_svm_model_cuda", "svm_smem_bytes", "svm_fits_smem",
            "SVM_REPLACES", "FleetSchedules", "SvmFleetParams", "MAX_MODELS",
            "mlp_fleet_fits_smem", "mlp_fleet_table", "fxp_mlp_fleet_plain",
@@ -107,6 +117,45 @@ def mlp_smem_bytes(widths: Sequence[int], bits: int,
     16-row tiles, the weights staged or streamed) and fits every model this
     count admits."""
     return 2 * bm * max(int(w) for w in widths) * (int(bits) // 8)
+
+
+# csrc/fxp_mlp_body.cuh: sizeof(fxp::Epilogue), a tile's rows and a
+# chunk's columns
+_EPILOGUE_BYTES, _MMA_BM, _MMA_NC = 136, 16, 64
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-int(v) // m) * m
+
+
+def _odd16(row_bytes: int) -> int:
+    s = _round_up(row_bytes, 16)
+    return s if (s // 16) & 1 else s + 16
+
+
+def mlp_mma_smem_bytes(widths: Sequence[int], bits: int, groups: int) -> int:
+    """Shared memory of the 8- and 16-bit tensor-core body's layout with
+    every layer's weights resident and ``groups`` warp groups a block, as
+    ``mlp_plan`` in ``csrc/fxp_mlp_body.cuh`` lays it out: the epilogues,
+    the weights, and per group the two activation buffers (byte planes),
+    the raw input tile, the partial-sum scratch and the bias chunk.  The
+    plan runs the most groups (up to 3) whose count fits one block, else
+    one group streaming the weights."""
+    nb = int(bits) // 8
+    dims = [int(w) for w in widths]
+    wide = [1, 1]  # the widest input of even and of odd layers
+    resident = 0
+    for l, (k, n) in enumerate(zip(dims, dims[1:])):
+        wide[l & 1] = max(wide[l & 1], k)
+        rows = _round_up(k, 32) if nb == 2 else _round_up(n, 8)
+        stride = (_odd16(_round_up(n, 8) * 2) if nb == 2
+                  else _odd16(_round_up(k, 32)))
+        resident += rows * stride
+    group = sum(nb * _MMA_BM * _odd16(_round_up(w, 32)) for w in wide)
+    group += _round_up(_MMA_BM * dims[0] * nb + 15 + 32 * nb + 8, 16)
+    group += _MMA_BM * _MMA_NC * 4 + _MMA_NC * 4
+    w_base = _round_up(MAX_LAYERS * _EPILOGUE_BYTES, 16)
+    return w_base + resident + int(groups) * group
 
 
 def mlp_fits_smem(widths: Sequence[int], bits: int,
@@ -158,16 +207,18 @@ def _lib():
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def fxp_mlp_model_cuda(x: torch.Tensor, weights, biases,
-                       schedule: LayerSchedule) -> torch.Tensor:
+                       schedule: LayerSchedule, bm: Optional[int] = None,
+                       count: bool = True) -> torch.Tensor:
     """Launch the CUDA megakernel.  x (M, K0); weights[i] (K_i, K_{i+1});
     biases[i] (K_{i+1},); every tensor on one CUDA device in one container
-    width (the schedule's); returns (M, K_L) in that container."""
+    width (the schedule's); returns (M, K_L) in that container.  ``bm``: the
+    block (None: today's); a block the kernel does not have raises."""
     if x.device.type != "cuda":
         raise ValueError(f"fxp_mlp_model_cuda needs CUDA tensors, got {x.device}")
     _check_schedule(weights, biases, schedule)
@@ -204,11 +255,12 @@ def fxp_mlp_model_cuda(x: torch.Tensor, weights, biases,
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _lib()(x.data_ptr(), out.data_ptr(), m, n, c_dims, c_ws, c_bs,
-                     epis.ctypes.data, bits, stream)
+                     epis.ctypes.data, bits, int(bm or 0), stream)
     if err != 0:
         raise RuntimeError(f"fxp_mlp_model kernel launch failed: CUDA error "
                            f"{err}")
-    fxp_mlp_model_cuda.launches += 1
+    if count:
+        fxp_mlp_model_cuda.launches += 1
     return out
 
 
@@ -270,7 +322,7 @@ def _svm_lib():
     fn = build.load("fxp_svm_model").fxp_svm_model_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -279,10 +331,12 @@ def _svm_lib():
 def fxp_svm_model_cuda(qx: torch.Tensor, sv: torch.Tensor, dual: torch.Tensor,
                        icept: torch.Tensor, kind: str, fmt: FxpFormat,
                        out_fmt: FxpFormat, qgamma: int, qcoef0: int,
-                       degree: int, dec_shift: int) -> torch.Tensor:
+                       degree: int, dec_shift: int, bm: Optional[int] = None,
+                       count: bool = True) -> torch.Tensor:
     """Launch the CUDA megakernel.  qx (M, F), sv (S, F), dual (S, C),
     icept (C,), all in one container width on one CUDA device; returns
-    (M, C) in ``out_fmt``'s container."""
+    (M, C) in ``out_fmt``'s container.  ``bm``: the cluster's rows (None:
+    today's)."""
     if qx.device.type != "cuda":
         raise ValueError(f"fxp_svm_model_cuda needs CUDA tensors, got "
                          f"{qx.device}")
@@ -315,11 +369,12 @@ def fxp_svm_model_cuda(qx: torch.Tensor, sv: torch.Tensor, dual: torch.Tensor,
                          icept.data_ptr(), out.data_ptr(), m, f, s, c,
                          fmt.total_bits, epi_k.ctypes.data, epi_out.ctypes.data,
                          SVM_KERNELS.index(kind), int(qgamma), int(qcoef0),
-                         int(degree), stream)
+                         int(degree), int(bm or 0), stream)
     if err != 0:
         raise RuntimeError(f"fxp_svm_model kernel launch failed: CUDA error "
                            f"{err}")
-    fxp_svm_model_cuda.launches += 1
+    if count:
+        fxp_svm_model_cuda.launches += 1
     return out
 
 
@@ -415,17 +470,19 @@ def _mlp_fleet_lib():
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def fxp_mlp_fleet_cuda(x: torch.Tensor, weights, biases,
-                       schedules: FleetSchedules) -> torch.Tensor:
+                       schedules: FleetSchedules, bm: Optional[int] = None,
+                       count: bool = True) -> torch.Tensor:
     """Launch the CUDA fleet kernel.  x (E, M, K0); weights[i] (E, K_i,
     K_{i+1}); biases[i] (E, K_{i+1}); every tensor on one CUDA device in the
     fleet's one container width; ``schedules[e]`` is model e's plan.
-    Returns (E, M, K_L).  Does not synchronize."""
+    Returns (E, M, K_L).  ``bm`` as for :func:`fxp_mlp_model_cuda`.  Does
+    not synchronize."""
     if x.device.type != "cuda":
         raise ValueError(f"fxp_mlp_fleet_cuda needs CUDA tensors, got "
                          f"{x.device}")
@@ -463,11 +520,13 @@ def fxp_mlp_fleet_cuda(x: torch.Tensor, weights, biases,
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _mlp_fleet_lib()(x.data_ptr(), out.data_ptr(), m, e, n, c_dims,
-                               c_ws, c_bs, table.data_ptr(), bits, stream)
+                               c_ws, c_bs, table.data_ptr(), bits,
+                               int(bm or 0), stream)
     if err != 0:
         raise RuntimeError(f"fxp_mlp_fleet kernel launch failed: CUDA error "
                            f"{err}")
-    fxp_mlp_fleet_cuda.launches += 1
+    if count:
+        fxp_mlp_fleet_cuda.launches += 1
     return out
 
 
@@ -527,18 +586,20 @@ def _svm_fleet_lib():
     fn = build.load("fxp_svm_fleet").fxp_svm_fleet_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                       + [ctypes.c_void_p] * 2)
+                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
 def fxp_svm_fleet_cuda(qx: torch.Tensor, sv: torch.Tensor, dual: torch.Tensor,
                        icept: torch.Tensor, kind: str,
-                       params: SvmFleetParams) -> torch.Tensor:
+                       params: SvmFleetParams, bm: Optional[int] = None,
+                       count: bool = True) -> torch.Tensor:
     """Launch the CUDA fleet kernel.  qx (E, M, F), sv (E, S, F), dual
     (E, S, C), icept (E, C), all in the fleet's one container width on one
     CUDA device; ``params[e]`` is model e's (fmt, out_fmt, qgamma, qcoef0,
-    degree, dec_shift).  Returns (E, M, C).  Does not synchronize."""
+    degree, dec_shift).  Returns (E, M, C).  ``bm`` as for
+    :func:`fxp_svm_model_cuda`.  Does not synchronize."""
     if qx.device.type != "cuda":
         raise ValueError(f"fxp_svm_fleet_cuda needs CUDA tensors, got "
                          f"{qx.device}")
@@ -569,11 +630,12 @@ def fxp_svm_fleet_cuda(qx: torch.Tensor, sv: torch.Tensor, dual: torch.Tensor,
         err = _svm_fleet_lib()(qx.data_ptr(), sv.data_ptr(), dual.data_ptr(),
                                icept.data_ptr(), out.data_ptr(), m, f, s, c,
                                e, bits, SVM_KERNELS.index(kind),
-                               table.data_ptr(), stream)
+                               table.data_ptr(), int(bm or 0), stream)
     if err != 0:
         raise RuntimeError(f"fxp_svm_fleet kernel launch failed: CUDA error "
                            f"{err}")
-    fxp_svm_fleet_cuda.launches += 1
+    if count:
+        fxp_svm_fleet_cuda.launches += 1
     return out
 
 

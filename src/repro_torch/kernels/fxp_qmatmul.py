@@ -5,7 +5,8 @@ Replaces the Pallas kernel ``repro/kernels/fxp_qmatmul.py::fxp_qmatmul_pallas``
 ``x . sv^T`` in the kernel-domain format.  Two versions of the same function:
 
 * :func:`fxp_qmatmul_cuda` launches ``csrc/fxp_qmatmul.cu``: one block per
-  64x64 output tile of the integer tile shared with ``fxp_layer``'s wide
+  bm x 64 output tile (bm 32, 64 or 128: the tuner's choice, :mod:`.tune`;
+  64 by default) of the integer tile shared with ``fxp_layer``'s wide
   route (``csrc/fxp_tile.cuh``), on the int8 tensor cores at every
   container width (a value split into byte planes: one ``mma.sync`` a
   product at 8 bits, four at 16, ten at 32, recombined exactly mod 2^32),
@@ -22,6 +23,7 @@ Replaces the Pallas kernel ``repro/kernels/fxp_qmatmul.py::fxp_qmatmul_pallas``
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -46,16 +48,20 @@ def fxp_qmatmul_plain(a: torch.Tensor, b: torch.Tensor,
 def _lib():
     fn = build.load("fxp_qmatmul").fxp_qmatmul_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def fxp_qmatmul_cuda(a: torch.Tensor, b: torch.Tensor,
-                     fmt: FxpFormat) -> torch.Tensor:
+def fxp_qmatmul_cuda(a: torch.Tensor, b: torch.Tensor, fmt: FxpFormat,
+                     blocks: Optional[Tuple[int, int, int]] = None,
+                     count: bool = True) -> torch.Tensor:
     """Launch the CUDA kernel: a (M, K), b (K, N) in ``fmt.dtype`` on one
-    CUDA device -> (M, N) in ``fmt.dtype``."""
+    CUDA device -> (M, N) in ``fmt.dtype``, on tiles of ``blocks[0]`` rows
+    (a blocking of :mod:`.tune`; None: today's 64).  ``count=False``
+    leaves ``fxp_qmatmul_cuda.launches`` alone (a tuner's sweep counts its
+    own launches)."""
     if a.device.type != "cuda":
         raise ValueError(f"fxp_qmatmul_cuda needs CUDA tensors, got {a.device}")
     dev = a.device
@@ -73,11 +79,13 @@ def fxp_qmatmul_cuda(a: torch.Tensor, b: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _lib()(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n,
-                     fmt.total_bits, fmt.frac_bits, stream)
+                     fmt.total_bits, fmt.frac_bits,
+                     0 if blocks is None else int(blocks[0]), stream)
     if err != 0:
         raise RuntimeError(f"fxp_qmatmul kernel launch failed: CUDA error "
                            f"{err}")
-    fxp_qmatmul_cuda.launches += 1
+    if count:
+        fxp_qmatmul_cuda.launches += 1
     return out
 
 

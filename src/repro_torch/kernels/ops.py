@@ -8,7 +8,17 @@ Each wrapper routes by ``impl`` and by where its tensors lie:
   launch raises: there is no fallback), a CPU tensor takes the kernel's
   plain PyTorch version, which computes the same bits.
 
-The CUDA kernels mask ragged edges themselves, so no wrapper pads.  No
+The CUDA kernels mask ragged edges themselves, so no wrapper pads.  The
+integer kernels take the reference's block overrides (``blocks=`` on
+:func:`fxp_qmatmul` and :func:`fxp_layer`, ``bm=`` on the megakernels,
+``be=``/``bm=`` on the fleets).  An override must name a compiled instance
+(:mod:`.tune`), else it raises ``ValueError`` on every route; on the
+``cuda`` route it launches that instance, and ``None`` asks the tuner, which
+on a shape's first call times the candidates on the card (CUDA events, best
+of 3 after a warm launch, on zero operands of the bucketed shape and the
+real weights; these launches count in ``tune.sweep_launches`` only).  The
+plain and ``ref`` routes check an override and ignore it: they compute the
+same bits, and they never consult the tuner.  No
 kernel has a backward: the float kernels' wrappers (``flash_attention``,
 ``pwl_activation``) raise ``RuntimeError`` rather than launch on an input
 that requires grad while grad is enabled, since the launch writes a fresh
@@ -22,7 +32,7 @@ launches (``fxp_layer_cuda.launches``, ``fxp_svm_model_cuda.launches``,
 from __future__ import annotations
 
 import contextlib
-from typing import List, Optional
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -30,8 +40,10 @@ from repro_torch.core.fixedpoint import FxpFormat
 from repro_torch.core.trees import TreeArrays
 
 from . import ref as ref_ops
+from . import tune
 from .flash_attention import flash_attention_cuda, flash_attention_plain
-from .fxp_layer import fxp_layer_cuda, fxp_layer_plain
+from .fxp_layer import (fxp_layer_cuda, fxp_layer_plain, narrow_occupancy,
+                        narrow_plan)
 from .fxp_model import (FleetSchedules, LayerSchedule, SvmFleetParams,
                         fxp_mlp_fleet_cuda, fxp_mlp_fleet_plain,
                         fxp_mlp_model_cuda, fxp_mlp_model_plain,
@@ -101,104 +113,257 @@ def _route(impl: str, t: torch.Tensor) -> str:
     raise ValueError(f"no kernel for tensors on {t.device}")
 
 
+# --------------------------------------------------------------------------
+# the tuner's runners
+# --------------------------------------------------------------------------
+# Cycles the stream spins before each timed launch (~0.1 ms on an H100):
+# the launch is queued behind the spin, so the events time the kernel and
+# not the host's issue of it, which at small batches takes longer.
+_HOLD_CYCLES = 200_000
+
+
+def _event_ms(device: torch.device, call: Callable[[], object]) -> float:
+    """Best of 3 CUDA-event times (ms) of ``call`` on the current stream,
+    after one warm call; every call is one sweep launch."""
+    stream = torch.cuda.current_stream(device)
+    call()
+    tune.sweep_launches += 1
+    best = float("inf")
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.device(device):
+            torch.cuda._sleep(_HOLD_CYCLES)
+        start.record(stream)
+        call()
+        end.record(stream)
+        tune.sweep_launches += 1
+        end.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
+def _timed_runner(device: torch.device, shape: Sequence[int],
+                  dtype: torch.dtype, launch: Callable) -> Callable:
+    """The tuner's runner: ``launch(zeros, blocks)`` timed by
+    :func:`_event_ms`, on zeros of ``shape`` (the bucketed input; made on the
+    first run, so a warm lookup allocates nothing).  Timing depends on the
+    shape, not on the values."""
+    zeros: List[torch.Tensor] = []
+
+    def run(blocks) -> float:
+        if not zeros:
+            zeros.append(torch.zeros(tuple(shape), dtype=dtype,
+                                     device=device))
+        return _event_ms(device, lambda: launch(zeros[0], blocks))
+
+    return run
+
+
+def _bucket(m: int) -> int:
+    return tune.batch_bucket(m, cap=1 << 30)
+
+
+def _matmul_blocks(kind: str, a: torch.Tensor, k: int, n: int,
+                   fmt: FxpFormat, launch: Callable) -> tune.Blocks:
+    """The tuned blocking of a matmul on the card (the tuner sweeps
+    ``launch`` on the shape's first call)."""
+    occupancy = None
+    if kind == "layer" and narrow_plan(k, n) is not None:
+        occupancy = narrow_occupancy(k, n, fmt.total_bits, a.device)
+    m = int(a.shape[0])
+    runner = _timed_runner(a.device, (_bucket(m), k), fmt.dtype, launch)
+    return tune.matmul_blocks(kind, m, k, n, fmt.total_bits, runner,
+                              occupancy=occupancy, device=a.device)
+
+
 def fxp_qmatmul(a: torch.Tensor, b: torch.Tensor, fmt: FxpFormat,
-                impl: str = "cuda") -> torch.Tensor:
+                impl: str = "cuda",
+                blocks: Optional[tune.Blocks] = None) -> torch.Tensor:
     """Qn.m matmul ``rshift_round_saturate(a @ b)`` in one dispatch.
-    a (M, K), b (K, N) in ``fmt.dtype`` -> (M, N)."""
+    a (M, K), b (K, N) in ``fmt.dtype`` -> (M, N).  ``blocks`` overrides the
+    tuned ``(bm, 64, 128 // P)``."""
     _tick()
     route = _route(impl, a)
+    k, n = int(a.shape[-1]), int(b.shape[-1])
+    if blocks is not None:
+        blocks = tune.check_matmul_blocks("qmatmul", k, n, fmt.total_bits,
+                                          blocks)
     if route == "ref":
         return ref_ops.fxp_qmatmul_ref(a, b, fmt)
     if route == "cuda":
-        return fxp_qmatmul_cuda(a, b, fmt)
+        if blocks is None and a.shape[0] > 0 and n > 0 and k > 0:
+            blocks = _matmul_blocks(
+                "qmatmul", a, k, n, fmt,
+                lambda z, blk: fxp_qmatmul_cuda(z, b, fmt, blk, count=False))
+        return fxp_qmatmul_cuda(a, b, fmt, blocks)
     return fxp_qmatmul_plain(a, b, fmt)
 
 
 def fxp_layer(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
               fmt: FxpFormat, activation: str = "none",
-              shift: Optional[int] = None, impl: str = "cuda") -> torch.Tensor:
+              shift: Optional[int] = None, impl: str = "cuda",
+              blocks: Optional[tune.Blocks] = None) -> torch.Tensor:
     """Fused fixed-point layer ``act(qadd(requantize(a @ w), bias))`` in one
     dispatch.  a (M, K), w (K, N), bias (N,) -> (M, N); bias and output in
     ``fmt``; ``shift`` is the requantization amount (None: ``fmt.frac_bits``).
+    ``blocks`` overrides the tuned blocking: ``(bm, 64, 128 // P)`` on the
+    integer tile, ``(rows a group, grid, 128)`` on the narrow route (N <= 32).
     """
     _tick()
     route = _route(impl, a)
+    k, n = int(a.shape[-1]), int(w.shape[-1])
+    if blocks is not None:
+        blocks = tune.check_matmul_blocks("layer", k, n, fmt.total_bits,
+                                          blocks)
     if route == "ref":
         return ref_ops.fxp_layer_ref(a, w, bias, fmt, activation, shift)
     if route == "cuda":
-        return fxp_layer_cuda(a, w, bias, fmt, activation, shift)
+        if blocks is None and a.shape[0] > 0 and n > 0 and k > 0:
+            blocks = _matmul_blocks(
+                "layer", a, k, n, fmt,
+                lambda z, blk: fxp_layer_cuda(z, w, bias, fmt, activation,
+                                              shift, blk, count=False))
+        return fxp_layer_cuda(a, w, bias, fmt, activation, shift, blocks)
     return fxp_layer_plain(a, w, bias, fmt, activation, shift)
 
 
+def _mlp_dims(k0: int, weights) -> tuple:
+    return (int(k0),) + tuple(int(w.shape[-1]) for w in weights)
+
+
 def fxp_mlp_model(x: torch.Tensor, weights, biases, schedule: LayerSchedule,
-                  impl: str = "cuda") -> torch.Tensor:
+                  impl: str = "cuda", bm: Optional[int] = None) -> torch.Tensor:
     """The whole MLP forward — every layer — in one dispatch.  Callers check
     :func:`repro_torch.kernels.fxp_model.mlp_fits_smem` first (the lowering
-    does, and falls back to per-layer :func:`fxp_layer` calls)."""
+    does, and falls back to per-layer :func:`fxp_layer` calls).  ``bm``
+    overrides the tuned block (16 x warp groups at 8 and 16 bits, rows at
+    32)."""
     _tick()
     weights, biases = tuple(weights), tuple(biases)
     route = _route(impl, x)
+    bits = schedule[0][1].total_bits
+    if bm is not None:
+        bm = tune.check_model_bm("mlp", _mlp_dims(x.shape[-1], weights),
+                                 bits, bm)
     if route == "ref":
         return ref_ops.fxp_mlp_model_ref(x, weights, biases, schedule)
     if route == "cuda":
-        return fxp_mlp_model_cuda(x, weights, biases, schedule)
+        if bm is None and x.shape[0] > 0:
+            dims = _mlp_dims(x.shape[-1], weights)
+            bm = tune.model_block_m(
+                "mlp", int(x.shape[0]), dims, bits, device=x.device,
+                runner=_timed_runner(
+                    x.device, (_bucket(x.shape[0]), dims[0]), x.dtype,
+                    lambda z, b: fxp_mlp_model_cuda(z, weights, biases,
+                                                    schedule, b,
+                                                    count=False)))
+        return fxp_mlp_model_cuda(x, weights, biases, schedule, bm)
     return fxp_mlp_model_plain(x, weights, biases, schedule)
 
 
 def fxp_svm_model(qx: torch.Tensor, sv: torch.Tensor, dual: torch.Tensor,
                   icept: torch.Tensor, kind: str, fmt: FxpFormat,
                   out_fmt: FxpFormat, qgamma: int, qcoef0: int, degree: int,
-                  dec_shift: int, impl: str = "cuda") -> torch.Tensor:
+                  dec_shift: int, impl: str = "cuda",
+                  bm: Optional[int] = None) -> torch.Tensor:
     """The whole kernel-SVM decision function in one dispatch: x . sv^T,
     the poly/rbf algebra and the decision stage ``k . dual + intercept``.
     ``sv`` is the un-transposed (S, F) matrix; ``qgamma``/``qcoef0`` the
     quantized integer constants.  Callers check
     :func:`repro_torch.kernels.fxp_model.svm_fits_smem` first (the lowering
-    does, and falls back to :func:`fxp_qmatmul` + :func:`fxp_layer`)."""
+    does, and falls back to :func:`fxp_qmatmul` + :func:`fxp_layer`).
+    ``bm`` overrides the tuned rows of a cluster."""
     _tick()
     args = (qx, sv, dual, icept, kind, fmt, out_fmt, qgamma, qcoef0, degree,
             dec_shift)
     route = _route(impl, qx)
+    dims = (int(qx.shape[-1]), int(sv.shape[0]), int(dual.shape[-1]))
+    if bm is not None:
+        bm = tune.check_model_bm(f"svm-{kind}", dims, fmt.total_bits, bm)
     if route == "ref":
         return ref_ops.fxp_svm_model_ref(*args)
     if route == "cuda":
-        return fxp_svm_model_cuda(*args)
+        if bm is None and qx.shape[0] > 0:
+            bm = tune.model_block_m(
+                f"svm-{kind}", int(qx.shape[0]), dims, fmt.total_bits,
+                device=qx.device,
+                runner=_timed_runner(
+                    qx.device, (_bucket(qx.shape[0]), dims[0]), qx.dtype,
+                    lambda z, b: fxp_svm_model_cuda(z, *args[1:], bm=b,
+                                                    count=False)))
+        return fxp_svm_model_cuda(*args, bm=bm)
     return fxp_svm_model_plain(*args)
 
 
 def fxp_mlp_fleet(x: torch.Tensor, weights, biases,
-                  schedules: FleetSchedules, impl: str = "cuda") -> torch.Tensor:
+                  schedules: FleetSchedules, impl: str = "cuda",
+                  be: Optional[int] = None,
+                  bm: Optional[int] = None) -> torch.Tensor:
     """E stacked MLP forward passes — the whole fleet — in one dispatch.
     x (E, M, K0); ``weights[i]``/``biases[i]`` carry the leading model axis;
     ``schedules[e]`` is model e's layer plan (they may differ per model).
     Slot e is bit-identical to model e's own :func:`fxp_mlp_model`.  Callers
     check :func:`repro_torch.kernels.fxp_model.mlp_fleet_fits_smem` first
-    (:func:`repro_torch.compile.stack_fleet` does)."""
+    (:func:`repro_torch.compile.stack_fleet` does).  ``be`` (members a
+    block) can only be 1; ``bm`` overrides the tuned block as in
+    :func:`fxp_mlp_model`."""
     _tick()
     weights, biases = tuple(weights), tuple(biases)
     schedules = tuple(schedules)
     route = _route(impl, x)
+    bits = schedules[0][0][1].total_bits
+    if be is not None or bm is not None:
+        tune.check_fleet_blocks("mlp", _mlp_dims(x.shape[-1], weights), bits,
+                                be, bm)
     if route == "ref":
         return ref_ops.fxp_mlp_fleet_ref(x, weights, biases, schedules)
     if route == "cuda":
-        return fxp_mlp_fleet_cuda(x, weights, biases, schedules)
+        if bm is None and x.shape[1] > 0:
+            dims = _mlp_dims(x.shape[-1], weights)
+            _, bm = tune.fleet_blocks(
+                "mlp", int(x.shape[0]), int(x.shape[1]), dims, bits,
+                uniform=len(set(schedules)) == 1, device=x.device,
+                runner=_timed_runner(
+                    x.device, (x.shape[0], _bucket(x.shape[1]), dims[0]),
+                    x.dtype,
+                    lambda z, blk: fxp_mlp_fleet_cuda(z, weights, biases,
+                                                      schedules, blk[1],
+                                                      count=False)))
+        return fxp_mlp_fleet_cuda(x, weights, biases, schedules, bm)
     return fxp_mlp_fleet_plain(x, weights, biases, schedules)
 
 
 def fxp_svm_fleet(qx: torch.Tensor, sv: torch.Tensor, dual: torch.Tensor,
                   icept: torch.Tensor, kind: str, params: SvmFleetParams,
-                  impl: str = "cuda") -> torch.Tensor:
+                  impl: str = "cuda", be: Optional[int] = None,
+                  bm: Optional[int] = None) -> torch.Tensor:
     """E stacked kernel-SVM decision functions in one dispatch.  qx (E, M,
     F), sv (E, S, F), dual (E, S, C), icept (E, C); ``params[e]`` = model
     e's (fmt, out_fmt, qgamma, qcoef0, degree, dec_shift).  Slot e is
-    bit-identical to model e's own :func:`fxp_svm_model`."""
+    bit-identical to model e's own :func:`fxp_svm_model`.  ``be`` can only
+    be 1; ``bm`` overrides the tuned rows of a cluster."""
     _tick()
     params = tuple(tuple(p) for p in params)
     route = _route(impl, qx)
+    bits = params[0][0].total_bits
+    dims = (int(qx.shape[-1]), int(sv.shape[-2]), int(dual.shape[-1]))
+    if be is not None or bm is not None:
+        tune.check_fleet_blocks(f"svm-{kind}", dims, bits, be, bm)
     if route == "ref":
         return ref_ops.fxp_svm_fleet_ref(qx, sv, dual, icept, kind, params)
     if route == "cuda":
-        return fxp_svm_fleet_cuda(qx, sv, dual, icept, kind, params)
+        if bm is None and qx.shape[1] > 0:
+            _, bm = tune.fleet_blocks(
+                f"svm-{kind}", int(qx.shape[0]), int(qx.shape[1]), dims, bits,
+                uniform=len(set(params)) == 1, device=qx.device,
+                runner=_timed_runner(
+                    qx.device, (qx.shape[0], _bucket(qx.shape[1]), dims[0]),
+                    qx.dtype,
+                    lambda z, blk: fxp_svm_fleet_cuda(z, sv, dual, icept,
+                                                      kind, params, blk[1],
+                                                      count=False)))
+        return fxp_svm_fleet_cuda(qx, sv, dual, icept, kind, params, bm)
     return fxp_svm_fleet_plain(qx, sv, dual, icept, kind, params)
 
 

@@ -30,6 +30,19 @@ def dev():
     return torch.device("cuda", 0)
 
 
+@pytest.fixture(autouse=True)
+def tune_cache(tmp_path, monkeypatch):
+    """The block-size tuner's file under the test's own directory: the
+    wrappers on the card sweep and persist their blockings."""
+    from repro_torch.kernels import tune
+
+    path = str(tmp_path / "tune_cache.json")
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", path)
+    tune.clear_memory_cache()
+    yield path
+    tune.clear_memory_cache()
+
+
 def _ints(rng, shape, bits, full):
     mag = bits - 1 if full else {8: 3, 16: 7, 32: 12}[bits]
     return torch.from_numpy(rng.randint(-(2 ** mag), 2 ** mag, shape)
@@ -1386,3 +1399,122 @@ def test_zamba2_shared_block_on_a_card_mesh_launches_the_window_once(dev):
         ops.flash_attention_cuda = real
     assert seen == [((2 * 8, 192, 64), (2 * 2, 192, 64), 64)]
     assert torch.equal(got, want)
+
+
+# --------------------------------------------------------------------------
+# the block-size tuner's instances
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("bits", [8, 16, 32])
+def test_every_tuned_instance_matches_plain(dev, bits):
+    """Each compiled blocking of each tuned kernel, bit for bit against the
+    plain version, at ragged and bucket-edge batches."""
+    from repro_torch.kernels import tune
+
+    rng = np.random.RandomState(bits)
+    fmt = FxpFormat(bits, bits - 6)
+    for m in (1, 31, 33, 64, 65, 127, 129, 3089):
+        a = _ints(rng, (m, 561), bits, True).to(dev)
+        b = _ints(rng, (561, 70), bits, True).to(dev)
+        bias = _ints(rng, (70,), bits, True).to(dev)
+        want_q = fxp_qmatmul.fxp_qmatmul_plain(a, b, fmt)
+        want_l = fxp_layer.fxp_layer_plain(a, b, bias, fmt, "pwl4", 7)
+        for blk in tune.candidates("qmatmul", m, 561, 70, bits):
+            assert torch.equal(ops.fxp_qmatmul(a, b, fmt, blocks=blk),
+                               want_q), (m, blk)
+            assert torch.equal(ops.fxp_layer(a, b, bias, fmt, "pwl4", 7,
+                                             blocks=blk), want_l), (m, blk)
+        b6, bias6 = b[:, :6].contiguous(), bias[:6].contiguous()
+        occ = fxp_layer.narrow_occupancy(561, 6, bits, dev)
+        want = fxp_layer.fxp_layer_plain(a, b6, bias6, fmt, "none", 7)
+        for blk in tune.candidates("layer", m, 561, 6, bits, occ) + [
+                (4, 1, 128), (4, 7, 128)]:
+            assert torch.equal(ops.fxp_layer(a, b6, bias6, fmt, "none", 7,
+                                             blocks=blk), want), (m, blk)
+        ws = [_ints(rng, s, bits, False).to(dev) for s in ((561, 64), (64, 6))]
+        bs = [_ints(rng, (n,), bits, True).to(dev) for n in (64, 6)]
+        sched = ((7, fmt, "exact"), (3, fmt, "none"))
+        x = a // 64
+        want = fxp_model.fxp_mlp_model_plain(x, ws, bs, sched)
+        for bm in tune.model_candidates("mlp", (561, 64, 6), bits):
+            assert torch.equal(ops.fxp_mlp_model(x, ws, bs, sched, bm=bm),
+                               want), (m, bm)
+        xe = torch.stack([x, x.flip(0)])
+        wse = [torch.stack([w, w.flip(0)]) for w in ws]
+        bse = [torch.stack([v, v]) for v in bs]
+        want = fxp_model.fxp_mlp_fleet_plain(xe, wse, bse, (sched, sched))
+        for bm in tune.model_candidates("mlp", (561, 64, 6), bits):
+            assert torch.equal(ops.fxp_mlp_fleet(xe, wse, bse,
+                                                 (sched, sched), bm=bm),
+                               want), (m, bm)
+        sv = _ints(rng, (300, 561), bits, False).to(dev)
+        dual = _ints(rng, (300, 6), bits, False).to(dev)
+        args = (a // 64, sv, dual, bias6, "rbf", fmt, fmt, 3, 1, 2, 7)
+        want = fxp_model.fxp_svm_model_plain(*args)
+        for bm in tune.MODEL_BMS:
+            assert torch.equal(ops.fxp_svm_model(*args, bm=bm), want), (m, bm)
+        p = ((fmt, fmt, 3, 1, 2, 7), (fmt, fmt, 5, 0, 3, 6))
+        qe, sve = torch.stack([args[0]] * 2), torch.stack([sv, sv.flip(0)])
+        de, ie = torch.stack([dual] * 2), torch.stack([bias6] * 2)
+        want = fxp_model.fxp_svm_fleet_plain(qe, sve, de, ie, "poly", p)
+        for bm in tune.MODEL_BMS:
+            assert torch.equal(ops.fxp_svm_fleet(qe, sve, de, ie, "poly", p,
+                                                 bm=bm), want), (m, bm)
+    with pytest.raises(ValueError, match="no compiled"):
+        ops.fxp_qmatmul(a, b, fmt, blocks=(16, 64, 128 * 8 // bits))
+    with pytest.raises(ValueError, match="be = 1"):
+        ops.fxp_svm_fleet(qe, sve, de, ie, "poly", p, be=2)
+
+
+def test_a_sweep_counts_only_in_sweep_launches(dev, tune_cache):
+    from repro_torch.kernels import tune
+
+    rng = np.random.RandomState(0)
+    fmt = FxpFormat(16, 10)
+    a = _ints(rng, (3089, 561), 16, False).to(dev)
+    b = _ints(rng, (561, 300), 16, False).to(dev)
+    launches = fxp_qmatmul.fxp_qmatmul_cuda.launches
+    sweeps = tune.sweep_launches
+    with ops.count_dispatches() as c:
+        got = ops.fxp_qmatmul(a, b, fmt)
+    assert c.count == 1
+    assert fxp_qmatmul.fxp_qmatmul_cuda.launches == launches + 1
+    n_cands = len(tune.candidates("qmatmul", 3089, 561, 300, 16))
+    assert tune.sweep_launches == sweeps + 4 * n_cands
+    assert torch.equal(got, fxp_qmatmul.fxp_qmatmul_plain(a, b, fmt))
+    blk = tune.cache_snapshot()[
+        f"qmatmul|4096x561x300|w16|{tune.device_key(dev)}"]
+    assert blk in tune.candidates("qmatmul", 3089, 561, 300, 16)
+    sweeps = tune.sweep_launches
+    ops.fxp_qmatmul(a[:2100], b, fmt)  # the same bucket: a dict hit
+    assert tune.sweep_launches == sweeps
+    tune.clear_memory_cache()
+    ops.fxp_qmatmul(a[:2049], b, fmt)  # from the file
+    assert tune.sweep_launches == sweeps
+    with open(tune_cache) as f:
+        assert len(__import__("json").load(f)) == 1
+
+
+def test_pretune_leaves_no_sweep_for_live_requests(dev, tune_cache):
+    from repro_torch.kernels import tune
+
+    rng = np.random.RandomState(0)
+    x = (rng.randn(300, 561) * 2).astype(np.float32)
+    mlp = init_mlp([561, 64, 6], seed=0)
+    logistic = LogisticModel((rng.randn(561, 6) * 0.1).astype(np.float32),
+                             np.zeros(6, np.float32))
+    ladder = (1, 2, 4, 8, 16, 32, 64)
+    for model, kind in ((mlp, "model-mlp"), (logistic, "layer")):
+        art = tc.compile(model, tc.Target(backend="cuda",
+                                          number_format="fxp16"))
+        before = set(tune.cache_snapshot())
+        art.pretune(x[:1], batches=ladder)
+        keys = set(tune.cache_snapshot()) - before
+        assert len(keys) == len(ladder), keys
+        assert all(k.startswith(kind + "|") for k in keys)
+        sweeps = tune.sweep_launches
+        for m in (1, 3, 7, 13, 33, 64):
+            host = tc.compile(model, tc.Target(backend="cuda",
+                                               number_format="fxp16"),
+                              device="cpu").predict(x[:m])
+            assert (art.predict(x[:m]) == host).all()
+        assert tune.sweep_launches == sweeps

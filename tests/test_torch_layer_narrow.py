@@ -268,3 +268,14 @@ def test_narrow_reduction_matches_plain_and_pallas(host, bits, n):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     if bits > 8:
         assert wrapped, "no case wrapped the int32 dot"
+
+
+def test_narrow_grid_mirrors_narrow_blocks(host):
+    """``fxp_layer.narrow_grid`` (the tuner's today-blocking of the narrow
+    route) computes ``narrow_blocks`` of ``csrc/fxp_layer_narrow.cuh``."""
+    _, lib = host
+    for groups in (1, 2, 7, 8, 9, 97, 132, 773, 1024, 16384):
+        for sms in (1, 8, 132):
+            for slots in (1, 132, 264, 396, 2000):
+                assert fxp_layer.narrow_grid(groups, sms, slots) == \
+                    lib.blocks(groups, sms, slots), (groups, sms, slots)

@@ -47,6 +47,15 @@ extern "C" int plan(const int* dims, int n_layers, int bytes, int* out) {
 extern "C" int blocks(int tiles, int blocks, int groups, int models) {
   return fxp::mlp_blocks_per_model(tiles, blocks, groups, models);
 }
+extern "C" int plan_cap(const int* dims, int n_layers, int bytes, int cap,
+                        int* out) {
+  fxp::MlpShape s;
+  if (!fxp::mlp_shape_from(dims, n_layers, &s)) return -1;
+  fxp::MlpPlan p;
+  if (!fxp::mlp_plan(s, bytes, &p, cap)) return 0;
+  out[0] = p.groups; out[1] = p.resident; out[2] = p.total;
+  return 1;
+}
 """
 FIELDS = ("total", "resident", "groups", "kc", "x_stride0", "x_stride1",
           "x_off0", "x_off1", "raw_off", "scr_off", "bias_off", "wc_off",
@@ -264,3 +273,50 @@ def test_blocks_per_model_fill_the_card(host_plan):
                     rounds = -(-tiles // (per_model * groups))
                     assert b * groups * rounds >= tiles
                     assert b == per_model or b * rounds >= tiles
+
+
+@pytest.fixture(scope="module")
+def host_plan_cap(tmp_path_factory):
+    """(groups, resident, total) of ``mlp_plan`` under a cap of ``cap`` warp
+    groups, compiled for the host."""
+    lib = _host_build(tmp_path_factory, "mlp_plan_cap", HARNESS)
+    lib.plan_cap.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_int, ctypes.c_void_p]
+    lib.plan_cap.restype = ctypes.c_int
+
+    def plan(dims, bits, cap):
+        c_dims = (ctypes.c_int * len(dims))(*dims)
+        out = (ctypes.c_int * 3)()
+        ok = lib.plan_cap(c_dims, len(dims) - 1, bits // 8, cap, out)
+        return tuple(out) if ok == 1 else None
+
+    return plan
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+def test_tuned_warp_groups_are_what_the_plan_lays_out(host_plan_cap, bits,
+                                                      monkeypatch):
+    """The tuner's 8- and 16-bit MLP blocks (``bm = 16 x groups``) are the
+    caps under which ``mlp_plan`` lays out exactly that many groups, today's
+    the most that fit; ``fxp_model.mlp_mma_smem_bytes`` is the plan's own
+    count of a resident layout."""
+    from repro_torch.kernels import tune
+
+    monkeypatch.delenv("REPRO_MEGAKERNEL_VMEM", raising=False)
+    limit = SMEM_PER_BLOCK // (2 * 32 * (bits // 8))
+    checked = 0
+    for w in _widths(limit):
+        for dims in ([w, 64, 6], [561, w, 6], [w, 6], [w] * 9, [8, w, w, 6]):
+            if not fxp_model.mlp_fits_smem(dims, bits):
+                continue
+            today = host_plan_cap(dims, bits, 3)
+            laid = [g for g in (1, 2, 3)
+                    if host_plan_cap(dims, bits, g)[:2] == (g, 1)]
+            for g in laid:
+                assert host_plan_cap(dims, bits, g)[2] == \
+                    fxp_model.mlp_mma_smem_bytes(dims, bits, g), (dims, g)
+            cands = tune.model_candidates("mlp", dims, bits)
+            assert cands[0] == 16 * today[0], (dims, cands, today)
+            assert sorted(cands) == [16 * g for g in (laid or [1])], dims
+            checked += 1
+    assert checked > 30

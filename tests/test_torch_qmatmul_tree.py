@@ -295,6 +295,24 @@ extern "C" void layout(int p, int* o) {
   if (p == 1) fill<1>(o); else if (p == 2) fill<2>(o); else fill<4>(o);
 }
 extern "C" long long blocks(int m, int n) { return fxp::tile_blocks(m, n); }
+template <int P, int BM> static void fill_bm(int* o) {
+  using L = fxp::TileLayout<P, BM>;
+  const int f[] = {L::kMT, L::kARows, L::kRawBytes, L::kAPlane, L::kBufBytes,
+                   L::kSmem, L::kMinBlocks, L::kBK};
+  for (int i = 0; i < 8; ++i) o[i] = f[i];
+}
+template <int P> static void fill_p(int bm, int* o) {
+  if (bm == 32) fill_bm<P, 32>(o);
+  else if (bm == 64) fill_bm<P, 64>(o);
+  else fill_bm<P, 128>(o);
+}
+extern "C" void layout_bm(int p, int bm, int* o) {
+  if (p == 1) fill_p<1>(bm, o); else if (p == 2) fill_p<2>(bm, o);
+  else fill_p<4>(bm, o);
+}
+extern "C" long long blocks_bm(int m, int n, int bm) {
+  return fxp::tile_blocks(m, n, bm);
+}
 """
 
 
@@ -305,6 +323,10 @@ def host_tile(tmp_path_factory):
     lib.layout.restype = None
     lib.blocks.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.blocks.restype = ctypes.c_longlong
+    lib.layout_bm.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.layout_bm.restype = None
+    lib.blocks_bm.argtypes = [ctypes.c_int] * 3
+    lib.blocks_bm.restype = ctypes.c_longlong
     return lib
 
 
@@ -503,3 +525,32 @@ def test_routing_counts_are_pinned():
         assert not fxp_model.mlp_fits_smem([k + 1, 6], bits)
         assert fxp_model.mlp_fits_smem([561, k, 6], bits)
         assert not fxp_model.mlp_fits_smem([561, k + 1, 6], bits)
+
+
+@pytest.mark.parametrize("p", [1, 2, 4])
+def test_tile_heights_the_tuner_chooses_between(host_tile, p):
+    """The tile's instances of 32, 64 and 128 rows (the tuner's ``(bm, 64,
+    128 // P)``): BM / 32 m16 tiles a warp over 2 x 4 warps, A rows copied in
+    passes of 64, the epilogue's scratch over the two tile buffers, and the
+    blocks an SM that ``__launch_bounds__`` asks for within 228 KB."""
+    from repro_torch.kernels import tune
+
+    ref = np.zeros(11, np.int32)
+    host_tile.layout(p, ref.ctypes.data)
+    assert tune.TILE_BMS == (32, 64, 128)
+    for bm in tune.TILE_BMS:
+        o = np.zeros(8, np.int32)
+        host_tile.layout_bm(p, bm, o.ctypes.data)
+        mt, a_rows, raw, a_plane, buf, smem, min_blocks, bk = o
+        assert (mt, a_rows) == (bm // 32, max(1, bm // 64))
+        assert tune.candidates("qmatmul", 1, 8, 8, 8 * p)[0][2] == bk
+        assert raw == bm * (ROW_BYTES + 16) + bk * (TILE_BN * p + 16)
+        assert a_plane == bm * ref[4] and smem == 2 * buf + 3 * raw
+        assert bm * (TILE_BN + 1) * 4 <= 2 * buf
+        assert min_blocks == (1 if bm == 128 else 2)
+        assert min_blocks * (smem + 1024) <= 233_472
+        if bm == 64:  # the default instance is today's layout
+            assert (raw, a_plane, buf, smem) == (ref[3], ref[6], ref[8],
+                                                 ref[10])
+        for m, n in ((1, 6), (3089, 300), (65536, 64)):
+            assert host_tile.blocks_bm(m, n, bm) == -(-m // bm) * -(-n // 64)

@@ -298,6 +298,12 @@ extern "C" int plan(int S, int* out) {
 extern "C" void rank_chunks(int rank, int g, int n_chunks, int* out) {
   fxp::svm_rank_chunks(rank, g, n_chunks, out, out + 1);
 }
+extern "C" int plan_rows(int S, int rows, int* out) {
+  fxp::SvmPlan p;
+  if (!fxp::svm_plan(S, &p, rows)) return 0;
+  out[0] = p.n_chunks; out[1] = p.g; out[2] = p.cap; out[3] = p.smem;
+  return 1;
+}
 """
 
 
@@ -341,3 +347,38 @@ def test_cluster_plan_splits_every_admitted_model(tmp_path_factory,
         assert covered == n_chunks
     assert admitted == 1696
     assert not tmodel.svm_fleet_fits_smem(0, 300)
+
+
+def test_cluster_plan_at_every_tuned_row_count(tmp_path_factory, monkeypatch):
+    """``svm_plan`` at the cluster heights the tuner chooses between (16, 32
+    and 64 rows, an instance each): the same split of the vectors as the
+    default, shared memory of the staging buffers, the (rows, cap + 1)
+    kernel values and the norms, within one block wherever the routing
+    count admits that ``bm``; other heights are refused."""
+    import ctypes
+
+    from test_torch_epilogue import _host_build
+    from repro_torch.kernels import tune
+
+    monkeypatch.delenv("REPRO_MEGAKERNEL_VMEM", raising=False)
+    lib = _host_build(tmp_path_factory, "svm_plan_rows", SVM_PLAN_HARNESS)
+    lib.plan.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.plan_rows.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    for s in (1, 31, 33, 64, 300, 1000, 1696):
+        ref = (ctypes.c_int * 4)()
+        assert lib.plan(s, ref) == 1
+        for rows in tune.MODEL_BMS:
+            out = (ctypes.c_int * 4)()
+            assert lib.plan_rows(s, rows, out) == 1, (s, rows)
+            n_chunks, g, cap, smem = out
+            assert (n_chunks, g, cap) == tuple(ref[:3])
+            stage = 2 * 32 * (rows + 4 + 68)
+            assert smem == 4 * (stage + rows * (cap + 1) + cap + rows)
+            assert smem <= tune.SMEM_PER_BLOCK
+            if rows == 32:
+                assert smem == ref[3]
+            if tmodel.svm_fits_smem(s, rows):
+                assert rows in tune.model_candidates(
+                    "svm-rbf", (561, s, 6), 16)
+        for rows in (0, 8, 48, 128):
+            assert lib.plan_rows(s, rows, (ctypes.c_int * 4)()) == 0
