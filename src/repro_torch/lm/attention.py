@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.spans import span
 
 from .layers import apply_linear, apply_rope, init_linear, on_card
 
@@ -212,8 +213,9 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = q.shape[1]
     if positions is None:
         positions = torch.arange(s, device=q.device)[None, :]
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
+    with span("lm.rope"):
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
     if impl != "train" and on_card(q):
         return _kernel_attention(q, k, v, causal, impl, window)
     if s % chunk == 0 and s > chunk:

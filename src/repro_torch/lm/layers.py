@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.activations import get_sigmoid
+from repro_torch.spans import span
 
 __all__ = ["rmsnorm", "layernorm", "make_norm_params", "apply_norm",
            "init_linear", "mlp_params", "apply_mlp", "activation_fn",
@@ -161,9 +162,10 @@ def make_norm_params(kind: str, d: int, dtype: torch.dtype,
 
 
 def apply_norm(kind: str, p: Dict, x: torch.Tensor) -> torch.Tensor:
-    if kind == "rmsnorm":
-        return rmsnorm(x, p["scale"])
-    return layernorm(x, p["scale"], p["bias"])
+    with span("lm.norm"):
+        if kind == "rmsnorm":
+            return rmsnorm(x, p["scale"])
+        return layernorm(x, p["scale"], p["bias"])
 
 
 # --------------------------------------------------------------------------
@@ -270,13 +272,17 @@ def mlp_params(generator: torch.Generator, d: int, d_ff: int, mlp_type: str,
 
 def apply_mlp(p: Dict, x: torch.Tensor, mlp_type: str, activation: str,
               gate_sigmoid: str = "exact", fused: bool = True) -> torch.Tensor:
-    act = activation_fn(activation, gate_sigmoid, fused)
-    h = apply_linear(p["wi"], x)
-    if mlp_type == "glu":
-        h = act(apply_linear(p["wg"], x)) * h
-    else:
-        h = act(h)
-    return apply_linear(p["wo"], h)
+    with span("lm.mlp"):
+        act = activation_fn(activation, gate_sigmoid, fused)
+        h = apply_linear(p["wi"], x)
+        if mlp_type == "glu":
+            g = apply_linear(p["wg"], x)
+            with span("lm.gate"):
+                h = act(g) * h
+        else:
+            with span("lm.gate"):
+                h = act(h)
+        return apply_linear(p["wo"], h)
 
 
 # --------------------------------------------------------------------------

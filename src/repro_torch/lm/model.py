@@ -91,6 +91,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.sharding.rules import Rules, device_put, is_dtensor, shard
+from repro_torch.spans import span
 
 from . import attention as attn_mod
 from . import mamba2 as mamba_mod
@@ -353,19 +354,20 @@ def _placed(x: Any, axes: Tuple, rules: Rules, device: torch.device):
 def _block_attn(cfg: ArchConfig, p: Dict, x: torch.Tensor,
                 attn_impl: str, rules: Optional[Rules] = None
                 ) -> torch.Tensor:
-    if cfg.mla is not None:
-        return mla_mod.mla_attention(p["attn"], x, n_heads=cfg.n_heads,
-                                     m=cfg.mla, rope_theta=cfg.rope_theta,
-                                     chunk=cfg.attn_chunk, impl=attn_impl,
-                                     rules=rules)
-    return attn_mod.attention(p["attn"], x, n_heads=cfg.n_heads,
-                              n_kv_heads=cfg.n_kv_heads,
-                              head_dim=cfg.head_dim,
-                              rope_theta=cfg.rope_theta,
-                              causal=not cfg.encoder_only,
-                              chunk=cfg.attn_chunk,
-                              window=cfg.sliding_window, impl=attn_impl,
-                              rules=rules)
+    with span("lm.attn"):
+        if cfg.mla is not None:
+            return mla_mod.mla_attention(p["attn"], x, n_heads=cfg.n_heads,
+                                         m=cfg.mla, rope_theta=cfg.rope_theta,
+                                         chunk=cfg.attn_chunk, impl=attn_impl,
+                                         rules=rules)
+        return attn_mod.attention(p["attn"], x, n_heads=cfg.n_heads,
+                                  n_kv_heads=cfg.n_kv_heads,
+                                  head_dim=cfg.head_dim,
+                                  rope_theta=cfg.rope_theta,
+                                  causal=not cfg.encoder_only,
+                                  chunk=cfg.attn_chunk,
+                                  window=cfg.sliding_window, impl=attn_impl,
+                                  rules=rules)
 
 
 def _dense_block(cfg: ArchConfig, p: Dict, x: torch.Tensor,
@@ -520,15 +522,19 @@ def _stack(params: Dict, batch: Dict, cfg: ArchConfig,
     if attn_impl not in ATTN_IMPLS:
         raise KeyError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                        f"{attn_impl!r}")
-    x = _embed_inputs(cfg, params, batch, rules)
+    with span("lm.embed"):
+        x = _embed_inputs(cfg, params, batch, rules)
     remat = attn_impl == "train" and cfg.remat and torch.is_grad_enabled()
     for block, p in _layer_calls(cfg, params):
-        if remat:
-            x = checkpoint(block, cfg, p, x, attn_impl, rules,
-                           use_reentrant=False)
-        else:
-            x = block(cfg, p, x, attn_impl, rules)
-    return shard(_logits(cfg, params, x), ("batch", None, "model"), rules)
+        with span("lm.block"):
+            if remat:
+                x = checkpoint(block, cfg, p, x, attn_impl, rules,
+                               use_reentrant=False)
+            else:
+                x = block(cfg, p, x, attn_impl, rules)
+    with span("lm.logits"):
+        logits = _logits(cfg, params, x)
+    return shard(logits, ("batch", None, "model"), rules)
 
 
 def forward(params: Dict, batch: Dict, cfg: ArchConfig,
@@ -544,7 +550,7 @@ def forward(params: Dict, batch: Dict, cfg: ArchConfig,
     (a DTensor's views, such as the layers' ``unbind``, fail in inference
     mode)."""
     with (torch.no_grad() if rules is not None
-          else torch.inference_mode()):
+          else torch.inference_mode()), span("lm.forward"):
         return _stack(params, batch, cfg, attn_impl, rules)
 
 
