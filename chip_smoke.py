@@ -14,13 +14,13 @@ Phases, each of which raises on failure:
    redesigned for Hopper: flash_attention, fxp_svm_model, fxp_mlp_model,
    fxp_mlp_fleet, fxp_svm_fleet, fxp_layer, fxp_qmatmul and
    tree_ensemble), and, where the toolkit's ``cuobjdump`` exists, the count
-   of tensor-core MMA instructions in the SASS: HMMA in each
-   flash_attention instance, IMMA in each MLP megakernel instance and in
-   each instance of the integer tile (fxp_qmatmul, fxp_layer's wide route;
-   a bf16 flash instance without HMMA, or an 8- or 16-bit MLP instance or
-   a tile instance without IMMA, fails).  Then the data: D6 ("har") and
-   D5 ("pendigits") from their seeds, and the D6 tree trained by the port's
-   CART (``max_depth=12``).
+   of tensor-core MMA instructions in the SASS: HGMMA (warpgroup MMA) in
+   each bf16 flash_attention instance, IMMA in each MLP megakernel
+   instance and in each instance of the integer tile (fxp_qmatmul,
+   fxp_layer's wide route; a bf16 flash instance without HGMMA, or an 8-
+   or 16-bit MLP instance or a tile instance without IMMA, fails).  Then
+   the data: D6 ("har") and D5 ("pendigits") from their seeds, and the D6
+   tree trained by the port's CART (``max_depth=12``).
 3. Each kernel against its plain PyTorch version on the card, bit for bit,
    at the main paths' shapes, every container width, values at qmin/qmax,
    int32-wrapping sums and batches 1..65536:
@@ -368,7 +368,9 @@ Phases, each of which raises on failure:
    path J's zamba2 shape (BH 64, S 8192, dh 112; its first heads held to
    the plain version) beside the window's bound, the same kernel without
    the window and ``scaled_dot_product_attention`` with the boolean window
-   mask (kept as ``window_*``), the
+   mask (kept as ``window_*``), at the longdoc cell's shapes (BH 32, G 4,
+   dh 128, causal, S 8192 and 24960; the first heads at 8192 held to the
+   plain version) beside their bounds (kept as ``longdoc_*``), the
    prefill forward and the kernel's share of it, decode ms/token at both
    served targets; each recorded kernel's device time from a
    torch.profiler trace besides (below ~0.04 ms the CUDA-event loop
@@ -505,7 +507,7 @@ REDESIGNED = ("flash_attention", "fxp_svm_model", "fxp_mlp_model",
               "tree_ensemble")
 # tensor-core MMA in the SASS: (library, instance name part, opcode); each
 # instance whose name holds the part must issue the opcode
-TENSOR_CORE_SASS = (("flash_attention", "bfloat16", "HMMA"),
+TENSOR_CORE_SASS = (("flash_attention", "4bf16", "HGMMA"),  # bf16:: instances
                     ("fxp_mlp_model", "mma_kernel", "IMMA"),
                     ("fxp_mlp_fleet", "mma_kernel", "IMMA"),
                     ("fxp_qmatmul", "fxp_qmatmul_kernel", "IMMA"),
@@ -5927,6 +5929,53 @@ def time_flash_window(torch, K, T, launches_window):
     del q, k, v, out, q4, k4, v4, mask, diff
 
 
+def time_flash_longdoc(torch, K, T):
+    """The kernel at the longdoc cell's shapes — LLaVA's 32 query heads
+    over 8 KV heads (G 4), dh 128, bf16, causal, S 8192 and 24960 (the
+    traffic's longest) — beside its bound, each launch on the wgmma
+    design; at S 8192 its first FLASH_CHECK_HEADS heads held to the plain
+    version.  Kept in flash_attention's record as ``longdoc_*``."""
+    fa = K.fa
+    bh, group, dh = 32, 4, 128
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rec = T.records["flash_attention"]
+    for s in (8192, 24960):
+        q = torch.randn(bh, s, dh, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        k, v = (torch.randn(bh // group, s, dh, generator=gen, device="cuda")
+                .to(torch.bfloat16) for _ in range(2))
+        before = fa.flash_attention_cuda.wgmma_launches
+        out = fa.flash_attention_cuda(q, k, v, True)
+        if fa.flash_attention_cuda.wgmma_launches != before + 1:
+            raise AssertionError("flash_attention at dh 128 in bf16 did not "
+                                 "launch the wgmma design")
+        checked = ""
+        if s == 8192:
+            n = FLASH_CHECK_HEADS
+            want = fa.flash_attention_plain(q[:n], k[:n // group],
+                                            v[:n // group], True)
+            err = float((out[:n].float() - want.float()).abs().max())
+            rel = row_rel_err(out[:n], want)
+            del want
+            if err > FLASH_BF16_ATOL or rel > FLASH_BF16_ROW_RTOL:
+                raise AssertionError(f"flash_attention longdoc S {s}: heads "
+                                     f"0..{n - 1} max abs err {err}, row rel "
+                                     f"err {rel} against the plain version")
+            checked = (f"heads 0..{n - 1} within {err:.3e} (max abs) and "
+                       f"{rel:.3e} (row) of the plain version; ")
+        ms, host_ms = cuda_ms(torch, lambda: fa.flash_attention_cuda(
+            q, k, v, True), 5)
+        flops = 4 * bh * dh * (s * (s + 1) // 2)
+        bound_ms, bound_by = T.dev.bound(_nbytes(q, k, v, out), flops,
+                                         BF16_TENSOR_OPS_PER_S)
+        rec.update({f"longdoc_{s}_ms": ms, f"longdoc_{s}_bound_ms": bound_ms})
+        log(f"  flash_attention longdoc (BH {bh}, K/V {bh // group} rows (G "
+            f"{group}), S {s}, dh {dh}) bf16 causal: {checked}{ms:.3f} ms "
+            f"({host_ms:.3f} ms host), {flops / ms / 1e9:.1f} Tflop/s; bound "
+            f"{bound_ms:.3f} ms ({bound_by}), {bound_ms / ms:.1%} of it")
+        del q, k, v, out
+
+
 def time_lm_gate(torch, K, T, lm):
     """Path E's pwl4 SiLU gate: the kernel (silu_pwl4) at the decode (4,
     4864) and bf16 prefill (4 x 2048, 4864) shapes beside its plain version,
@@ -6076,6 +6125,7 @@ def timing(torch, K, dev, d6, d5, check, arts_a, arts_b, arts_d, tree_model,
     time_lm(torch, K, T, lm)
     time_flash_mla(torch, K, T, families[FAMILY_QUANT]["flash_launches"])
     time_flash_window(torch, K, T, recurrent["zamba2-7b"]["flash_launches"])
+    time_flash_longdoc(torch, K, T)
     time_lm_gate(torch, K, T, lm)
     time_mlp(torch, K, T, arts_a, x_big, n_test)
     time_tree_svm(torch, K, T, arts_b, tree_model, x_big, n_test)
@@ -6166,7 +6216,7 @@ def tuner_predict_cost(torch, K, arts_a, x_big):
 
 def check_tensor_core_sass(build):
     """Count the tensor-core MMA instructions in the SASS of each instance
-    of the kernels in TENSOR_CORE_SASS (HMMA for bf16 flash_attention, IMMA
+    of the kernels in TENSOR_CORE_SASS (HGMMA for bf16 flash_attention, IMMA
     for the 8- and 16-bit MLP megakernels), where the toolkit's cuobjdump
     exists; fail if an instance that must use the tensor cores has none."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"

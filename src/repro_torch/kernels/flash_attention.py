@@ -17,21 +17,24 @@ is; the kernel skips the key tiles before a query tile's window.  Two
 versions of the same function:
 
 * :func:`flash_attention_cuda` launches the hand-written Hopper kernel
-  (``csrc/flash_attention.cu``): one block per (bh, 64-query tile).  In
-  bfloat16 it runs FlashAttention-2 on the tensor cores (``mma.sync``
-  m16n8k16, Q fragments in registers, a two-stage ``cp.async`` ring of
-  swizzled bf16 K/V tiles, P kept in registers); in float32 the products
-  stay on the CUDA cores (TF32 would not hold the float32 tolerance).  Its
+  (``csrc/flash_attention.cu``).  In bfloat16 one block owns 128 query
+  rows of a head: a producer warp keeps TMA loads of Q and a two-stage
+  ring of K/V tiles in flight, and two consumer warpgroups of 64 rows take
+  turns on the tensor cores (``wgmma``: Q.K^T from shared memory, P.V with
+  P in registers); in float32 one block owns 64 rows and the products stay
+  on the CUDA cores (TF32 would not hold the float32 tolerance).  Its
   instances take dh in {32, 64, 128, 192} (192: MLA's 128 + 64 rotary
-  query/key dims, with v zero-padded to it by the caller): a head dim
-  between them is zero-padded to the next instance (:func:`pad_head_dim`;
-  zeros add nothing to q.k or to the output's first dh columns, and the
-  scale stays ``1/sqrt(dh)`` of the true dh), and the output is sliced
-  back; dh above 192 raises.  float32 and bfloat16 run their own instances; any other
-  float dtype (float16, float64) computes on the float32 instance and is
-  cast back, as the reference computes in float32.  Unlike the TPU kernel
-  it takes any S (ragged edges are masked).  It counts its launches in
-  ``flash_attention_cuda.launches``.
+  query/key dims, with v zero-padded to it by the caller), every one of
+  them on the ``wgmma`` design in bfloat16 (:data:`WGMMA_HEAD_DIMS`): a
+  head dim between them is zero-padded to the next instance
+  (:func:`pad_head_dim`; zeros add nothing to q.k or to the output's first
+  dh columns, and the scale stays ``1/sqrt(dh)`` of the true dh), and the
+  output is sliced back; dh above 192 raises.  float32 and bfloat16 run
+  their own instances; any other float dtype (float16, float64) computes
+  on the float32 instance and is cast back, as the reference computes in
+  float32.  Unlike the TPU kernel it takes any S (ragged edges are
+  masked).  It counts its launches in ``flash_attention_cuda.launches``,
+  and those on the ``wgmma`` design also in ``.wgmma_launches``.
 * :func:`flash_attention_plain` repeats K/V to the query heads and
   materializes the (BH, S, S) scores in float32 in PyTorch ops (the oracle
   :func:`repro_torch.kernels.ref.flash_attention_ref`), on any device.
@@ -53,9 +56,12 @@ from .ref import flash_attention_ref
 
 __all__ = ["flash_attention_plain", "flash_attention_cuda", "check_shapes",
            "check_window", "expand_kv", "pad_head_dim", "HEAD_DIMS",
-           "REPLACES"]
+           "WGMMA_HEAD_DIMS", "REPLACES"]
 
 HEAD_DIMS = (32, 64, 128, 192)  # the kernel's template instances
+# the bfloat16 instances on the warpgroup-MMA design (``bf16::Tile`` in
+# the source)
+WGMMA_HEAD_DIMS = (32, 64, 128, 192)
 REPLACES = "src/repro/kernels/flash_attention.py:71"  # flash_attention_pallas
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -138,7 +144,7 @@ def _lib():
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """Contiguous and starting on a 16-byte boundary (the kernel's 16-byte
-    copies)."""
+    copies and TMA's tensor maps)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -175,9 +181,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
                            f"{err}")
     flash_attention_cuda.launches += 1
+    if q.dtype == torch.bfloat16 and dh_kernel in WGMMA_HEAD_DIMS:
+        flash_attention_cuda.wgmma_launches += 1
     if dh_kernel != dh:
         out = out[..., :dh].contiguous()
     return out if out.dtype == dtype else out.to(dtype)
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.wgmma_launches = 0

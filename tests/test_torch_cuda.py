@@ -744,6 +744,53 @@ def test_flash_attention_window_matches_plain(dev, dtype, atol, row_rtol):
                         assert rel <= row_rtol, what
 
 
+def _wgmma_case(dev, bh, group, s, causal, window=None):
+    """One bf16 dh-128 launch on the warpgroup-MMA design against the
+    plain version, at the bf16 bounds (atol 3e-2, each row within 4e-2 of
+    its largest value)."""
+    from repro_torch.compile.lowerings.common import require_full_float32
+    from repro_torch.kernels import flash_attention as fa
+
+    require_full_float32(dev)
+    g = torch.Generator(device=dev).manual_seed(s + 7 * (window or 0))
+    q = torch.randn(bh, s, 128, generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(bh // group, s, 128, generator=g, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    before = fa.flash_attention_cuda.wgmma_launches
+    got = ops.flash_attention(q, k, v, causal, window=window)
+    assert fa.flash_attention_cuda.wgmma_launches == before + 1
+    want = fa.flash_attention_plain(q, k, v, causal, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    diff = (got.float() - want.float()).abs()
+    what = (bh, group, s, causal, window)
+    assert float(diff.max()) <= 3e-2, what
+    rel = float((diff.amax(-1) / want.float().abs().amax(-1)
+                 .clamp_min(1e-30)).max())
+    assert rel <= 4e-2, what
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("bh,group,s", [(32, 4, 127), (32, 4, 128),
+                                        (32, 4, 129), (32, 4, 2170),
+                                        (32, 4, 8229), (4, 4, 24960)])
+def test_flash_attention_wgmma_matches_plain(dev, bh, group, s, causal):
+    """LLaVA's heads (32 query heads over 8 KV heads, G 4) at S around the
+    128-row tiles, vqa's shortest and a long document; longdoc's longest
+    (24960) on one KV head's 4 query heads, where the plain version's
+    float32 scores still fit."""
+    _wgmma_case(dev, bh, group, s, causal)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("window", [1, 127, 128, 129, 4096])
+def test_flash_attention_wgmma_window_matches_plain(dev, window, causal):
+    """Windows about the 128-key tiles and zamba2's 4096, grouped (G 4), at
+    a ragged S and one past the widest window."""
+    for s in (2170, 8229):
+        _wgmma_case(dev, 32, 4, s, causal, window)
+
+
 def test_zamba2_prefill_launches_the_windowed_kernel(dev):
     """A reduced zamba2 forward on the card: one flash_attention launch per
     shared-block call (window 64 at S 192), logits within 1e-4 of the same

@@ -11,6 +11,9 @@ near 2-4 is 1.6e-2).  The CUDA kernel itself is tested on the card in
 ``tests/test_torch_cuda.py``.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -251,3 +254,39 @@ def test_window_must_be_a_positive_int():
         with pytest.raises(ValueError, match="window"):
             tops.flash_attention(q, k, v, window=bad)
     assert tfa.check_window(None) == 0 and tfa.check_window(5) == 5
+
+
+_CSRC = Path(tfa.__file__).with_name("csrc") / "flash_attention.cu"
+_ROOFLINE = (Path(__file__).resolve().parents[1] / "bench" / "metrics"
+             / "flash_attention_roofline.py")
+
+
+def test_every_kernel_carries_the_name_the_roofline_metric_sums():
+    """The benchmark's ``flash_attention_roofline`` sums the device time of
+    kernels whose names hold its ``KERNEL``: each ``__global__`` function of
+    the source (the bfloat16 ones among them) must hold it, or the metric
+    reads null."""
+    name = re.search(r'^KERNEL = "(\w+)"', _ROOFLINE.read_text(), re.M)[1]
+    text = _CSRC.read_text()
+    kernels = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                         r"\s+)?(\w+)\s*\(", text)
+    bf16 = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                      r"\s+)?(\w+)\s*\(",
+                      text[text.index("namespace bf16 {"):
+                           text.index("}  // namespace bf16")])
+    assert bf16 and set(bf16) <= set(kernels)
+    assert all(name in k for k in kernels), (name, kernels)
+
+
+def test_wgmma_head_dims_match_the_launcher():
+    """The wrapper counts ``wgmma_launches`` for the head dims it believes
+    run on the warpgroup-MMA design: those are the source's ``bf16::Tile``
+    instances, and the launcher sends every bfloat16 instance there."""
+    text = _CSRC.read_text()
+    tiles = {int(d) for d in re.findall(r"template <>\s*struct Tile<(\d+)>",
+                                        text)}
+    assert tiles == set(tfa.WGMMA_HEAD_DIMS)
+    assert set(tfa.WGMMA_HEAD_DIMS) <= set(tfa.HEAD_DIMS)
+    cases = {int(d) for d in re.findall(r"case (\d+):", text)}
+    assert cases == set(tfa.HEAD_DIMS)
+    assert "return bf16::launch<DH>(" in text
