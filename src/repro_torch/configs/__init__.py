@@ -8,7 +8,8 @@ own classifier suite, not an LM architecture.
 """
 
 from .base import (ArchConfig, MLAConfig, MoEConfig, SHAPES, ShapeSpec,
-                   SSMConfig, get_config, list_configs, register)
+                   SharedBlockConfig, SSMConfig, Zamba2ArchConfig, get_config,
+                   list_configs, register)
 
 # Register every config the port runs (one module per arch).
 from . import starcoder2_15b  # noqa: F401
@@ -18,6 +19,7 @@ from . import qwen1_5_32b  # noqa: F401
 from . import grok_1_314b  # noqa: F401
 from . import deepseek_v3_671b  # noqa: F401
 from . import zamba2_7b  # noqa: F401
+from . import zamba2_7b_hf  # noqa: F401  (the published block; not an ARCH_ID)
 from . import llava_next_mistral_7b  # noqa: F401
 from . import rwkv6_1_6b  # noqa: F401
 from . import hubert_xlarge  # noqa: F401
@@ -30,5 +32,6 @@ ARCH_IDS = (
     "llava-next-mistral-7b", "rwkv6-1.6b", "hubert-xlarge",
 )
 
-__all__ = ["ArchConfig", "MoEConfig", "MLAConfig", "SSMConfig", "SHAPES",
+__all__ = ["ArchConfig", "MoEConfig", "MLAConfig", "SSMConfig",
+           "SharedBlockConfig", "Zamba2ArchConfig", "SHAPES",
            "ShapeSpec", "get_config", "list_configs", "register", "ARCH_IDS"]

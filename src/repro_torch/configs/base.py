@@ -17,8 +17,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple
 
-__all__ = ["ArchConfig", "MoEConfig", "MLAConfig", "SSMConfig", "SHAPES",
-           "ShapeSpec", "register", "get_config", "list_configs"]
+__all__ = ["ArchConfig", "MoEConfig", "MLAConfig", "SSMConfig",
+           "SharedBlockConfig", "Zamba2ArchConfig", "SHAPES", "ShapeSpec",
+           "register", "get_config", "list_configs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +53,21 @@ class SSMConfig:
     n_groups: int = 1
     chunk: int = 128  # SSD chunk length
     shared_attn_every: int = 6  # hybrid: shared attn block cadence (zamba2)
+
+
+@dataclasses.dataclass(frozen=True)
+class SharedBlockConfig:
+    """Zamba2's shared transformer blocks (``block_pattern="zamba2"``):
+    ``n_blocks`` blocks, called in turn before the Mamba2 mixer of each
+    layer in ``layers``, on the concatenation of the stream and the
+    embedding output (``d_attn`` = 2 d wide); each call has its own
+    ``adapter_rank`` adapter on the MLP's gate and up projections and its
+    own d x d output linear.  ``attn_scale`` multiplies the scores."""
+    d_attn: int
+    layers: Tuple[int, ...]
+    attn_scale: float
+    n_blocks: int = 2
+    adapter_rank: int = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,7 +108,7 @@ class ArchConfig:
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
-    block_pattern: str = "attn"  # 'attn' | 'mamba_hybrid' | 'rwkv'
+    block_pattern: str = "attn"  # 'attn' | 'mamba_hybrid' | 'zamba2' | 'rwkv'
     # modality frontends are stubs per assignment: inputs are precomputed
     # embeddings; n_prefix_embeds>0 means input_specs carries (B,N,d) floats.
     modality: Optional[str] = None  # None | 'vision' | 'audio'
@@ -108,6 +124,19 @@ class ArchConfig:
     @property
     def head_dim(self) -> int:
         return self.d_head or (self.d_model // self.n_heads)
+
+    # Fields of :class:`Zamba2ArchConfig` alone: properties here, so that
+    # this class keeps the reference's fields one for one (the parity
+    # tests compare the two field by field).
+    @property
+    def norm_eps(self) -> float:
+        """RMSNorm's eps (layernorm keeps its 1e-5)."""
+        return 1e-6
+
+    @property
+    def shared(self) -> Optional[SharedBlockConfig]:
+        """Zamba2's shared blocks (the ``zamba2`` pattern), else None."""
+        return None
 
     # -- parameter counting (for roofline MODEL_FLOPS = 6*N*D) ---------------
     def param_count(self, active_only: bool = False) -> int:
@@ -139,12 +168,19 @@ class ArchConfig:
                                    + d * mo.n_experts)  # router
         else:
             total += n_attn_layers * (per_layer + mlp_mult * d * self.d_ff)
-        if self.block_pattern == "mamba_hybrid" and self.ssm is not None:
+        if self.block_pattern in ("mamba_hybrid", "zamba2") \
+                and self.ssm is not None:
             s = self.ssm
             d_in = s.expand * d
             per_mamba = (d * (2 * d_in + 2 * s.n_groups * s.d_state + d_in // s.head_dim)
                          + d_in * s.d_conv + d_in * d + 2 * d)
             total += n_mamba_layers * per_mamba
+        if self.block_pattern == "zamba2":
+            sh, f = self.shared, self.d_ff
+            block = (sh.d_attn * (3 * self.n_heads * dh + 1)
+                     + self.n_heads * dh * d + d + 3 * d * f)
+            per_call = d * d + sh.adapter_rank * (d + 2 * f)
+            total += sh.n_blocks * block + len(sh.layers) * per_call
         if self.block_pattern == "rwkv":
             # time-mix (r,k,v,g,o + lora decay) + channel-mix per layer
             per_rwkv = d * d * 5 + d * 64 * 2 + d * self.d_ff + self.d_ff * d + 2 * d
@@ -160,6 +196,8 @@ class ArchConfig:
             return n_attn, self.n_layers - n_attn
         if self.block_pattern == "rwkv":
             return 0, 0
+        if self.block_pattern == "zamba2":
+            return 0, self.n_layers
         return self.n_layers, 0
 
     # -- shape/skip policy ----------------------------------------------------
@@ -182,7 +220,8 @@ class ArchConfig:
         """Smoke-test configuration of the same family."""
         kw = dict(
             name=self.name + "-smoke",
-            n_layers=min(self.n_layers, 4 if self.block_pattern != "mamba_hybrid" else 7),
+            n_layers=min(self.n_layers, 7 if self.block_pattern in (
+                "mamba_hybrid", "zamba2") else 4),
             d_model=128,
             n_heads=4,
             n_kv_heads=min(self.n_kv_heads, 2) if self.n_kv_heads < self.n_heads else 4,
@@ -209,7 +248,25 @@ class ArchConfig:
                                             chunk=32, shared_attn_every=3)
         if self.sliding_window:
             kw["sliding_window"] = 64
+        if self.shared is not None:
+            # three hybrid calls in 7 layers (both blocks run, block 0
+            # twice), chunk 32 with ngroups kept: a length that is not a
+            # multiple of 32 is ragged; heads of 2 d / n_heads, as
+            # published, with the published scale's rule (dh / 2)^-1/2
+            dh = 2 * kw["d_model"] // kw["n_heads"]
+            kw.update(d_head=dh, shared=dataclasses.replace(
+                self.shared, d_attn=2 * kw["d_model"], layers=(1, 3, 5),
+                attn_scale=(dh / 2) ** -0.5, adapter_rank=16))
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class Zamba2ArchConfig(ArchConfig):
+    """An :class:`ArchConfig` of the ``zamba2`` block pattern, with the
+    fields only the port has: the shared blocks and the RMSNorm eps the
+    model states."""
+    shared: Optional[SharedBlockConfig] = None
+    norm_eps: float = 1e-6
 
 
 _REGISTRY: Dict[str, ArchConfig] = {}

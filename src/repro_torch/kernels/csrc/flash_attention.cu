@@ -9,7 +9,8 @@
 // sum and accumulator of one query block in VMEM scratch across the KV axis.
 // Here one block owns one (bh, query tile) and walks the key tiles itself,
 // so the carry lives in registers.  What it computes is _kernel's function:
-//   scores q.k^T in float32, then * float32(1/sqrt(dh)) (the caller's scale);
+//   scores q.k^T in float32, then * the caller's scale (float32(1/sqrt(dh))
+//   unless the model states another);
 //   masked entries set to -1e30, not -inf;
 //   online m, l, acc in float32: m' = max(m, rowmax(s)), alpha = exp(m - m'),
 //   p = exp(s - m'), l = l*alpha + rowsum(p), acc = acc*alpha + p.v;
@@ -51,13 +52,14 @@
 //     its registers (setmaxnreg), and two consumers of 64 rows each, which
 //     take them;
 //   * Q (128 rows) is loaded once; K and V tiles of BK keys (128 at dh 32
-//     and 64, 96 at dh 128, 48 at dh 192: a consumer holds S, P and O at
-//     once, in the ~180 registers ptxas grants it) pass through a
-//     two-stage ring with a full and an empty mbarrier per tile and stage,
-//     so a consumer starts Q.K^T as soon as K lands.  The tensor maps are
-//     3-D, (dh, S, rows), with the swizzle wgmma's shared-memory
-//     descriptors read (128 bytes; 64 at dh 32): a tile is loaded as dh/64
-//     column chunks of 128-byte rows (dh 32: one of 64-byte rows).  Rows past S come back zero-filled;
+//     and 64, 96 at dh 128, 48 at dh 192 and 224: a consumer holds
+//     S, P and O at once, in the ~180 registers ptxas grants it) pass
+//     through a two-stage ring with a full and an empty mbarrier per tile
+//     and stage, so a consumer starts Q.K^T as soon as K lands.  The tensor
+//     maps are 3-D, (dh, S, rows), with the swizzle wgmma's shared-memory
+//     descriptors read (128 bytes; 64 at dh 32 and 224): a tile is loaded
+//     as dh/64 column chunks of 128-byte rows (dh 32 and 224: dh/32 chunks
+//     of 64-byte rows).  Rows past S come back zero-filled;
 //     K/V are read at row bh / G;
 //   * S = Q.K^T is one wgmma m64nBKk16 per 16 dims, both operands in shared
 //     memory, float32 accumulators.  P becomes bf16 in registers, the A
@@ -317,6 +319,15 @@ template <>
 struct Tile<192> {
   static constexpr int kBK = 48, kSw = 128;
 };
+// dh 224 is 3.5 chunks of 128-byte rows: it takes 64-byte rows, seven
+// chunks of 32 columns, each a whole swizzle atom, so Q.K^T is 14 k-steps
+// and P.V one m64n224 wgmma with nothing padded.  O is 112 floats a
+// thread; 48-key tiles (S 24, P 12) stay unserialized and unspilled, and
+// ran 0.471 ms against 32-key tiles' 0.547 at (BH 32, S 4096), causal.
+template <>
+struct Tile<224> {
+  static constexpr int kBK = 48, kSw = 64;
+};
 
 // Shared memory, in bytes from a 1024-aligned base: the Q tile, kStages K
 // tiles, kStages V tiles, then the mbarriers.  A tile of R rows is dh/kCols
@@ -469,6 +480,25 @@ template <int N>
 struct QkMma;
 template <int N>
 struct PvMma;
+
+template <>
+struct QkMma<32> {
+  // d (+)= A . B^T, A and B K-major in shared memory (descriptors)
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
 
 template <>
 struct QkMma<48> {
@@ -662,6 +692,52 @@ struct PvMma<192> {
         "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
         "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
         "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct PvMma<224> {
+  // d += A . B, A (bf16 pairs) in registers, B MN-major in shared memory
+  static __device__ __forceinline__ void rs(float (&d)[112],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %117, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, "
+      "%106, %107, %108, %109, %110, %111}, "
+      "{%112, %113, %114, %115}, %116, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 };
@@ -1079,10 +1155,11 @@ int launch_dtype(const void* q, const void* k, const void* v, void* o, int bh,
 // q, o: contiguous (bh, s, dh) tensors; k, v: contiguous (bh / group, s, dh)
 // tensors, all of one type and 16-byte aligned, o not overlapping the
 // inputs.  Query row r reads key/value row r / group.  dtype: 0 float32,
-// 1 bfloat16.  dh: 32, 64, 128 or 192 (MLA's 128 + 64 rotary dims; the
+// 1 bfloat16.  dh: 32, 64, 128, 192 (MLA's 128 + 64 rotary dims; the
 // 192 instance holds 96 float32 accumulators a thread in bf16 and 161.5 KB
-// of shared memory in float32).  scale: float32(1/sqrt(dh)).  causal: 0
-// or 1.  window: the sliding window (q - k >= window masked), <= 0 for
+// of shared memory in float32) or 224 (Zamba2's shared block: 112
+// accumulators in bf16, 185.5 KB in float32).  scale: the scores' factor,
+// float32(1/sqrt(dh)) unless the model states another.  causal: 0 or 1.  window: the sliding window (q - k >= window masked), <= 0 for
 // none.  Launches on the calling thread's current device.  Returns the CUDA
 // error code of the launch (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -1106,6 +1183,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                window, group, st);
     case 192:
       return launch_dtype<192>(q, k, v, o, bh, s, dtype, scale, causal,
+                               window, group, st);
+    case 224:
+      return launch_dtype<224>(q, k, v, o, bh, s, dtype, scale, causal,
                                window, group, st);
     default:
       return (int)cudaErrorInvalidValue;

@@ -23,18 +23,21 @@ versions of the same function:
   turns on the tensor cores (``wgmma``: Q.K^T from shared memory, P.V with
   P in registers); in float32 one block owns 64 rows and the products stay
   on the CUDA cores (TF32 would not hold the float32 tolerance).  Its
-  instances take dh in {32, 64, 128, 192} (192: MLA's 128 + 64 rotary
-  query/key dims, with v zero-padded to it by the caller), every one of
-  them on the ``wgmma`` design in bfloat16 (:data:`WGMMA_HEAD_DIMS`): a
-  head dim between them is zero-padded to the next instance
-  (:func:`pad_head_dim`; zeros add nothing to q.k or to the output's first
-  dh columns, and the scale stays ``1/sqrt(dh)`` of the true dh), and the
-  output is sliced back; dh above 192 raises.  float32 and bfloat16 run
+  instances take dh in {32, 64, 128, 192, 224} (192: MLA's 128 + 64 rotary
+  query/key dims, with v zero-padded to it by the caller; 224: Zamba2's
+  shared block), every one of them on the ``wgmma`` design in bfloat16
+  (:data:`WGMMA_HEAD_DIMS`): a head dim between them is zero-padded to the
+  next instance (:func:`pad_head_dim`; zeros add nothing to q.k or to the
+  output's first dh columns, and the default scale stays ``1/sqrt(dh)`` of
+  the true dh), and the output is sliced back; dh above 224 raises.  The
+  scores' ``scale`` defaults to ``float32(1/sqrt(dh))``; a model that states
+  another (Zamba2's ``(dh/2)^-1/2``) passes it.  float32 and bfloat16 run
   their own instances; any other float dtype (float16, float64) computes
   on the float32 instance and is cast back, as the reference computes in
   float32.  Unlike the TPU kernel it takes any S (ragged edges are
   masked).  It counts its launches in ``flash_attention_cuda.launches``,
-  and those on the ``wgmma`` design also in ``.wgmma_launches``.
+  those on the ``wgmma`` design also in ``.wgmma_launches``, and those on
+  the dh-224 instance (either dtype) in ``.dh224_launches``.
 * :func:`flash_attention_plain` repeats K/V to the query heads and
   materializes the (BH, S, S) scores in float32 in PyTorch ops (the oracle
   :func:`repro_torch.kernels.ref.flash_attention_ref`), on any device.
@@ -58,10 +61,10 @@ __all__ = ["flash_attention_plain", "flash_attention_cuda", "check_shapes",
            "check_window", "expand_kv", "pad_head_dim", "HEAD_DIMS",
            "WGMMA_HEAD_DIMS", "REPLACES"]
 
-HEAD_DIMS = (32, 64, 128, 192)  # the kernel's template instances
+HEAD_DIMS = (32, 64, 128, 192, 224)  # the kernel's template instances
 # the bfloat16 instances on the warpgroup-MMA design (``bf16::Tile`` in
 # the source)
-WGMMA_HEAD_DIMS = (32, 64, 128, 192)
+WGMMA_HEAD_DIMS = (32, 64, 128, 192, 224)
 REPLACES = "src/repro/kernels/flash_attention.py:71"  # flash_attention_pallas
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -115,18 +118,20 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                causal, scale, window)
 
 
-def pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+def pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 scale: float | None = None):
     """(q, k, v, scale) with the head dim zero-padded to the kernel's next
-    instance (:data:`HEAD_DIMS`) and ``scale = float32(1/sqrt(dh))`` of the
-    true dh: attention over the padded tensors, sliced to the first dh
-    output columns, is attention over the given ones.  Raises for dh above
-    the largest instance."""
+    instance (:data:`HEAD_DIMS`) and ``scale`` (default ``float32(1/sqrt(dh))``
+    of the true dh): attention over the padded tensors, sliced to the first
+    dh output columns, is attention over the given ones.  Raises for dh
+    above the largest instance."""
     dh = q.shape[-1]
     fit = [d for d in HEAD_DIMS if d >= dh]
     if not fit:
         raise ValueError(f"flash_attention_cuda takes head dims up to "
                          f"{HEAD_DIMS[-1]} (instances {HEAD_DIMS}), got {dh}")
-    scale = float(np.float32(1.0 / math.sqrt(dh)))
+    if scale is None:
+        scale = float(np.float32(1.0 / math.sqrt(dh)))
     if fit[0] != dh:
         pad = (0, fit[0] - dh)
         q, k, v = (torch.nn.functional.pad(t, pad) for t in (q, k, v))
@@ -150,10 +155,11 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True,
-                         window: int | None = None) -> torch.Tensor:
+                         causal: bool = True, window: int | None = None,
+                         scale: float | None = None) -> torch.Tensor:
     """Launch the CUDA kernel on a (BH, S, dh) q and (BH / G, S, dh) k and v
-    on one CUDA device, within a sliding ``window`` when one is given;
+    on one CUDA device, within a sliding ``window`` when one is given, the
+    scores multiplied by ``scale`` (default ``float32(1/sqrt(dh))``);
     returns a new (BH, S, dh) tensor of ``q``'s dtype."""
     group = check_shapes(q, k, v)
     win = check_window(window)
@@ -166,7 +172,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype, dh = q.dtype, q.shape[-1]
     if dtype not in _DTYPES:  # float16, float64: the float32 instance
         q, k, v = q.float(), k.float(), v.float()
-    q, k, v, scale = pad_head_dim(q, k, v)
+    q, k, v, scale = pad_head_dim(q, k, v, scale)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     bh, s, dh_kernel = q.shape
     out = torch.empty_like(q)
@@ -183,6 +189,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     flash_attention_cuda.launches += 1
     if q.dtype == torch.bfloat16 and dh_kernel in WGMMA_HEAD_DIMS:
         flash_attention_cuda.wgmma_launches += 1
+    if dh_kernel == 224:
+        flash_attention_cuda.dh224_launches += 1
     if dh_kernel != dh:
         out = out[..., :dh].contiguous()
     return out if out.dtype == dtype else out.to(dtype)
@@ -190,3 +198,4 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.wgmma_launches = 0
+flash_attention_cuda.dh224_launches = 0

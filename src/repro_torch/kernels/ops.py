@@ -404,15 +404,20 @@ def tree_predict(tree: TreeArrays, x: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, impl: str = "cuda",
-                    window: Optional[int] = None) -> torch.Tensor:
+                    window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
     """(BH, S, dh) softmax attention, causal or full, any S, in one
     dispatch; float32 or bfloat16.  k and v hold BH / G rows, G >= 1: query
     row ``bh`` reads key/value row ``bh // G`` (G = 1 is the JAX kernel's
     equal-shape signature).  ``window`` (an int >= 1) masks the scores
-    where ``q - k >= window``: a sliding window, causal or not."""
+    where ``q - k >= window``: a sliding window, causal or not.  ``scale``
+    multiplies the scores (default ``float32(1/sqrt(dh))``)."""
     _tick()
     route = _route(impl, q)
+    # a scale only where the caller states one: the default calls stay as
+    # they were
+    extra = {} if scale is None else {"scale": scale}
     if route == "cuda":
         _no_backward("flash_attention", q, k, v)
-        return flash_attention_cuda(q, k, v, causal, window)
-    return flash_attention_plain(q, k, v, causal, window=window)
+        return flash_attention_cuda(q, k, v, causal, window, **extra)
+    return flash_attention_plain(q, k, v, causal, window=window, **extra)

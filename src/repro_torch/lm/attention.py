@@ -56,8 +56,9 @@ __all__ = ["attn_params", "attention", "blockwise_attention",
 _NEG_INF = -1e30
 
 
-def _scale(dh: int) -> float:
-    return float(np.float32(1.0 / math.sqrt(dh)))
+def _scale(dh: int, scale: Optional[float] = None) -> float:
+    """``scale``, or the default ``float32(1/sqrt(dh))``."""
+    return float(np.float32(1.0 / math.sqrt(dh))) if scale is None else scale
 
 
 def attn_params(generator: torch.Generator, d: int, n_heads: int,
@@ -97,16 +98,18 @@ def _grouped_out(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool, chunk: int,
-                        window: Optional[int] = None) -> torch.Tensor:
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
     """Streaming-softmax attention, chunk by chunk (the reference's scan).
 
     q: (B, S, Hq, dh); k, v: (B, S, Hkv, dh).  Returns (B, S, Hq, dh).
     ``chunk`` must divide S.  ``window``: sliding-window size (None = full).
+    ``scale``: the scores' factor (default ``float32(1/sqrt(dh))``).
     """
     b, s, hq, dh = q.shape
     hkv = k.shape[2]
     g = hq // hkv
-    scale = _scale(dh)
+    scale = _scale(dh, scale)
     n = s // chunk
     qg = q.reshape(b, s, hkv, g, dh)
     base = torch.arange(chunk, device=q.device)
@@ -148,12 +151,13 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   causal: bool, window: Optional[int] = None) -> torch.Tensor:
+                   causal: bool, window: Optional[int] = None,
+                   scale: Optional[float] = None) -> torch.Tensor:
     """Materialized-scores attention for short sequences."""
     b, s, hq, dh = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, s, hkv, hq // hkv, dh)
-    scores = _grouped_scores(qg, k) * _scale(dh)
+    scores = _grouped_scores(qg, k) * _scale(dh, scale)
     pos = torch.arange(s, device=q.device)
     mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
     if causal:
@@ -168,7 +172,8 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _kernel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       causal: bool, impl: str,
-                      window: Optional[int] = None) -> torch.Tensor:
+                      window: Optional[int] = None,
+                      scale: Optional[float] = None) -> torch.Tensor:
     """One ``flash_attention`` dispatch over (B*Hq, S, dh) queries and
     (B*Hkv, S, dh) keys and values: the kernel groups the G = Hq / Hkv
     query heads of each KV head itself (query head h reads KV head h // G,
@@ -178,8 +183,10 @@ def _kernel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     def fold(t):  # (B, S, H, dh) -> contiguous (B*H, S, dh)
         return t.transpose(1, 2).reshape(b * t.shape[2], s, dh)
 
+    # the kernel's default scale unless the model states another
+    extra = {} if scale is None else {"scale": scale}
     out = ops.flash_attention(fold(q), fold(k), fold(v), causal, impl=impl,
-                              window=window)
+                              window=window, **extra)
     return out.view(b, hq, s, dh).transpose(1, 2)
 
 
@@ -207,20 +214,29 @@ def _local(fn, outs: int, *xs):
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             positions: Optional[torch.Tensor], rope_theta: float,
             causal: bool, chunk: int, window: Optional[int],
-            impl: str) -> torch.Tensor:
+            impl: str, scale: Optional[float] = None,
+            cache: Optional[Dict] = None) -> torch.Tensor:
     """RoPE and attention over (B, S, H, dh) heads: the kernel on a CUDA
-    tensor (but for ``impl="train"``), else the reference's branch."""
+    tensor (but for ``impl="train"``), else the reference's branch.
+    ``cache``: a KV cache slot whose first S positions take the roped keys
+    and the values."""
     s = q.shape[1]
     if positions is None:
         positions = torch.arange(s, device=q.device)[None, :]
     with span("lm.rope"):
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
+    if cache is not None:
+        if "k" not in cache:
+            raise ValueError("a prefill writes a bfloat16 or float32 KV "
+                             "cache, not an int8 one")
+        cache["k"][:, :s].copy_(k)
+        cache["v"][:, :s].copy_(v)
     if impl != "train" and on_card(q):
-        return _kernel_attention(q, k, v, causal, impl, window)
+        return _kernel_attention(q, k, v, causal, impl, window, scale)
     if s % chunk == 0 and s > chunk:
-        return blockwise_attention(q, k, v, causal, chunk, window)
-    return full_attention(q, k, v, causal, window)
+        return blockwise_attention(q, k, v, causal, chunk, window, scale)
+    return full_attention(q, k, v, causal, window, scale)
 
 
 def attention(params: Dict, x: torch.Tensor, *, n_heads: int,
@@ -228,19 +244,23 @@ def attention(params: Dict, x: torch.Tensor, *, n_heads: int,
               causal: bool = True, chunk: int = 1024,
               window: Optional[int] = None,
               positions: Optional[torch.Tensor] = None,
-              impl: str = "cuda", rules: "Optional[Rules]" = None
-              ) -> torch.Tensor:
+              impl: str = "cuda", rules: "Optional[Rules]" = None,
+              scale: Optional[float] = None,
+              cache: Optional[Dict] = None) -> torch.Tensor:
     """Self-attention over a full sequence (prefill).  ``impl`` is the
     kernel route on a CUDA tensor (``"cuda"`` launches the kernel, ``"ref"``
     computes its function through the materialized-scores oracle);
-    ``"train"`` takes the reference's branch on any device.  Under
-    ``rules`` the heads attend on each rank's local shard (the module
-    docstring)."""
+    ``"train"`` takes the reference's branch on any device.  ``scale``: the
+    scores' factor (default ``float32(1/sqrt(head_dim))``).  ``cache``: a
+    KV cache slot (B, L >= S, Hkv, dh) whose first S positions are written
+    with the roped keys and the values (a prefill into the decode cache;
+    not under rules).  Under ``rules`` the heads attend on each rank's
+    local shard (the module docstring)."""
     q, k, v = _project(params, x, n_heads, n_kv_heads, rules)
 
     def attend(q, k, v):
         return _attend(q, k, v, positions, rope_theta, causal, chunk, window,
-                       impl)
+                       impl, scale, cache)
 
     if rules is None:
         out = attend(q, k, v)
@@ -298,9 +318,11 @@ def decode_attention(params: Dict, x: torch.Tensor, cache: Dict,
                      position: torch.Tensor, *, n_heads: int,
                      n_kv_heads: int, head_dim: int, rope_theta: float,
                      window: Optional[int] = None,
-                     rules: "Optional[Rules]" = None
+                     rules: "Optional[Rules]" = None,
+                     scale: Optional[float] = None
                      ) -> Tuple[torch.Tensor, Dict]:
-    """One-token decode.  x: (B, 1, d); cache K/V: (B, L, Hkv, dh);
+    """One-token decode (``scale``: the scores' factor, default
+    ``float32(1/sqrt(head_dim))``).  x: (B, 1, d); cache K/V: (B, L, Hkv, dh);
     ``position``: a 0-d integer tensor.
 
     Full-length cache (L > position): write at ``position`` in place and
@@ -321,7 +343,8 @@ def decode_attention(params: Dict, x: torch.Tensor, cache: Dict,
 
     def step(q, k_new, v_new, position, *entries):
         out, new = _decode_step(q, k_new, v_new, dict(zip(keys, entries)),
-                                position, head_dim, rope_theta, window)
+                                position, head_dim, rope_theta, window,
+                                scale)
         return (out,) + tuple(new[k] for k in keys)
 
     if rules is None:
@@ -341,7 +364,7 @@ def decode_attention(params: Dict, x: torch.Tensor, cache: Dict,
 
 
 def _decode_step(q, k_new, v_new, cache, position, head_dim, rope_theta,
-                 window):
+                 window, scale=None):
     """:func:`decode_attention` between its projections: RoPE at
     ``position``, the cache update and the attention -> (float32 (B, 1, Hq,
     dh) heads, the new cache entries)."""
@@ -384,7 +407,7 @@ def _decode_step(q, k_new, v_new, cache, position, head_dim, rope_theta,
         new_cache = {"k": k, "v": v}
     hkv = k.shape[2]  # this rank's KV heads (all of them but on a mesh)
     qg = q.reshape(b, 1, hkv, q.shape[2] // hkv, head_dim)
-    scores = _grouped_scores(qg, k) * _scale(head_dim)  # (B,Hkv,G,1,L)
+    scores = _grouped_scores(qg, k) * _scale(head_dim, scale)  # (B,Hkv,G,1,L)
     idx = torch.arange(L, device=q.device)
     valid = idx[None, :] <= slot
     if window is not None and not windowed:

@@ -161,10 +161,13 @@ def make_norm_params(kind: str, d: int, dtype: torch.dtype,
     return {"scale": z(), "bias": z()}
 
 
-def apply_norm(kind: str, p: Dict, x: torch.Tensor) -> torch.Tensor:
+def apply_norm(kind: str, p: Dict, x: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """The config's norm; ``eps`` is RMSNorm's (``ArchConfig.norm_eps``),
+    layernorm keeps its own 1e-5."""
     with span("lm.norm"):
         if kind == "rmsnorm":
-            return rmsnorm(x, p["scale"])
+            return rmsnorm(x, p["scale"], eps)
         return layernorm(x, p["scale"], p["bias"])
 
 
@@ -213,7 +216,8 @@ def apply_linear(p: Dict, x: torch.Tensor) -> torch.Tensor:
 
 def activation_fn(name: str, gate_sigmoid: str = "exact",
                   fused: bool = True) -> Callable:
-    """silu/gelu/relu/relu2; silu routes through the (possibly PWL) sigmoid
+    """silu/gelu (tanh-approximate, as the reference)/gelu_exact (erf)/
+    relu/relu2; silu routes through the (possibly PWL) sigmoid
     (:func:`gated_silu`), or op by op when ``fused`` is False (the
     training route: the gate's kernel has no backward).  On a DTensor each
     activation runs on each rank's local shard, a partial sum reduced first
@@ -227,6 +231,8 @@ def activation_fn(name: str, gate_sigmoid: str = "exact",
             fn = lambda t: gated_silu(t, gate_sigmoid)
     elif name == "gelu":
         fn = lambda t: F.gelu(t, approximate="tanh")
+    elif name == "gelu_exact":
+        fn = F.gelu
     elif name == "relu":
         fn = torch.relu
     elif name == "relu2":

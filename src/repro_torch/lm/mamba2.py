@@ -53,6 +53,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
 from repro_torch.sharding.rules import shard
+from repro_torch.spans import span
 
 from .layers import (activation_fn, draw_device, gated_silu, init_linear,
                      local_heads, rmsnorm, wval)
@@ -61,7 +62,7 @@ if TYPE_CHECKING:
     from repro_torch.sharding.rules import Rules
 
 __all__ = ["mamba2_params", "mamba2_forward", "mamba2_decode",
-           "init_mamba_cache", "FLOAT32_LEAVES"]
+           "init_mamba_cache", "ssd_scan", "FLOAT32_LEAVES"]
 
 # leaves the reference keeps in float32 whatever the model's dtype
 FLOAT32_LEAVES = ("A_log", "dt_bias", "D")
@@ -113,6 +114,14 @@ def _ssd_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     """The SSD scan.  x: (B, L, H, P); a: (B, L, H) (= dt * A, negative);
     b, c: (B, L, H, N) (groups expanded to heads); ``chunk`` divides L.
     Returns (B, L, H, P) float32."""
+    return _ssd_chunks(x, a, b, c, chunk)[0]
+
+
+def _ssd_chunks(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                c: torch.Tensor, chunk: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_ssd_chunked`'s y and the state after the last position
+    (B, H, P, N) float32."""
     bsz, length, h, p = x.shape
     n = b.shape[-1]
     nc = length // chunk
@@ -145,7 +154,31 @@ def _ssd_chunked(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     state_decay_out = torch.exp(a_cumsum).permute(0, 2, 3, 1)  # (B,nc,l,H)
     y_off = torch.einsum("bclhn,bchpn->bclhp", cs, prev_states)
     y = y_diag + y_off * state_decay_out[..., None]
-    return y.reshape(bsz, length, h, p)
+    return y.reshape(bsz, length, h, p), new_states[:, -1]
+
+
+def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor, chunk: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_ssd_chunks` at any L: one chunk of L where L <= ``chunk``;
+    else x and a padded with zeros after the last position up to a multiple
+    of ``chunk`` (a = dt * A = 0 keeps the carried state as it is, x = 0
+    adds nothing to it: the final state is the last real position's), and
+    y sliced back.  The padded positions are counted in
+    ``ssd_scan.padded_positions`` (a sum over the batch's rows)."""
+    bsz, length = x.shape[:2]
+    if length <= chunk:
+        return _ssd_chunks(x, a, b, c, length)
+    pad = -length % chunk
+    if not pad:
+        return _ssd_chunks(x, a, b, c, chunk)
+    ssd_scan.padded_positions += bsz * pad
+    x, b, c = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, b, c))
+    y, final = _ssd_chunks(x, F.pad(a, (0, 0, 0, pad)), b, c, chunk)
+    return y[:, :length], final
+
+
+ssd_scan.padded_positions = 0
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
@@ -200,11 +233,13 @@ def _share(t: torch.Tensor, sizes, part: int, parts: int) -> torch.Tensor:
 
 def _scan(part: int, parts: int, proj: torch.Tensor, conv_w, conv_b,
           dt_bias, a_log, d_skip, d_in: int, n_heads: int, s: SSMConfig,
-          gate) -> torch.Tensor:
+          gate, state: Optional[Dict] = None) -> torch.Tensor:
     """The layer between its projections, on ``part`` of ``parts`` of the
     heads (all of them for one part): the conv, the SSD scan and the
     output gate.  proj: (B, L, d_proj), whole; the leaves whole.  Returns
-    ``y * gate(z)`` (B, L, d_in / parts) in proj's dtype."""
+    ``y * gate(z)`` (B, L, d_in / parts) in proj's dtype.  ``state`` (one
+    part only): a decode cache's ``conv`` and ``ssm`` buffers, written with
+    the state after the last position."""
     gn = s.n_groups * s.d_state
     h, g, di = n_heads // parts, s.n_groups // parts, d_in // parts
     channels = (d_in, gn, gn)
@@ -216,6 +251,9 @@ def _scan(part: int, parts: int, proj: torch.Tensor, conv_w, conv_b,
     dt_bias, a_log, d_skip = (_share(t, (n_heads,), part, parts)
                               for t in (dt_bias, a_log, d_skip))
     bsz, length, _ = proj.shape
+    if state is not None:  # the conv's last d_conv - 1 inputs
+        hist = F.pad(xbc, (0, 0, max(0, s.d_conv - 1 - length), 0))
+        state["conv"].copy_(hist[:, hist.shape[1] - (s.d_conv - 1):])
     xbc = gate(_causal_conv(xbc, conv_w, conv_b))
     xi = xbc[..., :di]
     bmat = xbc[..., di:di + g * s.d_state].reshape(bsz, length, g, s.d_state)
@@ -227,7 +265,10 @@ def _scan(part: int, parts: int, proj: torch.Tensor, conv_w, conv_b,
     bh = _expand_groups(bmat, h, g).to(torch.float32)
     ch = _expand_groups(cmat, h, g).to(torch.float32)
 
-    y = _ssd_chunked(xh * dt[..., None], dt * a, bh, ch, min(s.chunk, length))
+    with span("lm.ssd"):
+        y, final = ssd_scan(xh * dt[..., None], dt * a, bh, ch, s.chunk)
+    if state is not None:
+        state["ssm"].copy_(final)
     y = y + d_skip[:, None] * xh
     y = y.reshape(bsz, length, di).to(proj.dtype)
     return y * gate(z)
@@ -248,31 +289,50 @@ def _heads_placed(x, dim: int, heads):
     return out
 
 
+def _gated_norm(y: torch.Tensor, scale: torch.Tensor, groups: int,
+                eps: float) -> torch.Tensor:
+    """RMSNorm of the gated ``y`` over each of ``groups`` equal slices of
+    d_in (mamba_ssm's ``RMSNormGated(group_size=d_in / ngroups)``); one
+    group is the whole of d_in."""
+    if groups == 1:
+        return rmsnorm(y, scale, eps)
+    shape = y.shape
+    yg = y.reshape(shape[:-1] + (groups, shape[-1] // groups))
+    return rmsnorm(yg, scale.reshape(groups, -1), eps).reshape(shape)
+
+
 def mamba2_forward(p: Dict, x: torch.Tensor, d_model: int, s: SSMConfig,
                    gate_sigmoid: str = "exact", fused: bool = True,
-                   rules: "Optional[Rules]" = None) -> torch.Tensor:
-    """Full-sequence forward.  x: (B, L, d) -> (B, L, d); L a multiple of
-    ``min(s.chunk, L)``, as the reference's reshape requires.  Under
-    ``rules`` (x a DTensor, its batch on the data axes) the conv, the scan
-    and the gate run in one ``local_map`` on each rank's batch rows and
+                   rules: "Optional[Rules]" = None, norm_groups: int = 1,
+                   eps: float = 1e-6,
+                   state: Optional[Dict] = None) -> torch.Tensor:
+    """Full-sequence forward.  x: (B, L, d) -> (B, L, d), any L
+    (:func:`ssd_scan` pads the scan to a multiple of the chunk).  The gated
+    norm runs over ``norm_groups`` slices of d_in with ``eps``.  ``state``:
+    a decode cache's ``conv`` and ``ssm`` buffers for this layer, written
+    with the state after the last position (prefill; not under rules).
+    Under ``rules`` (x a DTensor, its batch on the data axes) the conv, the
+    scan and the gate run in one ``local_map`` on each rank's batch rows and
     heads (the module docstring)."""
-    d_in, n_heads, _ = _dims(d_model, s)
-    proj = x @ wval(p["in_proj"], x.dtype)
-    gate = activation_fn("silu", gate_sigmoid, fused)
+    with span("lm.mamba"):
+        d_in, n_heads, _ = _dims(d_model, s)
+        proj = x @ wval(p["in_proj"], x.dtype)
+        gate = activation_fn("silu", gate_sigmoid, fused)
 
-    def scan(part, parts, proj, *leaves):
-        return _scan(part, parts, proj, *leaves, d_in, n_heads, s, gate)
+        def scan(part, parts, proj, *leaves):
+            return _scan(part, parts, proj, *leaves, d_in, n_heads, s, gate,
+                         state)
 
-    if rules is None:
-        y = scan(0, 1, proj, *_leaves(p))
-    else:
-        heads = _heads_axis(rules, n_heads, s)
-        # whole columns: a shard of z | xBC | dt is not head-aligned
-        proj = shard(proj, ("batch", None, None), rules)
-        y = local_heads(scan, [_heads_placed(proj, 2, heads)], [proj],
-                        _leaves(p), heads is not None, whole=(0,))
-    y = rmsnorm(y, p["norm_scale"])
-    return y @ wval(p["out_proj"], y.dtype)
+        if rules is None:
+            y = scan(0, 1, proj, *_leaves(p))
+        else:
+            heads = _heads_axis(rules, n_heads, s)
+            # whole columns: a shard of z | xBC | dt is not head-aligned
+            proj = shard(proj, ("batch", None, None), rules)
+            y = local_heads(scan, [_heads_placed(proj, 2, heads)], [proj],
+                            _leaves(p), heads is not None, whole=(0,))
+        y = _gated_norm(y, p["norm_scale"], norm_groups, eps)
+        return y @ wval(p["out_proj"], y.dtype)
 
 
 def init_mamba_cache(batch: int, d_model: int, s: SSMConfig,
@@ -337,15 +397,16 @@ def _step(part: int, parts: int, proj: torch.Tensor, conv: torch.Tensor,
 
 def mamba2_decode(p: Dict, x: torch.Tensor, cache: Dict, d_model: int,
                   s: SSMConfig, gate_sigmoid: str = "exact",
-                  rules: "Optional[Rules]" = None
-                  ) -> Tuple[torch.Tensor, Dict]:
+                  rules: "Optional[Rules]" = None, norm_groups: int = 1,
+                  eps: float = 1e-6) -> Tuple[torch.Tensor, Dict]:
     """One-token recurrent step.  x: (B, 1, d) -> (B, 1, d); ``cache``'s
     ``conv`` and ``ssm`` buffers are updated in place and returned.  Under
     ``rules`` the step runs on each rank's batch rows and heads through one
     ``local_map``: on the cache's local shards where it is placed as the
     step reads it (the batch on the data axes, the conv's channels whole,
     the SSM state's heads on ``model`` with the rank's heads), else on a
-    copy placed so, written back into the cache."""
+    copy placed so, written back into the cache.  ``norm_groups`` and
+    ``eps``: the gated norm's, as in :func:`mamba2_forward`."""
     d_in, n_heads, _ = _dims(d_model, s)
     proj = x[:, 0] @ wval(p["in_proj"], x.dtype)  # (B, d_proj)
 
@@ -370,6 +431,6 @@ def mamba2_decode(p: Dict, x: torch.Tensor, cache: Dict, d_model: int,
             if v.to_local().data_ptr() != cache[k].to_local().data_ptr():
                 cache[k].copy_(v.redistribute(v.device_mesh,
                                               cache[k].placements))
-    y = rmsnorm(y, p["norm_scale"])
+    y = _gated_norm(y, p["norm_scale"], norm_groups, eps)
     out = (y @ wval(p["out_proj"], y.dtype))[:, None, :]
     return out, cache

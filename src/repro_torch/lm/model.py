@@ -14,6 +14,13 @@ patterns:
   followed by one *shared* attention + MLP block (the same parameters at
   every call, with the config's sliding window), then a tail of the
   remaining Mamba2 layers;
+* ``zamba2`` (Zamba2-7B as published): ``n_layers`` Mamba2 layers; before
+  the mixer of each layer in ``cfg.shared.layers`` one of the shared
+  blocks of :mod:`.zamba2` runs, in turn, on the stream joined with the
+  embedding output, and its output (through the call's own linear) joins
+  x at the Mamba2 input only: ``x <- x + mamba(norm(x + linear(block(x,
+  emb))))``; the gated norm over the config's ``n_groups``.  No mesh route;
+  :func:`prefill` fills its decode cache;
 * ``rwkv``: a stack of RWKV-6 layers (:mod:`.rwkv6`).
 
 The parameter tree keeps the reference's layout — nested dicts, the layers
@@ -32,6 +39,7 @@ Public API:
   init_cache(cfg, batch, max_len, device) -> decode cache tree
   cache_specs(cfg, rules, batch, max_len) -> matching spec tree
   serve_step(params, cache, batch, cfg)  -> (logits, cache)
+  prefill(params, batch, cfg, max_len)   -> (logits, cache) (zamba2)
   input_specs(cfg, shape)                -> dict of meta-tensor stand-ins
 
 **On a mesh.**  ``forward``, ``loss_fn`` and ``serve_step`` take ``rules``
@@ -84,6 +92,7 @@ WKV state and shifts) and returns the same buffers under an advanced
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -98,13 +107,14 @@ from . import mamba2 as mamba_mod
 from . import mla as mla_mod
 from . import moe as moe_mod
 from . import rwkv6 as rwkv_mod
+from . import zamba2 as zamba2_mod
 from .layers import (apply_linear, apply_mlp, apply_norm, draw_device,
                      draws_on, embed_tokens, init_embed, init_linear,
                      make_norm_params, mlp_params)
 
 __all__ = ["init_params", "forward", "loss_fn", "init_cache", "serve_step",
-           "float32_leaf", "cast_params_", "ATTN_IMPLS", "abstract_params",
-           "param_specs", "input_specs", "cache_specs"]
+           "prefill", "float32_leaf", "cast_params_", "ATTN_IMPLS",
+           "abstract_params", "param_specs", "input_specs", "cache_specs"]
 
 # Attention routes of the layer stack: "cuda" launches the flash_attention
 # kernel on a CUDA tensor, "ref" computes the kernel's function through its
@@ -175,6 +185,11 @@ def _n_layers(stacked: Dict) -> int:
     return leaf.shape[0]
 
 
+def _norm(cfg: ArchConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    """The config's norm with its RMSNorm eps."""
+    return apply_norm(cfg.norm, p, x, cfg.norm_eps)
+
+
 def _tokens(tokens: Any, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(tokens, device=device)
 
@@ -234,6 +249,9 @@ def init_params(cfg: ArchConfig, generator: torch.Generator) -> Dict:
         if tail:
             params["tail"] = mamba((tail,))
         params["shared_attn"] = dense(())
+    elif cfg.block_pattern == "zamba2":
+        params["layers"] = mamba((cfg.n_layers,))
+        params.update(zamba2_mod.shared_params(generator, cfg, dt))
     elif mo is not None:
         if mo.first_k_dense:
             params["dense_layers"] = dense((mo.first_k_dense,),
@@ -373,9 +391,8 @@ def _block_attn(cfg: ArchConfig, p: Dict, x: torch.Tensor,
 def _dense_block(cfg: ArchConfig, p: Dict, x: torch.Tensor,
                  attn_impl: str, rules: Optional[Rules] = None
                  ) -> torch.Tensor:
-    x = x + _block_attn(cfg, p, apply_norm(cfg.norm, p["ln1"], x), attn_impl,
-                        rules)
-    x = x + apply_mlp(p["mlp"], apply_norm(cfg.norm, p["ln2"], x),
+    x = x + _block_attn(cfg, p, _norm(cfg, p["ln1"], x), attn_impl, rules)
+    x = x + apply_mlp(p["mlp"], _norm(cfg, p["ln2"], x),
                       cfg.mlp_type, cfg.activation, cfg.gate_sigmoid,
                       fused=attn_impl != "train")
     return x
@@ -403,9 +420,8 @@ def _moe_ffn(cfg: ArchConfig, p: Dict, x: torch.Tensor, fused: bool,
 def _moe_block(cfg: ArchConfig, p: Dict, x: torch.Tensor,
                attn_impl: str, rules: Optional[Rules] = None
                ) -> torch.Tensor:
-    x = x + _block_attn(cfg, p, apply_norm(cfg.norm, p["ln1"], x), attn_impl,
-                        rules)
-    x = x + _moe_ffn(cfg, p["moe"], apply_norm(cfg.norm, p["ln2"], x),
+    x = x + _block_attn(cfg, p, _norm(cfg, p["ln1"], x), attn_impl, rules)
+    x = x + _moe_ffn(cfg, p["moe"], _norm(cfg, p["ln2"], x),
                      attn_impl != "train", rules)
     return x
 
@@ -463,7 +479,7 @@ def _embed_inputs(cfg: ArchConfig, params: Dict,
 
 
 def _logits(cfg: ArchConfig, params: Dict, x: torch.Tensor) -> torch.Tensor:
-    x = apply_norm(cfg.norm, params["final_norm"], x)
+    x = _norm(cfg, params["final_norm"], x)
     if cfg.tie_embeddings:
         return (x.to(torch.float32)
                 @ params["embed"]["table"].T.to(torch.float32))
@@ -474,8 +490,45 @@ def _mamba_block(cfg: ArchConfig, p: Dict, x: torch.Tensor,
                  attn_impl: str, rules: Optional[Rules] = None
                  ) -> torch.Tensor:
     return x + mamba_mod.mamba2_forward(
-        p["mamba"], apply_norm(cfg.norm, p["ln"], x), cfg.d_model, cfg.ssm,
+        p["mamba"], _norm(cfg, p["ln"], x), cfg.d_model, cfg.ssm,
         cfg.gate_sigmoid, fused=attn_impl != "train", rules=rules)
+
+
+def _zamba2_layer(cfg: ArchConfig, p: Dict, x: torch.Tensor,
+                  attn_impl: str, rules: Optional[Rules] = None,
+                  emb: Optional[torch.Tensor] = None,
+                  state: Optional[Dict] = None) -> torch.Tensor:
+    """One Mamba2 layer of the zamba2 pattern, with its shared-block call
+    where ``p`` holds one (``block``, ``call``).  ``state``: the layer's
+    decode cache slots (``ssm``: its Mamba2 state; ``kv``: its call's KV
+    cache), written by a prefill."""
+    h = x
+    if "block" in p:
+        h = x + zamba2_mod.shared_call(
+            cfg, p["block"], p["call"], x, emb, attn_impl,
+            None if state is None else state["kv"])
+    return x + mamba_mod.mamba2_forward(
+        p["layer"]["mamba"], _norm(cfg, p["layer"]["ln"], h), cfg.d_model,
+        cfg.ssm, cfg.gate_sigmoid, fused=attn_impl != "train",
+        norm_groups=cfg.ssm.n_groups, eps=cfg.norm_eps,
+        state=None if state is None else state["ssm"])
+
+
+def _zamba2_calls(cfg: ArchConfig, params: Dict) -> List[Dict]:
+    """Each Mamba2 layer's parameters, with its shared-block call's
+    (``block``: the shared blocks taken in turn, ``call``: the call's
+    linear and adapter) where it has one."""
+    sh = cfg.shared
+    at = {layer: c for c, layer in enumerate(sh.layers)}
+    blocks = _unbind_layers(params["shared"])
+    calls = _unbind_layers(params["hybrid"])
+    out = []
+    for i, layer in enumerate(_unbind_layers(params["layers"])):
+        p = {"layer": layer}
+        if i in at:
+            p.update(block=blocks[at[i] % sh.n_blocks], call=calls[at[i]])
+        out.append(p)
+    return out
 
 
 def _rwkv_block(cfg: ArchConfig, p: Dict, x: torch.Tensor,
@@ -494,11 +547,30 @@ def _stacks(cfg: ArchConfig, dense: Callable, moe: Callable) -> List:
     return [("dense_layers", dense), ("layers", moe)]
 
 
-def _layer_calls(cfg: ArchConfig, params: Dict) -> List[Tuple[Callable,
-                                                              Dict]]:
+def _layer_calls(cfg: ArchConfig, params: Dict,
+                 emb: Optional[torch.Tensor] = None,
+                 cache: Optional[Dict] = None) -> List[Tuple[Callable,
+                                                             Dict]]:
     """(block, layer parameters) of every layer call of the forward, in
     order.  The hybrid calls the one ``shared_attn`` block after each group
-    of Mamba2 layers, then runs its tail."""
+    of Mamba2 layers, then runs its tail.  The zamba2 pattern's layers take
+    the embedding output ``emb`` and, for a prefill, their slots of the
+    decode ``cache``."""
+    if cfg.block_pattern == "zamba2":
+        sh = cfg.shared
+        out = []
+        for i, p in enumerate(_zamba2_calls(cfg, params)):
+            state = None
+            if cache is not None:
+                state = {"ssm": _layer(cache["layers"], i), "kv": None}
+                if i in sh.layers:
+                    state["kv"] = _layer(cache["hybrid"], sh.layers.index(i))
+            out.append((functools.partial(_zamba2_layer, emb=emb,
+                                          state=state), p))
+        return out
+    if cache is not None:
+        raise ValueError(f"prefill fills the decode cache of the zamba2 "
+                         f"pattern, not of {cfg.block_pattern!r}")
     if cfg.block_pattern == "rwkv":
         return [(_rwkv_block, p) for p in _unbind_layers(params["layers"])]
     if cfg.block_pattern == "mamba_hybrid":
@@ -515,17 +587,26 @@ def _layer_calls(cfg: ArchConfig, params: Dict) -> List[Tuple[Callable,
             if key in params for p in _unbind_layers(params[key])]
 
 
+def _no_mesh(cfg: ArchConfig, rules: Optional[Rules]) -> None:
+    if rules is not None and cfg.block_pattern == "zamba2":
+        raise NotImplementedError("the zamba2 pattern (Zamba2's published "
+                                  "shared blocks) has no mesh route")
+
+
 def _stack(params: Dict, batch: Dict, cfg: ArchConfig,
-           attn_impl: str, rules: Optional[Rules] = None) -> torch.Tensor:
+           attn_impl: str, rules: Optional[Rules] = None,
+           cache: Optional[Dict] = None) -> torch.Tensor:
     """The inputs' embedding, the layers and the head -> float32 logits
-    (B, S, vocab): the one layer stack of both routes."""
+    (B, S, vocab): the one layer stack of both routes (and of a prefill
+    into ``cache``)."""
     if attn_impl not in ATTN_IMPLS:
         raise KeyError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                        f"{attn_impl!r}")
+    _no_mesh(cfg, rules)
     with span("lm.embed"):
         x = _embed_inputs(cfg, params, batch, rules)
     remat = attn_impl == "train" and cfg.remat and torch.is_grad_enabled()
-    for block, p in _layer_calls(cfg, params):
+    for block, p in _layer_calls(cfg, params, x, cache):
         with span("lm.block"):
             if remat:
                 x = checkpoint(block, cfg, p, x, attn_impl, rules,
@@ -552,6 +633,24 @@ def forward(params: Dict, batch: Dict, cfg: ArchConfig,
     with (torch.no_grad() if rules is not None
           else torch.inference_mode()), span("lm.forward"):
         return _stack(params, batch, cfg, attn_impl, rules)
+
+
+def prefill(params: Dict, batch: Dict, cfg: ArchConfig, max_len: int,
+            attn_impl: str = "cuda") -> Tuple[torch.Tensor, Dict]:
+    """The forward over ``batch["tokens"]`` (B, S) that also fills a decode
+    cache of ``max_len`` >= S positions (the zamba2 pattern's: each Mamba2
+    layer's conv history and state after the last position, each
+    shared-block call's keys and values): -> (float32 logits (B, S, vocab),
+    the cache at ``pos`` S), from which :func:`serve_step` decodes on."""
+    tok = batch["tokens"]
+    b, s = tok.shape
+    if s > max_len:
+        raise ValueError(f"a prompt of {s} positions in a cache of {max_len}")
+    cache = init_cache(cfg, b, max_len, params["embed"]["table"].device)
+    with torch.inference_mode(), span("lm.forward"):
+        logits = _stack(params, batch, cfg, attn_impl, cache=cache)
+        cache["pos"].fill_(s)
+    return logits, cache
 
 
 def _cross_entropy(logits: torch.Tensor,
@@ -717,6 +816,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
     cache: Dict[str, Any] = {"pos": torch.zeros((), dtype=torch.int32,
                                                 device=device)}
+    if cfg.block_pattern == "zamba2":
+        cache["layers"] = mamba_mod.init_mamba_cache(
+            batch, cfg.d_model, cfg.ssm, dt, device, lead=(cfg.n_layers,))
+        cache["hybrid"] = mk(len(cfg.shared.layers))
+        return cache
     if cfg.block_pattern == "rwkv":
         cache["layers"] = rwkv_mod.init_rwkv_cache(
             batch, cfg.d_model, cfg.n_heads, dt, device,
@@ -757,19 +861,19 @@ def _decode_attn(cfg: ArchConfig, p: Dict, x, layer_cache, pos,
 
 
 def _decode_dense_block(cfg, p, x, layer_cache, pos, rules=None):
-    att, new_cache = _decode_attn(cfg, p, apply_norm(cfg.norm, p["ln1"], x),
+    att, new_cache = _decode_attn(cfg, p, _norm(cfg, p["ln1"], x),
                                   layer_cache, pos, rules)
     x = x + att
-    x = x + apply_mlp(p["mlp"], apply_norm(cfg.norm, p["ln2"], x),
+    x = x + apply_mlp(p["mlp"], _norm(cfg, p["ln2"], x),
                       cfg.mlp_type, cfg.activation, cfg.gate_sigmoid)
     return x, new_cache
 
 
 def _decode_moe_block(cfg, p, x, layer_cache, pos, rules=None):
-    att, new_cache = _decode_attn(cfg, p, apply_norm(cfg.norm, p["ln1"], x),
+    att, new_cache = _decode_attn(cfg, p, _norm(cfg, p["ln1"], x),
                                   layer_cache, pos, rules)
     x = x + att
-    x = x + moe_mod.apply_moe(p["moe"], apply_norm(cfg.norm, p["ln2"], x),
+    x = x + moe_mod.apply_moe(p["moe"], _norm(cfg, p["ln2"], x),
                               cfg.moe, cfg.mlp_type, cfg.activation,
                               gate_sigmoid=cfg.gate_sigmoid, rules=rules)
     return x, new_cache
@@ -777,7 +881,7 @@ def _decode_moe_block(cfg, p, x, layer_cache, pos, rules=None):
 
 def _decode_mamba_block(cfg, p, x, layer_cache, pos, rules=None):
     out, new_cache = mamba_mod.mamba2_decode(
-        p["mamba"], apply_norm(cfg.norm, p["ln"], x), layer_cache,
+        p["mamba"], _norm(cfg, p["ln"], x), layer_cache,
         cfg.d_model, cfg.ssm, cfg.gate_sigmoid, rules)
     return x + out, new_cache
 
@@ -855,7 +959,28 @@ def serve_step(params: Dict, cache: Dict, batch: Dict, cfg: ArchConfig,
         return _serve_step(params, cache, batch, cfg, rules)
 
 
+def _zamba2_step(params: Dict, cache: Dict, x: torch.Tensor,
+                 cfg: ArchConfig) -> torch.Tensor:
+    """The zamba2 pattern's layers over one token's embedding x (B, 1, d),
+    each layer's state and each call's KV cache updated in place."""
+    sh, pos = cfg.shared, cache["pos"]
+    emb = x
+    for i, p in enumerate(_zamba2_calls(cfg, params)):
+        h = x
+        if "block" in p:
+            kv = _layer(cache["hybrid"], sh.layers.index(i))
+            h = x + zamba2_mod.shared_decode(cfg, p["block"], p["call"], x,
+                                             emb, kv, pos)
+        out, _ = mamba_mod.mamba2_decode(
+            p["layer"]["mamba"], _norm(cfg, p["layer"]["ln"], h),
+            _layer(cache["layers"], i), cfg.d_model, cfg.ssm,
+            cfg.gate_sigmoid, norm_groups=cfg.ssm.n_groups, eps=cfg.norm_eps)
+        x = x + out
+    return x
+
+
 def _serve_step(params, cache, batch, cfg, rules):
+    _no_mesh(cfg, rules)
     pos = cache["pos"]
     if rules is None:
         tok = _tokens(batch["token"], pos.device)
@@ -865,6 +990,11 @@ def _serve_step(params, cache, batch, cfg, rules):
         x = embed_tokens(params["embed"], tok[:, None])  # (B, 1, d)
     else:
         x = _embed_on_mesh(params["embed"]["table"], tok[:, None])
+    if cfg.block_pattern == "zamba2":
+        x = _zamba2_step(params, cache, x, cfg)
+        new = {"pos": pos + 1}
+        new.update((k, v) for k, v in cache.items() if k != "pos")
+        return _logits(cfg, params, x[:, 0]), new
     calls = _decode_calls(cfg, params)
     work, back = (cache, []) if rules is None else _indexable(cache, calls)
     for block, p, key, i in calls:

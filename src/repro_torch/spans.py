@@ -33,7 +33,11 @@ NAMES = ("lm.forward",  # the whole forward: embedding, layers, head
          "lm.rope",     # the rotary embedding of queries and keys
          "lm.mlp",      # a block's MLP
          "lm.gate",     # the MLP's activation and gating multiply
-         "lm.logits")   # the final norm and the logits
+         "lm.logits",   # the final norm and the logits
+         "lm.mamba",    # a Mamba2 mixer: projections, conv, scan, gated norm
+         "lm.ssd",      # the mixer's SSD chunk scan
+         "lm.shared")   # a zamba2 shared-block call: concat, norms,
+                        # attention, adapter MLP and the call's linear
 
 
 class Span(NamedTuple):

@@ -839,6 +839,118 @@ def test_lm_forward_on_card_launches_kernel_per_layer(dev):
     assert float((logits.cpu() - host).abs().max()) <= 1e-4 * scale
 
 
+@pytest.mark.parametrize("s", [1, 255, 256, 4095, 4096])
+def test_flash_attention_dh224_matches_plain(dev, s):
+    """The dh-224 instance (Zamba2's shared block: 32 heads, causal, the
+    published scale (224 / 2)^-1/2) against the plain version at the bf16
+    bounds (atol 3e-2, each row within 4e-2 of its largest value), S about
+    the 48-key tiles and the 128-row query tiles up to the context's 4096;
+    one launch, counted as wgmma and dh-224."""
+    from repro_torch.compile.lowerings.common import require_full_float32
+    from repro_torch.kernels import flash_attention as fa
+
+    require_full_float32(dev)
+    g = torch.Generator(device=dev).manual_seed(s)
+    q, k, v = (torch.randn(32, s, 224, generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    scale = (224 / 2) ** -0.5
+    counts = (fa.flash_attention_cuda.launches,
+              fa.flash_attention_cuda.wgmma_launches,
+              fa.flash_attention_cuda.dh224_launches)
+    got = ops.flash_attention(q, k, v, True, scale=scale)
+    assert (fa.flash_attention_cuda.launches,
+            fa.flash_attention_cuda.wgmma_launches,
+            fa.flash_attention_cuda.dh224_launches) == tuple(
+                c + 1 for c in counts)
+    want = fa.flash_attention_plain(q, k, v, True, scale)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    diff = (got.float() - want.float()).abs()
+    assert float(diff.max()) <= 3e-2
+    rel = float((diff.amax(-1) / want.float().abs().amax(-1)
+                 .clamp_min(1e-30)).max())
+    assert rel <= 4e-2
+    # the scale is the caller's: the default 1/sqrt(224) gives another answer
+    other = ops.flash_attention(q, k, v, True)
+    assert float((other.float() - want.float()).abs().max()) > 3e-2 or s == 1
+
+
+def _zamba2_published(dev, layers):
+    """The published Zamba2-7B's configuration file cut to its first
+    ``layers`` Mamba2 layers (the hybrid calls among them kept), the
+    port's configuration for it and weights drawn as the benchmark draws
+    them, in bf16 on the card."""
+    import json
+    from pathlib import Path
+
+    from bench.programs import hybrid as prog
+
+    cfg = json.loads((Path(__file__).resolve().parents[1] / "bench"
+                      / "configs" / "zamba2-7b.json").read_text())
+    cfg["num_hidden_layers"] = layers
+    cfg["layers_block_type"] = cfg["layers_block_type"][:layers]
+    cfg["hybrid_layer_ids"] = [i for i in cfg["hybrid_layer_ids"]
+                               if i < layers]
+    a = prog.arch(cfg)
+    g = torch.Generator(device=dev).manual_seed(layers)
+    return cfg, a, prog.draw_params(a, g, dev), g
+
+
+def test_zamba2_published_route_prefill_and_decode(dev):
+    """Zamba2-7B at its published widths cut to layers 0-11 (hybrid calls
+    at 6 and 11: both shared blocks), bf16, on a ragged 1000-token prompt:
+    ``prefill`` (the forward, filling the decode cache) and 8
+    ``serve_step`` decode steps against the plain float32 reference's full
+    forward over the 1008 tokens (``bench/reference/hybrid.py``), each row's
+    ``|p - r| / |r|`` within 0.05 (bf16 weights and activations over 12
+    layers read 0.030-0.037 on an H100); one flash_attention launch a
+    call, on the dh-224 instance."""
+    from bench.reference import hybrid as ref
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.lm import model as M
+
+    cfg, a, params, g = _zamba2_published(dev, 12)
+    tok = torch.randint(0, a.vocab_size, (1008,), generator=g, device=dev)
+    before = fa.flash_attention_cuda.dh224_launches
+    logits, cache = M.prefill(params, {"tokens": tok[None, :1000]}, a, 1008)
+    assert fa.flash_attention_cuda.dh224_launches == before + 2
+    dec = []
+    for i in range(1000, 1008):
+        step, cache = M.serve_step(params, cache, {"token": tok[None, i]}, a)
+        dec.append(step[0])
+    rows = torch.cat([torch.arange(0, 1000, 37, device=dev),
+                      torch.arange(992, 1008, device=dev)])
+    want = ref.forward_rows(cfg, params, tok, None, rows)
+    got = torch.cat([logits[0, rows[rows < 1000]], torch.stack(dec)])
+    err = (got - want).norm(dim=-1) / want.norm(dim=-1)
+    print("zamba2 12-layer logit_err: prefill", float(err[:-8].max()),
+          "decode", float(err[-8:].max()))
+    assert float(err.max()) <= 0.05, err
+
+
+def test_zamba2_published_forward_launches_13_calls(dev):
+    """The whole published model (81 Mamba2 layers, 13 shared-block
+    calls) through ``lm.model.forward`` with its default route: one
+    flash_attention launch a call, each on the dh-224 instance; ragged
+    (1000 positions: the last 256-position SSD chunk partial)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.lm import mamba2
+    from repro_torch.lm import model as M
+
+    _, a, params, g = _zamba2_published(dev, 81)
+    tok = torch.randint(0, a.vocab_size, (1, 1000), generator=g, device=dev)
+    counts = (fa.flash_attention_cuda.launches,
+              fa.flash_attention_cuda.dh224_launches,
+              mamba2.ssd_scan.padded_positions)
+    logits = M.forward(params, {"tokens": tok}, a)
+    assert (fa.flash_attention_cuda.launches,
+            fa.flash_attention_cuda.dh224_launches,
+            mamba2.ssd_scan.padded_positions) == (
+                counts[0] + 13, counts[1] + 13, counts[2] + 81 * 24)
+    assert logits.shape == (1, 1000, 32000)
+    assert bool(torch.isfinite(logits).all())
+
+
 def _to_cpu(tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}

@@ -28,6 +28,9 @@ from repro_torch.lm import model
 S = spans.Span
 MS = 1_000_000
 
+# the spans only the zamba2 pattern opens (its Mamba2 mixers, their scans
+# and its shared-block calls)
+HYBRID = {"lm.mamba", "lm.ssd", "lm.shared"}
 SIX = ("norm_device_share", "rope_device_share", "gate_device_share",
        "logits_device_share", "forward_host_ms", "dispatch_idle_share")
 
@@ -124,7 +127,7 @@ def test_on_counts_and_parents_of_a_forward(llava):
     rec = spans.take()
     assert Counter(r.name for r in rec) == {
         k: 2 * v for k, v in _per_forward(cfg.n_layers).items()}
-    assert {r.name for r in rec} == set(spans.NAMES)
+    assert {r.name for r in rec} == set(spans.NAMES) - HYBRID
     parent = {"lm.forward": None, "lm.embed": "lm.forward",
               "lm.block": "lm.forward", "lm.logits": "lm.forward",
               "lm.attn": "lm.block", "lm.mlp": "lm.block",
@@ -148,6 +151,46 @@ def test_on_counts_and_parents_of_a_forward(llava):
         assert root == (forwards[0] if i < forwards[1] else forwards[1])
     norms = Counter(rec[r.parent].name for r in rec if r.name == "lm.norm")
     assert norms == {"lm.block": 4 * cfg.n_layers, "lm.logits": 2}
+
+
+def test_on_counts_and_parents_of_the_zamba2_forward():
+    """The published Zamba2's route at its reduced widths (7 Mamba2
+    layers, shared-block calls at 1, 3 and 5) on a ragged 45 positions:
+    each layer's ``lm.mamba`` with its ``lm.ssd`` inside, each call's
+    ``lm.shared`` around its two norms, attention and MLP, and every name
+    of :data:`spans.NAMES` recorded."""
+    cfg = get_config("zamba2-7b-hf").reduced()
+    gen = torch.Generator().manual_seed(5)
+    params = model.init_params(cfg, gen)
+    tok = torch.randint(0, cfg.vocab_size, (1, 45), generator=gen)
+    off = model.forward(params, {"tokens": tok}, cfg)
+    spans.enable()
+    on = model.forward(params, {"tokens": tok}, cfg)
+    spans.disable()
+    assert torch.equal(on, off)
+    rec = spans.take()
+    layers, calls = cfg.n_layers, len(cfg.shared.layers)
+    assert Counter(r.name for r in rec) == {
+        "lm.forward": 1, "lm.embed": 1, "lm.block": layers,
+        "lm.mamba": layers, "lm.ssd": layers, "lm.shared": calls,
+        "lm.attn": calls, "lm.rope": calls, "lm.mlp": calls,
+        "lm.gate": calls, "lm.norm": layers + 2 * calls + 1,
+        "lm.logits": 1}
+    assert {r.name for r in rec} == set(spans.NAMES)
+    parent = {"lm.embed": "lm.forward", "lm.block": "lm.forward",
+              "lm.logits": "lm.forward", "lm.mamba": "lm.block",
+              "lm.ssd": "lm.mamba", "lm.shared": "lm.block",
+              "lm.attn": "lm.shared", "lm.rope": "lm.attn",
+              "lm.mlp": "lm.shared", "lm.gate": "lm.mlp"}
+    for r in rec[1:]:
+        got = rec[r.parent].name
+        if r.name == "lm.norm":
+            assert got in ("lm.block", "lm.shared", "lm.logits")
+        else:
+            assert got == parent[r.name], r
+    norms = Counter(rec[r.parent].name for r in rec if r.name == "lm.norm")
+    assert norms == {"lm.block": layers, "lm.shared": 2 * calls,
+                     "lm.logits": 1}
 
 
 def test_on_a_span_records_and_opens_no_profiler_range(llava):
